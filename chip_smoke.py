@@ -1,0 +1,289 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (pcgmix_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+
+1. Card and build: print the card's name and power limit as nvidia-smi
+   gives them; build the CUDA mix kernels from csrc/ and time the build.
+2. Kernels against their plain PyTorch versions on the card, at the main
+   path's shape (B=64, C=4, T=2500, K=4, fp32, plans from the port's own
+   AugmentEngine), in bf16, and on a K=27 geometry with zero-length and
+   boundary pieces.  Tolerances: K1 1e-6 abs (fp32); K2 1e-5 abs (fp32; the
+   6-term envelope is summed in another order than the plain einsum); K1
+   bf16 bit-equal to the plain version computed in fp32 and cast; K2 bf16
+   within one bf16 ulp of it.  Each is timed with CUDA events (median of 60
+   launches, queued behind a device sleep so host overhead stays out).
+3. The slice end to end: ``train_model`` with full-width ResNet9, batch 64,
+   4 × 2500 inputs, 16 steps, once with PCGmix+ ``durmixmagwarp(0.2,4)``
+   and once with PCGmix ``durratiomixup``; each run must launch its kernel
+   once per augmented step.  A small run on the card is also held against
+   the same run on the CPU (plain versions): equal loss traces.  A profiled
+   PCGmix+ run prints device time by kernel and the device's busy share.
+4. Summary: a ``{"kernels": [...]}`` line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+It needs no network and one card, and exits non-zero without CUDA or
+without the package beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+B, C, T = 64, 4, 2500
+MAIN_STEPS = 16
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory bytes/s, and float32 FLOP/s outside the tensor cores (the
+# mix kernels do fp32 FMAs only).  The bounds below are stated against them.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def device_time_ms(torch, fn, n=60, per_burst=10, sleep_cycles=20_000_000):
+    """Median device time of ``fn`` over ``n`` launches.  Each burst is queued
+    behind a device sleep, so the events bracket back-to-back device work and
+    not the host's launch overhead."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n // per_burst):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(per_burst + 1)]
+        torch.cuda._sleep(sleep_cycles)
+        events[0].record()
+        for i in range(per_burst):
+            fn()
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        times += [events[i].elapsed_time(events[i + 1]) for i in range(per_burst)]
+    return float(sorted(times)[len(times) // 2])
+
+
+def profile_breakdown(torch, run, card, top=10):
+    """Print device time by kernel over ``run`` (torch.profiler) and the
+    device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_us = (time.time() - t0) * 1e6
+    # kernel events only: a CPU op's self device time repeats its kernels'
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in kernels)
+    if not busy:
+        print("profile: device time not measured (the trace holds no kernels)")
+        return
+    print(f"profile: device busy {busy:.1f} us of {wall_us:.1f} us wall "
+          f"({100 * busy / wall_us:.1f}%) on {card}")
+    for name, t, n in sorted(kernels, key=lambda k: -k[1])[:top]:
+        print(f"profile: {100 * t / busy:6.2f}% {t:12.1f} us {n:5d}x {name[:100]}")
+    for name, t, n in kernels:
+        if "mix_kernel" in name:
+            print(f"profile: {100 * t / busy:6.3f}% {t:12.1f} us {n:5d}x {name[:100]}")
+
+
+def k27_geometry(np, rng, n, sig_len, k=27):
+    """Disjoint pieces covering [0, T) with every fourth empty, pieces at
+    both ends, sources running past the row (clamped), random selectors."""
+    dst = np.sort(rng.integers(0, sig_len, (n, k)), axis=1)
+    dst[:, 0] = 0
+    ln = np.diff(np.concatenate([dst, np.full((n, 1), sig_len)], 1), axis=1)
+    ln[:, 1::4] = 0
+    src = np.clip(dst + rng.integers(-60, 60, (n, k)), -4, sig_len + 4)
+    return {"mix": rng.permutation(n), "dst": dst, "src": src, "len": ln,
+            "sel": rng.integers(0, 2, (n, k)),
+            "alpha": rng.uniform(0, 1, (n, k)).astype(np.float32),
+            "knots": rng.normal(1.0, 0.2, (n, 6, C)).astype(np.float32),
+            "lam": 1.0}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import numpy as np
+
+        from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+        from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+        from pcgmix_tpu_torch.ops import mix_kernels as mk
+        from pcgmix_tpu_torch.train import TrainConfig, train_model
+    except ImportError as e:
+        print(f"chip_smoke: the pcgmix_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 2
+
+    # ---- 1. card and build ------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]}")
+    t0 = time.time()
+    mk.build_library(verbose=True)
+    print(f"kernel build: {time.time() - t0:.3f} s")
+    bw, flops = HBM_BYTES_PER_S, FP32_FLOP_PER_S
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ---- 2. kernels against their plain versions --------------------------
+    ds = synthetic_physionet_dict(num_wavs_train=36, num_wavs_test=12,
+                                  segments_per_wav=8, sig_len=T, seed=11)
+    split = physionet_split(ds, "train")
+    x32 = torch.from_numpy(split.data[:B]).to(dev)
+    frames, labels = split.frames[:B], split.label[:B]
+    rng = np.random.default_rng(11)
+    k27 = AugmentEngine.device_arrays(k27_geometry(np, rng, B, T), dev)
+    idn = torch.arange(B, dtype=torch.int32, device=dev)
+
+    def plan(method):
+        eng = AugmentEngine(AugmentConfig(method, B, C, T))
+        return AugmentEngine.device_arrays(eng.plan(7, frames, labels).arrays, dev)
+
+    def pieces(a):
+        return a["dst"], a["src"], a["len"], a["sel"], a["alpha"]
+
+    def k1(x, a, plain=False):
+        fn = mk.piecewise_mix_pairs_plain if plain else mk.piecewise_mix_pairs
+        return lambda: fn(x, idn, a["mix"], *pieces(a))
+
+    def k2(x, a, plain=False):
+        fn = mk.pcgmix_plus_fused_plain if plain else mk.pcgmix_plus_fused
+        return lambda: fn(x, a["mix"], *pieces(a), a["knots"])
+
+    def max_err(make, x, a):
+        got, ref = make(x, a)(), make(x, a, plain=True)()
+        torch.cuda.synchronize()
+        return (got.float() - ref.float()).abs().max().item(), got, ref
+
+    pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
+    x16 = x32.bfloat16()
+    report = {}
+    for name, make, a_main, tol in (
+        ("piecewise_mix_pairs", k1, pcgmix, 1e-6),
+        ("pcgmix_plus_fused", k2, pcgmix_plus, 1e-5),
+    ):
+        err_main, _, _ = max_err(make, x32, a_main)
+        err_k27, _, _ = max_err(make, x32, k27)
+        _, got16, ref16 = max_err(make, x16, a_main)
+        n_diff16 = int((got16 != ref16).sum().item())
+        if name == "piecewise_mix_pairs":
+            bf16_ok = n_diff16 == 0
+        else:  # one bf16 ulp: 2^-7 relative to the larger magnitude
+            ulp = torch.maximum(got16.float().abs(), ref16.float().abs()) * 2.0 ** -7
+            bf16_ok = bool(((got16.float() - ref16.float()).abs() <= ulp).all())
+        print(f"{name}: max_abs_err main fp32 {err_main:.3e}, K=27 {err_k27:.3e} "
+              f"(tol {tol:g}); bf16 {'ok' if bf16_ok else 'MISMATCH'}, "
+              f"{n_diff16} of {got16.numel()} elements differ from the plain version")
+        if not (err_main <= tol and err_k27 <= tol and bf16_ok):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        ms = device_time_ms(torch, make(x32, a_main))
+        plain_ms = device_time_ms(torch, make(x32, a_main, plain=True))
+        # bytes the function must move: the batch read once, the output
+        # written once, the row indices (K1: idx1 and idx2; K2: mix), the
+        # five piece arrays (and K2's knots and basis) read once
+        K = a_main["dst"].shape[1]
+        n_idx = 2 if name == "piecewise_mix_pairs" else 1
+        nbytes = 2 * x32.numel() * 4 + n_idx * B * 4 + B * K * 5 * 4
+        covered = int(a_main["len"].sum().item()) * C
+        nflops = 4 * covered
+        if name == "pcgmix_plus_fused":
+            k2n = a_main["knots"].shape[1]
+            nbytes += a_main["knots"].numel() * 4 + T * k2n * 4
+            nflops += (2 * k2n + 1) * x32.numel()
+        bound_ms = max(nbytes / bw, nflops / flops) * 1e3
+        report[name] = {
+            "max_abs_err": max(err_main, err_k27), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if nbytes / bw >= nflops / flops else "operations",
+        }
+        print(f"{name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+              f"{bound_ms:.6f} ms ({nbytes} B) on {card}")
+
+    # ---- 3. the slice end to end -------------------------------------------
+    small = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4,
+                                     segments_per_wav=2, sig_len=512, seed=3)
+    for method in ("durmixmagwarp(0.2,4)", "durratiomixup"):
+        cfg = dict(model="resnet9-5k", method=method, num_epochs=3, batch_size=8,
+                   save_artifacts=False)
+        on_card = train_model(TrainConfig(**cfg), small)["train_loss"]
+        on_cpu = train_model(TrainConfig(**cfg, device="cpu"), small)["train_loss"]
+        diff = float(np.max(np.abs(np.subtract(on_card, on_cpu))))
+        print(f"small {method}: card {on_card} cpu {on_cpu} max |diff| {diff:.3e}")
+        if not abs(on_card[0] - on_cpu[0]) < 1e-5 or diff > 1e-3:
+            raise AssertionError(f"{method}: card and CPU loss traces disagree")
+
+    launches = {}
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+                           ("durratiomixup", "piecewise_mix_pairs")):
+        cfg = TrainConfig(model="resnet9", method=method, num_epochs=4, batch_size=B,
+                          num_channels=C, save_artifacts=False)
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        t0 = time.time()
+        perf = train_model(cfg, ds)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = mk.launch_counts()
+        steps = perf["steps"][-1]
+        launches[kernel] = counts[kernel]
+        other = [k for k in counts if k != kernel]
+        if steps != MAIN_STEPS or counts[kernel] != steps or any(counts[k] for k in other):
+            raise AssertionError(f"{method}: {steps} steps but launches {counts}")
+        if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
+            raise AssertionError(f"{method}: non-finite loss or no eval")
+        # steady state: plot epochs after the first (cuDNN picks algorithms
+        # in epoch 1); `times` is cumulative and synced at plot epochs
+        d_steps = perf["steps"][-1] - perf["steps"][0]
+        d_time = perf["times"][-1] - perf["times"][0]
+        print(f"train {method}: resnet9 batch {B} x {C}x{T}, {steps} steps, "
+              f"launches {counts}, losses {perf['train_loss']}, "
+              f"test_accuracy {perf['test_accuracy'][-1]}")
+        print(f"train {method}: {d_steps / d_time:.3f} steps/s, "
+              f"{B * d_steps / d_time:.1f} samples/s (epochs 2-4), "
+              f"{steps / wall:.3f} steps/s over the whole call incl. eval "
+              f"({wall:.3f} s) on {card}")
+
+    # where a PCGmix+ step's device time goes (informational: the profiler's
+    # CUDA tracing is the only source, and an empty trace fails nothing)
+    cfg = TrainConfig(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
+                      batch_size=B, num_channels=C, save_artifacts=False)
+    profile_breakdown(torch, lambda: train_model(cfg, ds), card)
+
+    # ---- 4. summary ---------------------------------------------------------
+    replaces = {"piecewise_mix_pairs": "pcgmix_tpu/ops/pallas_mix.py:74",
+                "pcgmix_plus_fused": "pcgmix_tpu/ops/pallas_mix.py:241"}
+    kernels = [
+        {"name": name, "route": "cuda",
+         "source": "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu",
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+        for name, r in report.items()
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Packed in-memory dataset container (counterpart: ``pcgmix_tpu/data/datasets.py``).
+
+Data contract: reference dataset dicts map ``{'data': {band: [N × T]},
+'label': [N], 'frames': [N × 5], 'wav': [N], 'sig_qual': [N]}`` with a
+'train'/'test' level for PhysioNet.  Splits stay numpy on the host; the
+training loop uploads the train split to the device once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+# The four model input bands and the wide band, in channel order
+# (reference dataloader_physionet.py:29-35).
+MODEL_BANDS = ("25-45", "45-80", "80-200", "200-400")
+WIDE_BAND = "25-400"
+
+
+def bands_to_channels(data_dict: dict, num_channels: int) -> np.ndarray:
+    """Stack band arrays into (N, C, T) float32: the wide band alone for
+    num_channels=1, the four narrow bands for num_channels=4."""
+    if num_channels == 1:
+        return np.asarray(data_dict[WIDE_BAND], np.float32)[:, None, :]
+    if num_channels != 4:
+        raise ValueError(
+            f"num_channels must be 1 (wide band) or 4 (narrow bands), "
+            f"got {num_channels}"
+        )
+    return np.stack(
+        [np.asarray(data_dict[b], np.float32) for b in MODEL_BANDS], axis=1
+    )
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    """One split, fully materialized."""
+
+    data: np.ndarray  # (N, C, T) float32
+    label: np.ndarray  # (N,) int64
+    frames: np.ndarray  # (N, 5) int64
+    wav: np.ndarray  # (N,) object (recording names)
+    sig_qual: np.ndarray  # (N,) int64
+
+    def __len__(self) -> int:
+        return len(self.label)
+
+    def take(self, indices) -> "ArrayDataset":
+        indices = np.asarray(indices, dtype=np.int64)
+        return ArrayDataset(
+            data=self.data[indices],
+            label=self.label[indices],
+            frames=self.frames[indices],
+            wav=self.wav[indices],
+            sig_qual=self.sig_qual[indices],
+        )
+
+    @classmethod
+    def from_dict(cls, d: dict, num_channels: int) -> "ArrayDataset":
+        return cls(
+            data=bands_to_channels(d["data"], num_channels),
+            label=np.asarray(d["label"], np.int64),
+            frames=np.asarray(d["frames"], np.int64),
+            wav=np.asarray(d["wav"], object),
+            sig_qual=np.asarray(d["sig_qual"], np.int64),
+        )

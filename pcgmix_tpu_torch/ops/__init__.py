@@ -1,0 +1,21 @@
+"""Tensor ops: the piecewise mix, the spline warp and their CUDA kernels."""
+
+from pcgmix_tpu_torch.ops.mix_kernels import (
+    launch_counts,
+    pcgmix_plus_fused,
+    piecewise_mix_pairs,
+    reset_launch_counts,
+)
+from pcgmix_tpu_torch.ops.piecewise import piecewise_mix_f32, segment_blend_pieces
+from pcgmix_tpu_torch.ops.spline import cubic_spline_basis, magnitude_warp
+
+__all__ = [
+    "launch_counts",
+    "pcgmix_plus_fused",
+    "piecewise_mix_pairs",
+    "reset_launch_counts",
+    "piecewise_mix_f32",
+    "segment_blend_pieces",
+    "cubic_spline_basis",
+    "magnitude_warp",
+]

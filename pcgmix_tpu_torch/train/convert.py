@@ -1,0 +1,82 @@
+"""Weight carry-over between the two packages (inverse of
+``pcgmix_tpu/train/convert.py::torch_resnet9_to_flax``) and the reference's
+seeded initialization.
+
+Layouts: flax Conv kernel (k, Ci, Co) ↔ torch Conv1d weight (Co, Ci, k);
+flax Dense kernel (Ci, Co) ↔ torch Linear weight (Co, Ci); flax BatchNorm
+scale/bias and batch_stats mean/var ↔ BatchNorm1d weight/bias and
+running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+# torch module path → flax block name (reference ResNet9_myrtle)
+RESNET9_BLOCKS = {
+    "conv1": "conv1",
+    "conv2": "conv2",
+    "res1.0": "res1a",
+    "res1.1": "res1b",
+    "conv3": "conv3",
+    "conv4": "conv4",
+    "res2.0": "res2a",
+    "res2.1": "res2b",
+}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+def jax_resnet9_to_torch(params: Mapping, batch_stats: Mapping) -> dict:
+    """ResNet9 flax trees (numpy leaves) → a ``ResNet9_1D`` state_dict."""
+    sd = {}
+    for tname, fname in RESNET9_BLOCKS.items():
+        conv = params[fname]["Conv1d_0"]["Conv_0"]
+        bn = params[fname]["BatchNorm_0"]["BatchNorm_0"]
+        stats = batch_stats[fname]["BatchNorm_0"]["BatchNorm_0"]
+        sd[f"{tname}.0.weight"] = _t(np.transpose(conv["kernel"], (2, 1, 0)))
+        sd[f"{tname}.0.bias"] = _t(conv["bias"])
+        sd[f"{tname}.1.weight"] = _t(bn["scale"])
+        sd[f"{tname}.1.bias"] = _t(bn["bias"])
+        sd[f"{tname}.1.running_mean"] = _t(stats["mean"])
+        sd[f"{tname}.1.running_var"] = _t(stats["var"])
+        sd[f"{tname}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    dense = params["linear"]["Dense_0"]
+    sd["linear.weight"] = _t(np.asarray(dense["kernel"]).T)
+    sd["linear.bias"] = _t(dense["bias"])
+    return sd
+
+
+def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
+    """Re-draw the model's Conv1d/Linear parameters as a fresh reference
+    model built under ``torch.manual_seed(seed)`` would hold them
+    (reference train_model.py:293), without touching the global RNG.
+
+    PyTorch's default init is kaiming_uniform(a=√5) on the weight — i.e.
+    U(±1/√fan_in) — then U(±1/√fan_in) on the bias, drawn module by module
+    in construction order; BatchNorm draws nothing.  The draws run on a CPU
+    generator (a CUDA generator gives other numbers) and are copied to the
+    model's device.
+    """
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, (nn.Conv1d, nn.Linear)):
+                continue
+            w = torch.empty(m.weight.shape)
+            nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                fan_in = w[0].numel()
+                bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+                b = torch.empty(m.bias.shape)
+                nn.init.uniform_(b, -bound, bound, generator=g)
+                m.bias.copy_(b)
+    return model

@@ -1,0 +1,209 @@
+"""The training loop (counterpart: ``pcgmix_tpu/train/loop.py``; reference
+train_model.py:197-488).
+
+Per batch, the host builds the augmentation plan (tiny, reference-exact
+RNG) and one :class:`TrainStep` gathers the batch from the device-resident
+corpus, mixes it through the CUDA kernels, and runs forward, loss and
+update.  Metrics are recorded at the reference's 11 linspaced "plot epochs"
+into the same performance-dict schema, pickled to ``performance.pkl`` in a
+run directory with the reference naming contract; the final weights go to
+``model.pth``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pcgmix_tpu_torch import utils
+from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
+from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split
+from pcgmix_tpu_torch.exp.dirs import experiment_dir
+from pcgmix_tpu_torch.models import build_model
+from pcgmix_tpu_torch.train.convert import seeded_init
+from pcgmix_tpu_torch.train.losses import init_selc_table
+from pcgmix_tpu_torch.train.metrics import (
+    PerformanceTracker,
+    recording_level_eval,
+    segment_accuracy,
+)
+from pcgmix_tpu_torch.train.steps import TrainStep, eval_step, make_optimizer
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The reference args namespace as a typed config (main-path fields)."""
+
+    dataset: str = "PhysioNet"
+    model: str = "resnet9"
+    method: str = "base"
+    num_epochs: int = 50
+    batch_size: int = 64
+    n_fraction: float = 1.0
+    op: str = "adam"
+    use_sched: bool = True
+    lr_max: float = 0.01
+    train_balance: bool = True
+    num_channels: int = 4
+    grad_clip: float = 0.1
+    seed_data: int = 1100001
+    valid: bool = False
+    seed: int = 1
+    seed_fix: int = 4
+    weight_decay: float = 1e-4
+    num_classes: int = 2
+    experiments_root: str = "experiments"
+    loader_parity: str = "torch"  # epoch-order parity mode
+    save_artifacts: bool = True
+    eval_batch_size: int = 1000
+    true_seed: Optional[int] = None  # train-balance sampling seed override
+                                     # (None: 18, or N from 'trueseed=N')
+    device: str = "cuda"  # "cpu" only when asked for; no silent fallback
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but CUDA is not available; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def build_splits(cfg: TrainConfig, dataset: dict):
+    """Train/test(/valid) splits (reference train_model.py:228-256)."""
+    if cfg.dataset != "PhysioNet":
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r} is not ported yet; only 'PhysioNet' is"
+        )
+    tbal_seed = cfg.true_seed
+    if tbal_seed is None:
+        m = re.search(r"trueseed=(\d+)", cfg.method)
+        tbal_seed = int(m.group(1)) if m else 18
+    common = dict(
+        num_channels=cfg.num_channels, seed_data=cfg.seed_data, seed=cfg.seed,
+        valid=cfg.valid, n_fraction=cfg.n_fraction,
+        train_balance=cfg.train_balance, tbal_seed=tbal_seed,
+    )
+    train = physionet_split(dataset, "train", **common)
+    test = physionet_split(dataset, "valid" if cfg.valid else "test", **common)
+    return train, test
+
+
+def _selc_turnpoint(cfg: TrainConfig) -> int:
+    """SELC activates after 40% of epochs when 'SELC' is in the method."""
+    if "SELC" in cfg.method:
+        return int(cfg.num_epochs * 0.4)
+    return cfg.num_epochs + 1
+
+
+def train_model(cfg: TrainConfig, dataset: dict) -> dict:
+    """Train one configuration end to end; returns the performance dict."""
+    device = resolve_device(cfg.device)
+    if device.type == "cuda":
+        # fp32 means fp32: cuDNN convolutions default to TF32 on Hopper
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    run_dir = utils.check_folder(experiment_dir(cfg)) if cfg.save_artifacts else None
+
+    train_ds, test_ds = build_splits(cfg, dataset)
+    num_steps = cfg.num_epochs * (len(train_ds) // cfg.batch_size)
+    if num_steps == 0:
+        raise ValueError("train split smaller than one batch")
+    C, T = train_ds.data.shape[1], train_ds.data.shape[-1]
+
+    model = seeded_init(build_model(cfg.model, cfg.num_classes, C, T), cfg.seed_fix)
+    model.to(device)
+    opt, sched = make_optimizer(
+        model, cfg.op, cfg.lr_max, cfg.weight_decay, num_steps, cfg.use_sched
+    )
+    engine = AugmentEngine(AugmentConfig(
+        method=cfg.method, batch_size=cfg.batch_size, num_channels=C, sig_len=T,
+    ))
+    step = TrainStep(
+        model, opt, sched,
+        train_data=torch.from_numpy(train_ds.data).to(device),
+        train_labels=torch.from_numpy(train_ds.label).to(device),
+        soft_labels=init_selc_table(train_ds.label, cfg.num_classes, device),
+        num_classes=cfg.num_classes, grad_clip=cfg.grad_clip,
+        selc_es=_selc_turnpoint(cfg), engine=engine,
+    )
+    eye = np.eye(cfg.num_classes, dtype=np.float32)
+    eval_staged = [
+        (torch.from_numpy(b["data"]).to(device),
+         torch.from_numpy(eye[b["label"]]).to(device), b)
+        for b in eval_batches(test_ds, cfg.eval_batch_size)
+    ]
+
+    perf = PerformanceTracker()
+    epoch_plot = set(np.linspace(1, cfg.num_epochs, 11).astype(int).tolist())
+    step_count = 0
+    times: list[float] = []
+    lr_per_step: list[float] = []
+    for epoch in range(1, cfg.num_epochs + 1):
+        t0 = time.time()
+        losses, preds, targets = [], [], []
+        for batch in EpochIterator(
+            train_ds, cfg.batch_size, cfg.seed, step_count, cfg.loader_parity
+        ):
+            plan = None
+            if engine.enabled:
+                plan = engine.plan(
+                    step_count, batch["frames"], batch["label"], batch["wav"]
+                )
+            lr_per_step.append(
+                float(sched.get_last_lr()[0]) if sched is not None else cfg.lr_max
+            )
+            out = step(batch["indices"], plan.arrays if plan else None, epoch)
+            losses.append(out["loss"])
+            preds.append(out["preds"])
+            targets.append(out["target"])
+            step_count += 1
+            if step_count >= num_steps:
+                break
+        if epoch in epoch_plot and losses:
+            # one device→host transfer per plot epoch; it also waits for the
+            # epoch's queued work, so `times` stays exact at plot epochs
+            losses_np = torch.stack(losses).cpu().numpy()
+        times.append(time.time() - t0)
+        if epoch in epoch_plot:
+            perf.add("epochs", epoch)
+            perf.add("steps", step_count)
+            perf.add("train_loss", float(losses_np.mean()))
+            perf.add("train_accuracy", segment_accuracy(
+                torch.cat(preds).cpu().numpy(), torch.cat(targets).cpu().numpy()
+            ))
+            evaluate(model, eval_staged, perf, engine.spec.class_majority)
+            perf.add("times", float(np.sum(times)))
+            if run_dir:
+                utils.save_dict(perf.dict, os.path.join(run_dir, "performance.pkl"))
+        if step_count >= num_steps:
+            break
+
+    if run_dir:
+        torch.save(model.state_dict(), os.path.join(run_dir, "model.pth"))
+    perf.dict["lr_per_step"] = lr_per_step
+    return perf.dict
+
+
+def evaluate(model, staged, perf: PerformanceTracker, class_majority=False) -> None:
+    """Recording-level test pass (reference train_model.py:591-670)."""
+    probs, loss_sum, n = [], 0.0, 0
+    for data, target, _ in staged:
+        p, l = eval_step(model, data, target)
+        probs.append(p.cpu().numpy())
+        loss_sum += float(l.sum())
+        n += len(l)
+    labels = np.concatenate([b["label"] for _, _, b in staged])
+    wavs = np.concatenate([b["wav"] for _, _, b in staged])
+    perf.add("test_loss", loss_sum / max(n, 1))
+    metrics = recording_level_eval(np.concatenate(probs), labels, wavs, class_majority)
+    for k, v in metrics.items():
+        perf.add(k, v)

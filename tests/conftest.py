@@ -58,3 +58,9 @@ def make_frames(rng, batch, sig_len, min_seg=20, max_seg=200):
 @pytest.fixture
 def frames_factory():
     return make_frames
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is absent"
+    )

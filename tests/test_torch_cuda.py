@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU (sm_90a) and nvcc; where CUDA is absent they
+skip.  They import neither JAX nor tests/conftest.py, so on a machine
+without JAX run them as
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+from pcgmix_tpu_torch.ops import mix_kernels
+from pcgmix_tpu_torch.ops.mix_kernels import (
+    launch_counts,
+    pcgmix_plus_fused,
+    pcgmix_plus_fused_plain,
+    piecewise_mix_pairs,
+    piecewise_mix_pairs_plain,
+    reset_launch_counts,
+)
+
+pytestmark = pytest.mark.cuda
+
+B, C, T = 16, 4, 2500
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mix_kernels.build_library()
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def batch():
+    ds = synthetic_physionet_dict(num_wavs_train=12, num_wavs_test=0,
+                                  segments_per_wav=2, sig_len=T, seed=2)
+    split = physionet_split(ds, "train", train_balance=False)
+    assert len(split) >= B
+    return split.data[:B], split.frames[:B], split.label[:B]
+
+
+def _plan(batch, method, dev):
+    data, frames, labels = batch
+    arrays = AugmentEngine(AugmentConfig(method, B, C, T)).plan(3, frames, labels).arrays
+    return torch.from_numpy(data).to(dev), AugmentEngine.device_arrays(arrays, dev)
+
+
+def _args(a):
+    return a["dst"], a["src"], a["len"], a["sel"], a["alpha"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_matches_plain(batch, dev, dtype):
+    x, a = _plan(batch, "durratiomixup(rand)", dev)
+    x = x.to(dtype)
+    idn = torch.arange(B, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    got = piecewise_mix_pairs(x, idn, a["mix"], *_args(a))
+    torch.cuda.synchronize()
+    assert launch_counts()["piecewise_mix_pairs"] == 1
+    ref = piecewise_mix_pairs_plain(x, idn, a["mix"], *_args(a))
+    assert got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-6
+
+
+def test_k2_matches_plain(batch, dev):
+    x, a = _plan(batch, "durmixmagwarp(0.2,4)", dev)
+    got = pcgmix_plus_fused(x, a["mix"], *_args(a), a["knots"])
+    ref = pcgmix_plus_fused_plain(x, a["mix"], *_args(a), a["knots"])
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_k1_concat_pairs_and_many_pieces(dev):
+    rng = np.random.default_rng(0)
+    N, K = 2 * B, 27
+    x = torch.randn(B, C, T, device=dev)
+    dst = np.sort(rng.integers(0, T, (N, K)), axis=1)
+    ln = np.diff(np.concatenate([dst, np.full((N, 1), T)], 1), axis=1)
+    ln[:, ::4] = 0
+    src = np.clip(dst + rng.integers(-50, 50, (N, K)), -3, T + 3)
+    i32 = lambda v: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+    args = (i32(rng.integers(0, B, N)), i32(rng.integers(0, B, N)), i32(dst),
+            i32(src), i32(ln), i32(rng.integers(0, 2, (N, K))),
+            torch.from_numpy(rng.uniform(0, 1, (N, K)).astype(np.float32)).to(dev))
+    got = piecewise_mix_pairs(x, *args, base_is_d1=False)
+    ref = piecewise_mix_pairs_plain(x, *args, base_is_d1=False)
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+def test_training_on_the_card_launches_the_kernels(dev):
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    ds = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4,
+                                  segments_per_wav=2, sig_len=512, seed=3)
+    for method, kernel in (("durratiomixup", "piecewise_mix_pairs"),
+                           ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused")):
+        reset_launch_counts()
+        perf = train_model(TrainConfig(model="resnet9-5k", method=method,
+                                       num_epochs=2, batch_size=8,
+                                       save_artifacts=False), ds)
+        assert launch_counts()[kernel] == perf["steps"][-1]
+        assert np.isfinite(perf["train_loss"]).all()

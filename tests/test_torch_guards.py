@@ -1,0 +1,71 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package
+nor the libraries the GPU machine lacks, and its entry points run on the
+card unless the CPU is asked for."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import pcgmix_tpu_torch
+from pcgmix_tpu_torch.data import synthetic_physionet_dict
+from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+ROOT = pathlib.Path(pcgmix_tpu_torch.__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "pandas",
+             "matplotlib", "pcgmix_tpu"}
+
+
+def _port_sources():
+    files = sorted((ROOT / "pcgmix_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_port_imports_nothing_forbidden(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_sources_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    for required in ("chip_smoke.py", "pcgmix_tpu_torch/ops/mix_kernels.py",
+                     "pcgmix_tpu_torch/train/loop.py"):
+        assert required in names
+    assert (ROOT / "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu").exists()
+
+
+def test_train_config_defaults_to_cuda():
+    assert TrainConfig().device == "cuda"
+
+
+def test_train_model_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal cannot be shown")
+    ds = synthetic_physionet_dict(num_wavs_train=4, num_wavs_test=2,
+                                  segments_per_wav=2, sig_len=256, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_model(TrainConfig(model="resnet9-5k", batch_size=4, num_epochs=1,
+                                save_artifacts=False), ds)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from pcgmix_tpu_torch.ops import piecewise_mix_pairs
+
+    x = torch.zeros(2, 1, 8, device="meta")
+    i = torch.zeros(2, dtype=torch.int32, device="meta")
+    p = torch.zeros(2, 1, dtype=torch.int32, device="meta")
+    a = torch.zeros(2, 1, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        piecewise_mix_pairs(x, i, i, p, p, p, p, a)

@@ -1,0 +1,242 @@
+"""Plain versions of the port's mix kernels K1 (piecewise_mix_pairs) and K2
+(pcgmix_plus_fused) against the JAX package: the Pallas kernels in
+interpret mode and the XLA piecewise_mix_batch / magnitude_warp.
+
+Tolerances: 1e-6 absolute for the blend (same fp32 arithmetic, rounding
+order may differ by one ulp), 1e-5 absolute once the spline warp is applied
+(a 6-term fp32 contraction summed in another order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcgmix_tpu.augment.engine import AugmentConfig as JConfig
+from pcgmix_tpu.augment.engine import AugmentEngine as JEngine
+from pcgmix_tpu.ops import magnitude_warp as jwarp
+from pcgmix_tpu.ops import piecewise_mix_batch, piecewise_mix_pairs as jpairs
+from pcgmix_tpu.ops.pallas_mix import (
+    pcgmix_plus_fused_pallas,
+    piecewise_mix_batch_pallas,
+)
+from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+from pcgmix_tpu_torch.ops import magnitude_warp, mix_kernels
+from pcgmix_tpu_torch.ops.mix_kernels import (
+    launch_counts,
+    pcgmix_plus_fused,
+    piecewise_mix_pairs,
+)
+
+from .conftest import make_frames
+
+B, C, T = 8, 4, 512
+MIX_ATOL = 1e-6
+WARP_ATOL = 1e-5
+
+
+def _engine_plan(rng, method, step=5):
+    data = rng.normal(size=(B, C, T)).astype(np.float32)
+    frames = make_frames(rng, B, T, min_seg=10, max_seg=60)
+    labels = rng.integers(0, 2, B)
+    plan = AugmentEngine(AugmentConfig(method, B, C, T)).plan(step, frames, labels)
+    return data, plan.arrays
+
+
+def _zero_length_plan(rng, K=7):
+    """Disjoint pieces with empty slots, pieces at both ends of the row, and
+    source windows that run past T (clamped), mixed selectors and alphas."""
+    data = rng.normal(size=(B, C, T)).astype(np.float32)
+    dst = np.zeros((B, K), np.int64)
+    ln = np.zeros((B, K), np.int64)
+    for i in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, T), K - 1, replace=False))
+        bounds = np.concatenate([[0], cuts, [T]])
+        dst[i] = bounds[:-1]
+        ln[i] = bounds[1:] - bounds[:-1]
+    ln[:, 1::3] = 0
+    src = np.clip(dst + rng.integers(-40, 40, (B, K)), -5, T + 5)
+    sel = rng.integers(0, 2, (B, K))
+    alpha = rng.uniform(0, 1, (B, K)).astype(np.float32)
+    mix = rng.permutation(B)
+    return data, {"mix": mix, "dst": dst, "src": src, "len": ln, "sel": sel,
+                  "alpha": alpha}
+
+
+def _t(arrays):
+    return AugmentEngine.device_arrays({**arrays, "lam": 1.0}, "cpu")
+
+
+def _pieces(a):
+    return a["dst"], a["src"], a["len"], a["sel"], a["alpha"]
+
+
+def _jargs(data, a):
+    return (jnp.asarray(data), jnp.asarray(a["mix"], jnp.int32),
+            *(jnp.asarray(a[k], jnp.int32) for k in ("dst", "src", "len", "sel")),
+            jnp.asarray(a["alpha"], jnp.float32))
+
+
+def _k1(data, a, base_is_d1=True):
+    t = _t(a)
+    idn = torch.arange(data.shape[0], dtype=torch.int32)
+    return piecewise_mix_pairs(torch.from_numpy(data), idn, t["mix"], *_pieces(t),
+                               base_is_d1=base_is_d1).numpy()
+
+
+@pytest.mark.parametrize("method", ["durratiomixup", "durratiomixup(rand)"])
+def test_k1_plain_matches_pallas_and_xla_on_engine_plans(rng, method):
+    data, a = _engine_plan(rng, method)
+    got = _k1(data, a)
+    pallas = np.asarray(piecewise_mix_batch_pallas(*_jargs(data, a), interpret=True))
+    xla = np.asarray(piecewise_mix_batch(*_jargs(data, a)))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=MIX_ATOL)
+    np.testing.assert_allclose(got, xla, rtol=0, atol=MIX_ATOL)
+
+
+@pytest.mark.parametrize("base_is_d1", [True, False])
+def test_k1_plain_matches_xla_on_zero_length_and_boundary_pieces(rng, base_is_d1):
+    data, a = _zero_length_plan(rng)
+    got = _k1(data, a, base_is_d1)
+    xla = np.asarray(piecewise_mix_batch(*_jargs(data, a), base_is_d1=base_is_d1))
+    np.testing.assert_allclose(got, xla, rtol=0, atol=MIX_ATOL)
+
+
+def test_k1_plain_concat_pairs_match_pallas(rng):
+    """base_is_d1=False over explicit (idx1, idx2) pairs, the concat family's
+    call shape, including an output batch larger than the input."""
+    data = rng.normal(size=(B, C, T)).astype(np.float32)
+    N = 2 * B
+    idx1, idx2 = rng.integers(0, B, N), rng.integers(0, B, N)
+    c1 = rng.integers(50, 300, N)
+    c2 = rng.integers(50, 300, N)
+    dst = np.stack([np.zeros(N, np.int64), c1], 1)
+    src = np.stack([np.zeros(N, np.int64), c2], 1)
+    ln = np.stack([c1, np.minimum(c1 + 150, T) - c1], 1)
+    sel = np.stack([np.zeros(N, np.int64), np.ones(N, np.int64)], 1)
+    alpha = np.zeros((N, 2), np.float32)
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int32))
+    got = piecewise_mix_pairs(
+        torch.from_numpy(data), i32(idx1), i32(idx2), i32(dst), i32(src), i32(ln),
+        i32(sel), torch.from_numpy(alpha), base_is_d1=False,
+    ).numpy()
+    ref = np.asarray(jpairs(
+        jnp.asarray(data), *(jnp.asarray(x, jnp.int32) for x in (idx1, idx2, dst, src, ln, sel)),
+        jnp.asarray(alpha), base_is_d1=False,
+    ))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=MIX_ATOL)
+
+
+@pytest.mark.parametrize("method", ["durmixmagwarp(0.2,4)", "(rand)durmixmagwarp(0.3,2)"])
+def test_k2_plain_matches_pallas_and_two_stage_xla(rng, method):
+    data, a = _engine_plan(rng, method)
+    t = _t(a)
+    got = pcgmix_plus_fused(torch.from_numpy(data), t["mix"], *_pieces(t),
+                            t["knots"]).numpy()
+    jargs = _jargs(data, a)
+    knots = jnp.asarray(a["knots"])
+    pallas = np.asarray(pcgmix_plus_fused_pallas(*jargs, knots, interpret=True))
+    xla = np.asarray(jwarp(piecewise_mix_batch(*jargs), knots))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=WARP_ATOL)
+    np.testing.assert_allclose(got, xla, rtol=0, atol=WARP_ATOL)
+
+
+def test_k2_plain_zero_length_pieces_match_xla(rng):
+    data, a = _zero_length_plan(rng)
+    knots = rng.normal(1.0, 0.2, (B, 6, C)).astype(np.float32)
+    t = _t({**a, "knots": knots})
+    got = pcgmix_plus_fused(torch.from_numpy(data), t["mix"], *_pieces(t),
+                            t["knots"]).numpy()
+    xla = np.asarray(jwarp(piecewise_mix_batch(*_jargs(data, a)), jnp.asarray(knots)))
+    np.testing.assert_allclose(got, xla, rtol=0, atol=WARP_ATOL)
+
+
+def test_magnitude_warp_matches_reference(rng):
+    x = rng.normal(size=(B, C, T)).astype(np.float32)
+    knots = rng.normal(1.0, 0.2, (B, 6, C)).astype(np.float32)
+    got = magnitude_warp(torch.from_numpy(x), torch.from_numpy(knots)).numpy()
+    ref = np.asarray(jwarp(jnp.asarray(x), jnp.asarray(knots)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=WARP_ATOL)
+
+
+def test_bf16_plain_blends_in_fp32_and_casts_once(rng):
+    data, a = _engine_plan(rng, "durmixmagwarp(0.2,4)")
+    t = _t(a)
+    x16 = torch.from_numpy(data).bfloat16()
+    idn = torch.arange(B, dtype=torch.int32)
+    k1 = piecewise_mix_pairs(x16, idn, t["mix"], *_pieces(t))
+    k2 = pcgmix_plus_fused(x16, t["mix"], *_pieces(t), t["knots"])
+    assert k1.dtype == k2.dtype == torch.bfloat16
+    x32 = x16.float()
+    ref1 = piecewise_mix_pairs(x32, idn, t["mix"], *_pieces(t)).bfloat16()
+    ref2 = pcgmix_plus_fused(x32, t["mix"], *_pieces(t), t["knots"]).bfloat16()
+    assert torch.equal(k1, ref1) and torch.equal(k2, ref2)
+
+
+def test_cpu_tensors_take_the_plain_path_without_launching(rng):
+    data, a = _engine_plan(rng, "durmixmagwarp(0.2,4)")
+    before = launch_counts()
+    t = _t(a)
+    pcgmix_plus_fused(torch.from_numpy(data), t["mix"], *_pieces(t), t["knots"])
+    _k1(data, a)
+    assert launch_counts() == before
+
+
+def test_wrappers_validate_arguments(rng):
+    data, a = _engine_plan(rng, "durmixmagwarp(0.2,4)")
+    t = _t(a)
+    x = torch.from_numpy(data)
+    idn = torch.arange(B, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        piecewise_mix_pairs(x, idn.long(), t["mix"], *_pieces(t))
+    with pytest.raises(ValueError, match="contiguous"):
+        piecewise_mix_pairs(x.transpose(1, 2).contiguous().transpose(1, 2), idn,
+                            t["mix"], *_pieces(t))
+    with pytest.raises(TypeError):
+        piecewise_mix_pairs(x.double(), idn, t["mix"], *_pieces(t))
+    with pytest.raises(ValueError, match="knots"):
+        pcgmix_plus_fused(x, t["mix"], *_pieces(t), t["knots"][:, :, :2].contiguous())
+    wide = {k: v.repeat(1, 9) if v.dim() == 2 else v for k, v in t.items()
+            if k in ("dst", "src", "len", "sel", "alpha")}
+    with pytest.raises(ValueError, match="pieces"):
+        piecewise_mix_pairs(x, idn, t["mix"], *_pieces({**t, **wide}))
+
+
+def test_engine_apply_matches_reference_engine(rng):
+    """AugmentEngine.apply (port, CPU → plain kernels) against the JAX
+    engine's apply on the same plan, batch and targets."""
+    for method in ("durratiomixup", "durmixmagwarp(0.2,4)"):
+        data = rng.normal(size=(B, C, T)).astype(np.float32)
+        frames = make_frames(rng, B, T, min_seg=10, max_seg=60)
+        labels = rng.integers(0, 2, B)
+        target = np.eye(2, dtype=np.float32)[labels]
+        eng = AugmentEngine(AugmentConfig(method, B, C, T))
+        ref = JEngine(JConfig(method, B, C, T))
+        plan = eng.plan(9, frames, labels)
+        out, tgt = eng.apply(torch.from_numpy(data), torch.from_numpy(target),
+                             plan.arrays)
+        jout, jtgt = ref.apply(jnp.asarray(data), jnp.asarray(target),
+                               ref.plan(9, frames, labels).arrays)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0,
+                                   atol=WARP_ATOL)
+        np.testing.assert_array_equal(tgt.numpy(), np.asarray(jtgt))
+
+
+def test_blend_targets_matches_reference(rng):
+    from pcgmix_tpu.augment.engine import _blend_targets as jblend
+    from pcgmix_tpu_torch.augment.engine import _blend_targets
+
+    target = np.eye(2, dtype=np.float32)[rng.integers(0, 2, B)]
+    mix = rng.permutation(B)
+    for lam in (np.float32(0.3), rng.uniform(size=B).astype(np.float32)):
+        got = _blend_targets(torch.from_numpy(target),
+                             torch.from_numpy(mix.astype(np.int32)), lam)
+        ref = jblend(jnp.asarray(target), mix, lam)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-7)
+
+
+def test_build_dir_is_ignored_by_git():
+    import pathlib
+
+    root = pathlib.Path(mix_kernels.__file__).resolve().parents[2]
+    assert mix_kernels.BUILD_DIR.relative_to(root).parts[0] == "build"
+    assert "build/" in (root / ".gitignore").read_text().splitlines()
