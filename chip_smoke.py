@@ -9,19 +9,30 @@ Phases (any failure exits non-zero):
    gives them; build the CUDA mix kernels from csrc/ and time the build.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (B=64, C=4, T=2500, K=4, fp32, plans from the port's own
-   AugmentEngine), in bf16, and on a K=27 geometry with zero-length and
-   boundary pieces.  Tolerances: K1 1e-6 abs (fp32); K2 1e-5 abs (fp32; the
-   6-term envelope is summed in another order than the plain einsum); K1
-   bf16 bit-equal to the plain version computed in fp32 and cast; K2 bf16
-   within one bf16 ulp of it.  Each is timed with CUDA events (median of 60
-   launches, queued behind a device sleep so host overhead stays out).
+   AugmentEngine; K3/K4 get d2 = x[mix] gathered beforehand), in bf16, and
+   on a K=27 geometry with zero-length and boundary pieces.  Tolerances:
+   K1/K3 1e-6 abs (fp32); K2/K4 1e-5 abs (fp32; the 6-term envelope is
+   summed in another order than the plain einsum); K1/K3 bf16 bit-equal to
+   the plain version computed in fp32 and cast; K2/K4 bf16 within one bf16
+   ulp of it.  Each is timed with CUDA events (median of 60 launches,
+   queued behind a device sleep so host overhead stays out).
 3. The slice end to end: ``train_model`` with full-width ResNet9, batch 64,
    4 × 2500 inputs, 16 steps, once with PCGmix+ ``durmixmagwarp(0.2,4)``
    and once with PCGmix ``durratiomixup``; each run must launch its kernel
-   once per augmented step.  A small run on the card is also held against
-   the same run on the CPU (plain versions): equal loss traces.  A profiled
-   PCGmix+ run prints device time by kernel and the device's busy share.
-4. Summary: a ``{"kernels": [...]}`` line, then the result line
+   (K2, K1) once per augmented step.  A small run on the card is also held
+   against the same run on the CPU (plain versions): equal loss traces.  A
+   profiled PCGmix+ run prints device time by kernel and the device's busy
+   share.
+4. The data-parallel route: the same two runs inside a 1-rank NCCL process
+   group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
+   or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
+   equal the single-device route's with the weights frozen (every plot
+   epoch within 1e-5) and over the first steps at lr 0.01 (step 0 within
+   1e-5, step 1 within 1e-3 relative); later steps are chaotic at full
+   width, and the script prints how far the single-device route drifts from
+   itself there.  Phase 3's profiled PCGmix+ call is repeated on this
+   route.
+5. Summary: a ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and one card, and exits non-zero without CUDA or
@@ -31,8 +42,10 @@ without the package beside it.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 B, C, T = 64, 4, 2500
@@ -65,9 +78,9 @@ def device_time_ms(torch, fn, n=60, per_burst=10, sleep_cycles=20_000_000):
     return float(sorted(times)[len(times) // 2])
 
 
-def profile_breakdown(torch, run, card, top=10):
+def profile_breakdown(torch, run, card, top=10, label="profile"):
     """Print device time by kernel over ``run`` (torch.profiler) and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time, each line led by ``label``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -82,15 +95,15 @@ def profile_breakdown(torch, run, card, top=10):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in kernels)
     if not busy:
-        print("profile: device time not measured (the trace holds no kernels)")
+        print(f"{label}: device time not measured (the trace holds no kernels)")
         return
-    print(f"profile: device busy {busy:.1f} us of {wall_us:.1f} us wall "
+    print(f"{label}: device busy {busy:.1f} us of {wall_us:.1f} us wall "
           f"({100 * busy / wall_us:.1f}%) on {card}")
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:top]:
-        print(f"profile: {100 * t / busy:6.2f}% {t:12.1f} us {n:5d}x {name[:100]}")
+        print(f"{label}: {100 * t / busy:6.2f}% {t:12.1f} us {n:5d}x {name[:100]}")
     for name, t, n in kernels:
         if "mix_kernel" in name:
-            print(f"profile: {100 * t / busy:6.3f}% {t:12.1f} us {n:5d}x {name[:100]}")
+            print(f"{label}: {100 * t / busy:6.3f}% {t:12.1f} us {n:5d}x {name[:100]}")
 
 
 def k27_geometry(np, rng, n, sig_len, k=27):
@@ -120,6 +133,7 @@ def main() -> int:
         from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
         from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
         from pcgmix_tpu_torch.ops import mix_kernels as mk
+        from pcgmix_tpu_torch.parallel import init_group
         from pcgmix_tpu_torch.train import TrainConfig, train_model
     except ImportError as e:
         print(f"chip_smoke: the pcgmix_tpu_torch package is missing ({e})",
@@ -169,6 +183,17 @@ def main() -> int:
         fn = mk.pcgmix_plus_fused_plain if plain else mk.pcgmix_plus_fused
         return lambda: fn(x, a["mix"], *pieces(a), a["knots"])
 
+    def k3(x, a, plain=False):
+        fn = mk.piecewise_mix_prepaired_plain if plain else mk.piecewise_mix_prepaired
+        d2 = x.index_select(0, a["mix"].long())  # gathered beforehand
+        return lambda: fn(x, d2, *pieces(a))
+
+    def k4(x, a, plain=False):
+        fn = (mk.pcgmix_plus_fused_prepaired_plain if plain
+              else mk.pcgmix_plus_fused_prepaired)
+        d2 = x.index_select(0, a["mix"].long())
+        return lambda: fn(x, d2, *pieces(a), a["knots"])
+
     def max_err(make, x, a):
         got, ref = make(x, a)(), make(x, a, plain=True)()
         torch.cuda.synchronize()
@@ -177,15 +202,20 @@ def main() -> int:
     pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
     x16 = x32.bfloat16()
     report = {}
-    for name, make, a_main, tol in (
-        ("piecewise_mix_pairs", k1, pcgmix, 1e-6),
-        ("pcgmix_plus_fused", k2, pcgmix_plus, 1e-5),
+    # name, wrapper, main-path plan, fp32 tolerance, bytes of row indices
+    # per output row, row buffers read (K3/K4 read the partner rows from a
+    # buffer of their own), warp
+    for name, make, a_main, tol, idx_bytes, row_reads, warp in (
+        ("piecewise_mix_pairs", k1, pcgmix, 1e-6, 8, 1, False),
+        ("pcgmix_plus_fused", k2, pcgmix_plus, 1e-5, 4, 1, True),
+        ("piecewise_mix_prepaired", k3, pcgmix, 1e-6, 0, 2, False),
+        ("pcgmix_plus_fused_prepaired", k4, pcgmix_plus, 1e-5, 0, 2, True),
     ):
         err_main, _, _ = max_err(make, x32, a_main)
         err_k27, _, _ = max_err(make, x32, k27)
         _, got16, ref16 = max_err(make, x16, a_main)
         n_diff16 = int((got16 != ref16).sum().item())
-        if name == "piecewise_mix_pairs":
+        if not warp:
             bf16_ok = n_diff16 == 0
         else:  # one bf16 ulp: 2^-7 relative to the larger magnitude
             ulp = torch.maximum(got16.float().abs(), ref16.float().abs()) * 2.0 ** -7
@@ -197,15 +227,14 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with its plain version")
         ms = device_time_ms(torch, make(x32, a_main))
         plain_ms = device_time_ms(torch, make(x32, a_main, plain=True))
-        # bytes the function must move: the batch read once, the output
-        # written once, the row indices (K1: idx1 and idx2; K2: mix), the
-        # five piece arrays (and K2's knots and basis) read once
+        # bytes the function must move: each row buffer read once, the
+        # output written once, the row indices and the five piece arrays
+        # (and the warp's knots and basis) read once
         K = a_main["dst"].shape[1]
-        n_idx = 2 if name == "piecewise_mix_pairs" else 1
-        nbytes = 2 * x32.numel() * 4 + n_idx * B * 4 + B * K * 5 * 4
+        nbytes = (row_reads + 1) * x32.numel() * 4 + idx_bytes * B + B * K * 5 * 4
         covered = int(a_main["len"].sum().item()) * C
         nflops = 4 * covered
-        if name == "pcgmix_plus_fused":
+        if warp:
             k2n = a_main["knots"].shape[1]
             nbytes += a_main["knots"].numel() * 4 + T * k2n * 4
             nflops += (2 * k2n + 1) * x32.numel()
@@ -231,11 +260,11 @@ def main() -> int:
         if not abs(on_card[0] - on_cpu[0]) < 1e-5 or diff > 1e-3:
             raise AssertionError(f"{method}: card and CPU loss traces disagree")
 
-    launches = {}
-    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
-                           ("durratiomixup", "piecewise_mix_pairs")):
+    def drive(method, kernel, route, **overrides):
+        """One 16-step main-path run; the counts are set to 0 just before
+        it and read just after.  Returns (launches of ``kernel``, losses)."""
         cfg = TrainConfig(model="resnet9", method=method, num_epochs=4, batch_size=B,
-                          num_channels=C, save_artifacts=False)
+                          num_channels=C, save_artifacts=False, **overrides)
         torch.cuda.synchronize()
         mk.reset_launch_counts()
         t0 = time.time()
@@ -244,33 +273,92 @@ def main() -> int:
         wall = time.time() - t0
         counts = mk.launch_counts()
         steps = perf["steps"][-1]
-        launches[kernel] = counts[kernel]
         other = [k for k in counts if k != kernel]
         if steps != MAIN_STEPS or counts[kernel] != steps or any(counts[k] for k in other):
-            raise AssertionError(f"{method}: {steps} steps but launches {counts}")
+            raise AssertionError(f"{route} {method}: {steps} steps but launches {counts}")
         if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
-            raise AssertionError(f"{method}: non-finite loss or no eval")
+            raise AssertionError(f"{route} {method}: non-finite loss or no eval")
         # steady state: plot epochs after the first (cuDNN picks algorithms
         # in epoch 1); `times` is cumulative and synced at plot epochs
         d_steps = perf["steps"][-1] - perf["steps"][0]
         d_time = perf["times"][-1] - perf["times"][0]
-        print(f"train {method}: resnet9 batch {B} x {C}x{T}, {steps} steps, "
+        print(f"{route} {method}: resnet9 batch {B} x {C}x{T}, {steps} steps, "
               f"launches {counts}, losses {perf['train_loss']}, "
               f"test_accuracy {perf['test_accuracy'][-1]}")
-        print(f"train {method}: {d_steps / d_time:.3f} steps/s, "
+        print(f"{route} {method}: {d_steps / d_time:.3f} steps/s, "
               f"{B * d_steps / d_time:.1f} samples/s (epochs 2-4), "
               f"{steps / wall:.3f} steps/s over the whole call incl. eval "
               f"({wall:.3f} s) on {card}")
+        return counts[kernel], perf["train_loss"]
+
+    launches, single_losses = {}, {}
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+                           ("durratiomixup", "piecewise_mix_pairs")):
+        launches[kernel], single_losses[method] = drive(method, kernel, "train")
 
     # where a PCGmix+ step's device time goes (informational: the profiler's
     # CUDA tracing is the only source, and an empty trace fails nothing)
-    cfg = TrainConfig(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
-                      batch_size=B, num_channels=C, save_artifacts=False)
-    profile_breakdown(torch, lambda: train_model(cfg, ds), card)
+    profiled = TrainConfig(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
+                           batch_size=B, num_channels=C, save_artifacts=False)
+    profile_breakdown(torch, lambda: train_model(profiled, ds), card)
 
-    # ---- 4. summary ---------------------------------------------------------
+    # ---- 4. the data-parallel route (1-rank NCCL group) -------------------
+    # Full-width training at lr 0.01 is chaotic on this data: the single-
+    # device route drifts from itself (cuDNN's default algorithms are not
+    # deterministic) past 1e-3 relative within a few steps.  So the route's
+    # loss is held where it is defined: (a) the same 16-step runs with the
+    # weights frozen (lr_max=0): the same batches, plans, mix kernels and
+    # BatchNorm, every plot epoch within 1e-5; (b) the same 16-step lr
+    # schedule at one step per epoch (74 train rows), whose plot epochs 1,
+    # 2 and 4 are steps 0, 1 and 3: step 0 within 1e-5, step 1 within 1e-3
+    # relative, step 3 printed beside the single-device route's spread.
+    import torch.distributed as dist
+
+    ds_steps = synthetic_physionet_dict(num_wavs_train=10, num_wavs_test=4,
+                                        segments_per_wav=8, sig_len=T, seed=11)
+
+    def first_steps(method):
+        cfg = TrainConfig(model="resnet9", method=method, num_epochs=MAIN_STEPS,
+                          batch_size=B, num_channels=C, save_artifacts=False)
+        return np.asarray(train_model(cfg, ds_steps)["train_loss"][:3])
+
+    pairs = (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused", "pcgmix_plus_fused_prepaired"),
+             ("durratiomixup", "piecewise_mix_pairs", "piecewise_mix_prepaired"))
+    ref = {}
+    for method, kernel, _ in pairs:
+        _, ref[method, "frozen"] = drive(method, kernel, "frozen", lr_max=0.0)
+        ref[method, "steps"], ref[method, "again"] = first_steps(method), first_steps(method)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        init_group("nccl", 0, 1, os.path.join(tmp, "store"))
+        try:
+            for method, _, kernel in pairs:
+                launches[kernel], losses = drive(method, kernel, "data-parallel")
+                diff = np.abs(np.subtract(losses, single_losses[method]))
+                print(f"data-parallel {method}: plot-epoch |diff| to the single-device "
+                      f"run at lr 0.01 (chaotic, not held): {diff.tolist()}")
+                _, frozen = drive(method, kernel, "data-parallel frozen", lr_max=0.0)
+                d_frozen = float(np.max(np.abs(np.subtract(frozen, ref[method, "frozen"]))))
+                got, one, again = first_steps(method), ref[method, "steps"], ref[method, "again"]
+                d0, r1 = abs(got[0] - one[0]), abs(got[1] - one[1]) / abs(one[1])
+                print(f"data-parallel {method}: frozen weights max |diff| {d_frozen:.3e} "
+                      f"over {len(frozen)} plot epochs; per step at lr 0.01: step 0 "
+                      f"|diff| {d0:.3e}, step 1 relative {r1:.3e}, step 3 relative "
+                      f"{abs(got[2] - one[2]) / abs(one[2]):.3e} (single-device route "
+                      f"against itself: {np.abs(again - one) / np.abs(one)})")
+                if not (d_frozen < 1e-5 and d0 < 1e-5 and r1 < 1e-3):
+                    raise AssertionError(f"data-parallel {method}: loss differs from "
+                                         "the single-device route")
+            # the same profiled PCGmix+ call as phase 3, on this route
+            profile_breakdown(torch, lambda: train_model(profiled, ds), card,
+                              label="profile data-parallel")
+        finally:
+            dist.destroy_process_group()
+
+    # ---- 5. summary ---------------------------------------------------------
     replaces = {"piecewise_mix_pairs": "pcgmix_tpu/ops/pallas_mix.py:74",
-                "pcgmix_plus_fused": "pcgmix_tpu/ops/pallas_mix.py:241"}
+                "pcgmix_plus_fused": "pcgmix_tpu/ops/pallas_mix.py:241",
+                "piecewise_mix_prepaired": "pcgmix_tpu/ops/pallas_mix.py:146",
+                "pcgmix_plus_fused_prepaired": "pcgmix_tpu/ops/pallas_mix.py:288"}
     kernels = [
         {"name": name, "route": "cuda",
          "source": "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu",

@@ -9,6 +9,11 @@
 - ``apply(data, target_ohe, arrays)`` uploads the plan and rewrites the
   device batch through the mix kernels: K1 (``piecewise_mix_pairs``) for
   PCGmix, K2 (``pcgmix_plus_fused``) for PCGmix+.
+- ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
+  counterpart (JAX ``engine.py:877-953``): a rank passes its block of the
+  batch, its partners' rows gathered beforehand and its block of the plan,
+  and the rows go through K3 (``piecewise_mix_prepaired``) or K4
+  (``pcgmix_plus_fused_prepaired``).
 
 This slice ports the keep-duration blend bases of the main path,
 ``durratiomixup`` and ``durmixmagwarp``, with same-label pairing and the
@@ -26,7 +31,12 @@ import torch
 from pcgmix_tpu_torch import rng as prng
 from pcgmix_tpu_torch.augment import pairing as pairing_mod
 from pcgmix_tpu_torch.augment.methods import MethodSpec, parse_method
-from pcgmix_tpu_torch.ops.mix_kernels import pcgmix_plus_fused, piecewise_mix_pairs
+from pcgmix_tpu_torch.ops.mix_kernels import (
+    pcgmix_plus_fused,
+    pcgmix_plus_fused_prepaired,
+    piecewise_mix_pairs,
+    piecewise_mix_prepaired,
+)
 from pcgmix_tpu_torch.ops.piecewise import segment_blend_pieces
 
 PORTED_BASES = ("durratiomixup", "durmixmagwarp")
@@ -59,13 +69,17 @@ def _sanitize_padded_pieces(pieces: dict) -> None:
 
 def _blend_targets(target_ohe, mix_idx, lam_t):
     """target·λ + target[mix]·(1−λ), λ a scalar or one per row."""
-    mixed = target_ohe.index_select(0, mix_idx.long())
+    return _lerp_targets(target_ohe, target_ohe.index_select(0, mix_idx.long()), lam_t)
+
+
+def _lerp_targets(target_ohe, partner_ohe, lam_t):
+    """target·λ + partner·(1−λ), λ a scalar or one per row."""
     lam_t = torch.as_tensor(lam_t, dtype=target_ohe.dtype, device=target_ohe.device)
     if lam_t.dim() == 0:
         lam_t = lam_t[None]
     if lam_t.dim() == 1:
         lam_t = lam_t[:, None]
-    return target_ohe * lam_t + mixed * (1.0 - lam_t)
+    return target_ohe * lam_t + partner_ohe * (1.0 - lam_t)
 
 
 class AugmentEngine:
@@ -244,3 +258,21 @@ class AugmentEngine:
         if self.spec.mix_all_targets:
             target_ohe = _blend_targets(target_ohe, a["mix"], a["lam"])
         return out, target_ohe
+
+    def apply_prepaired(self, d1: torch.Tensor, d2: torch.Tensor,
+                        target1: torch.Tensor, target2: torch.Tensor,
+                        arrays: dict):
+        """Apply a block of a plan to rows whose partners were gathered
+        beforehand: row i of ``d1`` mixes with row i of ``d2``, and its
+        one-hot target with row i of ``target2``.  ``arrays`` holds the
+        block's rows of every batch-leading plan array.  Returns
+        (data, target_ohe)."""
+        a = self.device_arrays(arrays, d1.device)
+        pieces = (a["dst"], a["src"], a["len"], a["sel"], a["alpha"])
+        if self.spec.base == "durmixmagwarp":
+            out = pcgmix_plus_fused_prepaired(d1, d2, *pieces, a["knots"])
+        else:
+            out = piecewise_mix_prepaired(d1, d2, *pieces, base_is_d1=True)
+        if self.spec.mix_all_targets:
+            target1 = _lerp_targets(target1, target2, a["lam"])
+        return out, target1

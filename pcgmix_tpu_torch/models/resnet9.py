@@ -13,6 +13,7 @@ Module names follow the reference (``conv1.0`` conv, ``conv1.1`` BN, …,
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -25,6 +26,13 @@ class BatchNorm1d(nn.BatchNorm1d):
     unbiased one, which would make eval after training drift by n/(n−1).
     Training normalizes with the biased batch statistics as both do, and
     the running buffers are updated here explicitly, without gradient.
+
+    Under data parallelism (a ``torch.distributed`` process group is
+    initialized) the statistics are those of the global batch, as GSPMD
+    gives flax's BatchNorm on the JAX package's mesh: the per-channel Σx,
+    Σx² and count are all-reduced with the differentiable all-reduce, and
+    x is normalized with the global mean and the global biased variance
+    E[x²] − E[x]², as flax computes it.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -33,13 +41,38 @@ class BatchNorm1d(nn.BatchNorm1d):
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps,
             )
+        if dist.is_available() and dist.is_initialized():
+            return self._global_batch_norm(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        count = torch.full((1,), x.shape[0] * x.shape[2], dtype=xf.dtype,
+                           device=x.device)
+        # one collective per layer: [Σx (C), Σx² (C), count]; its backward
+        # all-reduces the statistics' gradients, so each rank's parameter
+        # gradients are its share of the global batch's
+        sums = all_reduce(torch.cat([xf.sum((0, 2)), (xf * xf).sum((0, 2)), count]))
+        c = x.shape[1]
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None]) * scale[None, :, None] + self.bias[None, :, None]
+        with torch.no_grad():
+            self._update_running(mean, var)
+        return y.to(x.dtype)
 
 
 def conv_block(ci: int, co: int, pool: bool = False) -> nn.Sequential:

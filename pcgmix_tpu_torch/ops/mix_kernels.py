@@ -1,9 +1,13 @@
-"""The piecewise-mix kernels K1 and K2: wrappers, plain versions, build.
+"""The piecewise-mix kernels K1–K4: wrappers, plain versions, build.
 
 K1 ``piecewise_mix_pairs`` replaces ``pcgmix_tpu/ops/pallas_mix.py::
 piecewise_mix_pairs_pallas`` (PCGmix); K2 ``pcgmix_plus_fused`` replaces
 ``pcgmix_plus_fused_pallas`` (PCGmix+: the same blend fused with the
-cubic-spline magnitude warp).  The CUDA sources are ``csrc/mix_kernels.cu``.
+cubic-spline magnitude warp).  K3 ``piecewise_mix_prepaired`` and K4
+``pcgmix_plus_fused_prepaired`` replace ``piecewise_mix_prepaired_pallas``
+and ``pcgmix_plus_fused_prepaired_pallas``: K1 and K2 on rows whose
+partners were gathered beforehand, the kernels of the data-parallel path.
+The CUDA sources are ``csrc/mix_kernels.cu``.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the kernel or raises.  Each
@@ -40,7 +44,15 @@ MAX_PIECES = 32  # kMaxPieces in csrc/mix_kernels.cu
 MAX_WARP_TERMS = 256  # kMaxWarpTerms: (knot+2)·C envelope coefficients
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_launches = {"piecewise_mix_pairs": 0, "pcgmix_plus_fused": 0}
+# wrapper name → (C entry point, pointer arguments, int arguments); every
+# entry point takes the stream last
+_ENTRIES = {
+    "piecewise_mix_pairs": ("pcgmix_piecewise_mix_pairs", 9, 7),
+    "pcgmix_plus_fused": ("pcgmix_plus_fused", 10, 6),
+    "piecewise_mix_prepaired": ("pcgmix_piecewise_mix_prepaired", 8, 6),
+    "pcgmix_plus_fused_prepaired": ("pcgmix_plus_fused_prepaired", 10, 6),
+}
+_launches = dict.fromkeys(_ENTRIES, 0)
 _lib = None
 _lib_lock = threading.Lock()
 _basis_cache: dict = {}
@@ -100,10 +112,10 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pcgmix_piecewise_mix_pairs.argtypes = [p] * 9 + [i] * 7 + [p]
-        lib.pcgmix_piecewise_mix_pairs.restype = i
-        lib.pcgmix_plus_fused.argtypes = [p] * 10 + [i] * 6 + [p]
-        lib.pcgmix_plus_fused.restype = i
+        for entry, n_ptr, n_int in _ENTRIES.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+            fn.restype = i
         lib.pcgmix_max_pieces.restype = i
         lib.pcgmix_max_warp_terms.restype = i
         if (lib.pcgmix_max_pieces() != MAX_PIECES
@@ -114,20 +126,30 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 
 
 # --------------------------------------------------------------------------- #
-# argument checks
+# argument checks and launch
 # --------------------------------------------------------------------------- #
+
+
+def _check_rows(*rows):
+    """Validate (B, C, T) row tensors: contiguous, of one dtype, shape and
+    device."""
+    first = rows[0]
+    for r in rows:
+        if r.dim() != 3:
+            raise ValueError(f"rows must be (B, C, T), got {tuple(r.shape)}")
+        if r.dtype not in _DTYPE_CODES:
+            raise TypeError(f"rows must be float32 or bfloat16, got {r.dtype}")
+        if not r.is_contiguous():
+            raise ValueError("rows must be contiguous")
+        if (r.dtype, r.shape, r.device) != (first.dtype, first.shape, first.device):
+            raise ValueError("row tensors must share dtype, shape and device")
 
 
 def _check(data, rows, pieces, alpha):
     """Validate (data, row-index vectors, int piece arrays, alpha); returns
-    (N, K)."""
-    if data.dim() != 3:
-        raise ValueError(f"data must be (B, C, T), got {tuple(data.shape)}")
-    if data.dtype not in _DTYPE_CODES:
-        raise TypeError(f"data must be float32 or bfloat16, got {data.dtype}")
-    if not data.is_contiguous():
-        raise ValueError("data must be contiguous")
-    n = rows[0].shape[0]
+    (N, K).  With no index vectors, N is data's batch."""
+    _check_rows(data)
+    n = rows[0].shape[0] if rows else data.shape[0]
     k = pieces[0].shape[1] if pieces[0].dim() == 2 else -1
     for r in rows:
         if r.dim() != 1 or r.shape[0] != n or r.dtype != torch.int32:
@@ -145,24 +167,65 @@ def _check(data, rows, pieces, alpha):
     return n, k
 
 
-def _raise_on(code: int, name: str) -> None:
+def _check_knots(knots, n, C, device):
+    if (knots.dim() != 3 or knots.shape[0] != n or knots.shape[2] != C
+            or knots.shape[1] < 2 or knots.dtype != torch.float32
+            or knots.device != device or not knots.is_contiguous()):
+        raise ValueError(
+            f"knots must be contiguous float32 ({n}, knot+2, {C}) on data's "
+            "device"
+        )
+    if knots.shape[1] * C > MAX_WARP_TERMS:
+        raise ValueError(f"(knot+2)·C must be at most {MAX_WARP_TERMS}")
+
+
+def _is_plain(data) -> bool:
+    """True for a CPU tensor (plain version); False for CUDA (kernel)."""
+    if data.device.type == "cpu":
+        return True
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    return False
+
+
+def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
+    """Call wrapper ``name``'s C entry point on out's device and current
+    stream; tensors among ``args`` pass as their data pointers.  Raises on a
+    refused launch, and counts the launch."""
+    if out.shape[0] == 0:
+        return out
+    lib = build_library()
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(out.device):
+        code = getattr(lib, _ENTRIES[name][0])(
+            *c_args, torch.cuda.current_stream().cuda_stream
+        )
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
+    _launches[name] += 1
+    return out
 
 
 # --------------------------------------------------------------------------- #
-# K1: piecewise mix over row pairs
+# K1: piecewise mix over row pairs; K3: over pre-gathered rows
 # --------------------------------------------------------------------------- #
+
+
+def piecewise_mix_prepaired_plain(d1_rows, d2_rows, dst, src, length, sel, alpha,
+                                  *, base_is_d1: bool = True):
+    """Plain version of K3: the mask arithmetic in float32, cast once."""
+    return piecewise_mix_f32(
+        d1_rows, d2_rows, dst, src, length, sel, alpha, base_is_d1=base_is_d1
+    ).to(d1_rows.dtype)
 
 
 def piecewise_mix_pairs_plain(data, idx1, idx2, dst, src, length, sel, alpha,
                               *, base_is_d1: bool = True):
     """Plain version of K1: gather both rows, then the mask arithmetic."""
-    d1 = data.index_select(0, idx1.long())
-    d2 = data.index_select(0, idx2.long())
-    return piecewise_mix_f32(
-        d1, d2, dst, src, length, sel, alpha, base_is_d1=base_is_d1
-    ).to(data.dtype)
+    return piecewise_mix_prepaired_plain(
+        data.index_select(0, idx1.long()), data.index_select(0, idx2.long()),
+        dst, src, length, sel, alpha, base_is_d1=base_is_d1,
+    )
 
 
 def piecewise_mix_pairs(data, idx1, idx2, dst, src, length, sel, alpha,
@@ -174,31 +237,43 @@ def piecewise_mix_pairs(data, idx1, idx2, dst, src, length, sel, alpha,
     Returns (N, C, T) in data's dtype, blended in float32.
     """
     n, k = _check(data, (idx1, idx2), (dst, src, length, sel), alpha)
-    if data.device.type == "cpu":
+    if _is_plain(data):
         return piecewise_mix_pairs_plain(
             data, idx1, idx2, dst, src, length, sel, alpha, base_is_d1=base_is_d1
         )
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
     B, C, T = data.shape
     out = torch.empty((n, C, T), dtype=data.dtype, device=data.device)
-    if n == 0:
-        return out
-    lib = build_library()
-    with torch.cuda.device(data.device):
-        code = lib.pcgmix_piecewise_mix_pairs(
-            data.data_ptr(), out.data_ptr(), idx1.data_ptr(), idx2.data_ptr(), dst.data_ptr(),
-            src.data_ptr(), length.data_ptr(), sel.data_ptr(), alpha.data_ptr(),
-            B, n, C, T, k, int(base_is_d1), _DTYPE_CODES[data.dtype],
-            torch.cuda.current_stream().cuda_stream,
+    return _launch(
+        "piecewise_mix_pairs", out, data, out, idx1, idx2, dst, src, length,
+        sel, alpha, B, n, C, T, k, int(base_is_d1), _DTYPE_CODES[data.dtype],
+    )
+
+
+def piecewise_mix_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
+                            *, base_is_d1: bool = True):
+    """Output row i mixes d1_rows[i] with d2_rows[i] over K pieces: K1 on
+    partner rows gathered beforehand (the data-parallel path's PCGmix).
+
+    d1_rows, d2_rows (N, C, T) float32/bfloat16 contiguous, of one dtype;
+    dst, src, length, sel (N, K) int32; alpha (N, K) float32.
+    Returns (N, C, T) in the rows' dtype, blended in float32.
+    """
+    _check_rows(d1_rows, d2_rows)
+    n, k = _check(d1_rows, (), (dst, src, length, sel), alpha)
+    if _is_plain(d1_rows):
+        return piecewise_mix_prepaired_plain(
+            d1_rows, d2_rows, dst, src, length, sel, alpha, base_is_d1=base_is_d1
         )
-    _raise_on(code, "piecewise_mix_pairs")
-    _launches["piecewise_mix_pairs"] += 1
-    return out
+    _, C, T = d1_rows.shape
+    out = torch.empty_like(d1_rows)
+    return _launch(
+        "piecewise_mix_prepaired", out, d1_rows, d2_rows, out, dst, src, length,
+        sel, alpha, n, C, T, k, int(base_is_d1), _DTYPE_CODES[d1_rows.dtype],
+    )
 
 
 # --------------------------------------------------------------------------- #
-# K2: PCGmix+ (blend with data[mix] + magnitude warp)
+# K2: PCGmix+ (blend with data[mix] + magnitude warp); K4: pre-gathered rows
 # --------------------------------------------------------------------------- #
 
 
@@ -213,16 +288,22 @@ def warp_basis(sig_len: int, knot: int, device) -> torch.Tensor:
     return _basis_cache[key]
 
 
-def pcgmix_plus_fused_plain(data, mix, dst, src, length, sel, alpha, knots):
-    """Plain version of K2: keep-duration blend of data and data[mix], times
+def pcgmix_plus_fused_prepaired_plain(d1_rows, d2_rows, dst, src, length, sel,
+                                      alpha, knots):
+    """Plain version of K4: keep-duration blend of d1_rows and d2_rows, times
     the spline envelope, all in float32, cast once."""
-    B, C, T = data.shape
     blend = piecewise_mix_f32(
-        data, data.index_select(0, mix.long()), dst, src, length, sel, alpha,
-        base_is_d1=True,
+        d1_rows, d2_rows, dst, src, length, sel, alpha, base_is_d1=True
     )
-    basis = warp_basis(T, knots.shape[1] - 2, data.device)
-    return (blend * spline_envelope(basis, knots)).to(data.dtype)
+    basis = warp_basis(d1_rows.shape[-1], knots.shape[1] - 2, d1_rows.device)
+    return (blend * spline_envelope(basis, knots)).to(d1_rows.dtype)
+
+
+def pcgmix_plus_fused_plain(data, mix, dst, src, length, sel, alpha, knots):
+    """Plain version of K2: K4's on data and data[mix]."""
+    return pcgmix_plus_fused_prepaired_plain(
+        data, data.index_select(0, mix.long()), dst, src, length, sel, alpha, knots
+    )
 
 
 def pcgmix_plus_fused(data, mix, dst, src, length, sel, alpha, knots):
@@ -236,31 +317,38 @@ def pcgmix_plus_fused(data, mix, dst, src, length, sel, alpha, knots):
     B, C, T = data.shape
     if n != B:
         raise ValueError(f"mix must have one entry per row ({B}), got {n}")
-    if (knots.dim() != 3 or knots.shape[0] != B or knots.shape[2] != C
-            or knots.shape[1] < 2 or knots.dtype != torch.float32
-            or knots.device != data.device or not knots.is_contiguous()):
-        raise ValueError(
-            f"knots must be contiguous float32 ({B}, knot+2, {C}) on data's "
-            "device"
-        )
-    if knots.shape[1] * C > MAX_WARP_TERMS:
-        raise ValueError(f"(knot+2)·C must be at most {MAX_WARP_TERMS}")
-    if data.device.type == "cpu":
+    _check_knots(knots, B, C, data.device)
+    if _is_plain(data):
         return pcgmix_plus_fused_plain(data, mix, dst, src, length, sel, alpha, knots)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
-    out = torch.empty_like(data)
-    if B == 0:
-        return out
-    lib = build_library()
     basis = warp_basis(T, knots.shape[1] - 2, data.device)
-    with torch.cuda.device(data.device):
-        code = lib.pcgmix_plus_fused(
-            data.data_ptr(), out.data_ptr(), mix.data_ptr(), dst.data_ptr(), src.data_ptr(),
-            length.data_ptr(), sel.data_ptr(), alpha.data_ptr(), knots.data_ptr(), basis.data_ptr(),
-            B, C, T, k, knots.shape[1], _DTYPE_CODES[data.dtype],
-            torch.cuda.current_stream().cuda_stream,
+    out = torch.empty_like(data)
+    return _launch(
+        "pcgmix_plus_fused", out, data, out, mix, dst, src, length, sel, alpha,
+        knots, basis, B, C, T, k, knots.shape[1], _DTYPE_CODES[data.dtype],
+    )
+
+
+def pcgmix_plus_fused_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
+                                knots):
+    """PCGmix+ on pre-gathered partners: row i blends d1_rows[i] with
+    d2_rows[i] over its pieces and multiplies by Σ_j basis[t, j]·knots[i, j, c]
+    (the data-parallel path's PCGmix+).
+
+    d1_rows, d2_rows (N, C, T) float32/bfloat16; pieces (N, K) int32;
+    alpha (N, K) float32; knots (N, knot+2, C) float32.
+    """
+    _check_rows(d1_rows, d2_rows)
+    n, k = _check(d1_rows, (), (dst, src, length, sel), alpha)
+    _, C, T = d1_rows.shape
+    _check_knots(knots, n, C, d1_rows.device)
+    if _is_plain(d1_rows):
+        return pcgmix_plus_fused_prepaired_plain(
+            d1_rows, d2_rows, dst, src, length, sel, alpha, knots
         )
-    _raise_on(code, "pcgmix_plus_fused")
-    _launches["pcgmix_plus_fused"] += 1
-    return out
+    basis = warp_basis(T, knots.shape[1] - 2, d1_rows.device)
+    out = torch.empty_like(d1_rows)
+    return _launch(
+        "pcgmix_plus_fused_prepaired", out, d1_rows, d2_rows, out, dst, src,
+        length, sel, alpha, knots, basis, n, C, T, k, knots.shape[1],
+        _DTYPE_CODES[d1_rows.dtype],
+    )

@@ -1,0 +1,137 @@
+"""Data parallelism over ``torch.distributed`` (counterpart:
+``pcgmix_tpu/parallel/mesh.py``).
+
+The JAX package runs the same program on every device of a mesh under
+GSPMD: train state replicated, batch and plan arrays sharded on the batch
+axis, a gradient all-reduce inserted by XLA.  The port does the same by
+hand, one process per device:
+
+- every rank holds the whole corpus and builds the same global plan from
+  the step number, then takes its contiguous block of the global batch
+  (:meth:`DataParallel.block`, the counterpart of ``shard_batch``);
+- parameters start equal (:meth:`DataParallel.broadcast_module`), the
+  gradients are averaged before clipping (:meth:`average_gradients`), so
+  every rank applies the same update;
+- BatchNorm's statistics are global (``models/resnet9.py::BatchNorm1d``)
+  and the SELC table stays replicated (``train/losses.py``).
+
+Groups are NCCL on CUDA and gloo on the CPU; the CPU route exists for the
+tests.  :func:`spawn` starts one worker per device and returns rank 0's
+result; the workers rendezvous through a ``FileStore`` in a temporary
+directory, so no port is chosen.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import tempfile
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def init_group(backend: str, rank: int, world_size: int, store_path: str) -> None:
+    """Initialize the default process group through a ``FileStore``."""
+    store = dist.FileStore(store_path, world_size)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+
+
+def _entry(rank: int, world_size: int, backend: str, tmp: str,
+           fn: Callable, args: tuple) -> None:
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    else:
+        # the CPU route is for the tests, which run several such groups side
+        # by side: one thread per rank keeps them from oversubscribing
+        torch.set_num_threads(1)
+    init_group(backend, rank, world_size, os.path.join(tmp, "store"))
+    try:
+        out = fn(*args)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world_size: int, backend: str, args: tuple = ()) -> Any:
+    """Run ``fn(*args)`` in ``world_size`` spawned processes, each a rank of
+    a fresh default group (rank r on ``cuda:r`` under NCCL); returns rank 0's
+    result.  ``fn`` must be importable by name: a spawned child imports
+    ``fn``'s module and nothing of the caller's."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="pcgmix_dist_") as tmp:
+        mp.start_processes(
+            _entry, args=(world_size, backend, tmp, fn, args),
+            nprocs=world_size, join=True, start_method="spawn",
+        )
+        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """This process's place in the default group: its rank of ``world``."""
+
+    rank: int
+    world: int
+
+    @classmethod
+    def current(cls) -> "DataParallel":
+        return cls(dist.get_rank(), dist.get_world_size())
+
+    def block(self, n: int) -> slice:
+        """This rank's contiguous block of a global batch of ``n`` rows."""
+        if n % self.world:
+            raise ValueError(
+                f"batch of {n} rows does not divide over {self.world} ranks"
+            )
+        per = n // self.world
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+    def shard_arrays(self, arrays: dict, n: int) -> dict:
+        """This rank's block of every batch-leading array of a plan; scalars
+        pass through (the counterpart of ``mesh.shard_batch``)."""
+        sl = self.block(n)
+        return {
+            k: v[sl] if isinstance(v, np.ndarray) and v.ndim and len(v) == n else v
+            for k, v in arrays.items()
+        }
+
+    def broadcast_module(self, module: torch.nn.Module) -> None:
+        """Copy rank 0's parameters and buffers to every rank."""
+        with torch.no_grad():
+            for t in module.state_dict().values():
+                dist.broadcast(t, src=0)
+
+    def average_gradients(self, params) -> None:
+        """Replace every gradient by its mean over the ranks (one flat
+        all-reduce)."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat.div_(self.world)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of a tensor each rank holds."""
+        out = t.detach().clone()
+        dist.all_reduce(out)
+        return out.div_(self.world)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (equal shapes) concatenated in rank order on
+        the leading axis: the global batch from the ranks' blocks."""
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)

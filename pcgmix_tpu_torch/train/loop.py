@@ -8,6 +8,14 @@ update.  Metrics are recorded at the reference's 11 linspaced "plot epochs"
 into the same performance-dict schema, pickled to ``performance.pkl`` in a
 run directory with the reference naming contract; the final weights go to
 ``model.pth``.
+
+Data parallelism (JAX ``TrainConfig.n_devices``, ``loop.py:262-287``): with
+``n_devices > 1`` the loop spawns one worker per device, each a rank of a
+process group (NCCL on ``cuda:r``, gloo on the CPU); called inside a process
+group that is already initialized (the ``torchrun`` way) it trains on that
+group.  Every rank plans the global batch and steps on its block of it
+(``train/steps.py``); the numbers are the single-device run's.  Rank 0
+writes the run directory; the caller gets the performance dict.
 """
 
 from __future__ import annotations
@@ -20,12 +28,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
 from pcgmix_tpu_torch.models import build_model
+from pcgmix_tpu_torch.parallel import DataParallel, spawn
 from pcgmix_tpu_torch.train.convert import seeded_init
 from pcgmix_tpu_torch.train.losses import init_selc_table
 from pcgmix_tpu_torch.train.metrics import (
@@ -65,6 +75,10 @@ class TrainConfig:
     true_seed: Optional[int] = None  # train-balance sampling seed override
                                      # (None: 18, or N from 'trueseed=N')
     device: str = "cuda"  # "cpu" only when asked for; no silent fallback
+    n_devices: Optional[int] = None  # data-parallel ranks; None = every
+                                     # visible CUDA device (1 on the CPU);
+                                     # the reference wraps every run in
+                                     # nn.DataParallel, train_model.py:385
 
 
 def resolve_device(name: str) -> torch.device:
@@ -104,14 +118,59 @@ def _selc_turnpoint(cfg: TrainConfig) -> int:
     return cfg.num_epochs + 1
 
 
+def _check_world(cfg: TrainConfig, world: int) -> None:
+    if world < 1:
+        raise ValueError(f"n_devices must be at least 1, got {world}")
+    if cfg.batch_size % world:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} does not divide over {world} devices"
+        )
+
+
 def train_model(cfg: TrainConfig, dataset: dict) -> dict:
-    """Train one configuration end to end; returns the performance dict."""
+    """Train one configuration end to end; returns the performance dict.
+
+    Inside an initialized process group every rank trains its share and
+    returns the same dict; otherwise ``cfg.n_devices > 1`` spawns that many
+    ranks and returns rank 0's dict."""
     device = resolve_device(cfg.device)
+    if dist.is_available() and dist.is_initialized():
+        dp = DataParallel.current()
+        if cfg.n_devices is not None and cfg.n_devices != dp.world:
+            raise ValueError(
+                f"n_devices={cfg.n_devices} inside a process group of {dp.world}"
+            )
+        _check_world(cfg, dp.world)
+        return _train(cfg, dataset, dp)
+    world = cfg.n_devices
+    if world is None:
+        world = torch.cuda.device_count() if device.type == "cuda" else 1
+    _check_world(cfg, world)
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(
+            f"n_devices={world} but {torch.cuda.device_count()} CUDA devices"
+        )
+    if world > 1:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        return spawn(_train_rank, world, backend, (cfg, dataset))
+    return _train(cfg, dataset, None)
+
+
+def _train_rank(cfg: TrainConfig, dataset: dict) -> dict:
+    """A spawned rank's entry point (see :func:`pcgmix_tpu_torch.parallel.spawn`)."""
+    return _train(cfg, dataset, DataParallel.current())
+
+
+def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
+    device = resolve_device(cfg.device)
+    if dp is not None and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type == "cuda":
         # fp32 means fp32: cuDNN convolutions default to TF32 on Hopper
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    run_dir = utils.check_folder(experiment_dir(cfg)) if cfg.save_artifacts else None
+    writes = cfg.save_artifacts and (dp is None or dp.rank == 0)
+    run_dir = utils.check_folder(experiment_dir(cfg)) if writes else None
 
     train_ds, test_ds = build_splits(cfg, dataset)
     num_steps = cfg.num_epochs * (len(train_ds) // cfg.batch_size)
@@ -121,6 +180,8 @@ def train_model(cfg: TrainConfig, dataset: dict) -> dict:
 
     model = seeded_init(build_model(cfg.model, cfg.num_classes, C, T), cfg.seed_fix)
     model.to(device)
+    if dp is not None:
+        dp.broadcast_module(model)
     opt, sched = make_optimizer(
         model, cfg.op, cfg.lr_max, cfg.weight_decay, num_steps, cfg.use_sched
     )
@@ -133,14 +194,10 @@ def train_model(cfg: TrainConfig, dataset: dict) -> dict:
         train_labels=torch.from_numpy(train_ds.label).to(device),
         soft_labels=init_selc_table(train_ds.label, cfg.num_classes, device),
         num_classes=cfg.num_classes, grad_clip=cfg.grad_clip,
-        selc_es=_selc_turnpoint(cfg), engine=engine,
+        selc_es=_selc_turnpoint(cfg), engine=engine, dp=dp,
     )
-    eye = np.eye(cfg.num_classes, dtype=np.float32)
-    eval_staged = [
-        (torch.from_numpy(b["data"]).to(device),
-         torch.from_numpy(eye[b["label"]]).to(device), b)
-        for b in eval_batches(test_ds, cfg.eval_batch_size)
-    ]
+    eval_staged = stage_eval(test_ds, cfg.eval_batch_size, cfg.num_classes,
+                             device, dp)
 
     perf = PerformanceTracker()
     epoch_plot = set(np.linspace(1, cfg.num_epochs, 11).astype(int).tolist())
@@ -180,7 +237,7 @@ def train_model(cfg: TrainConfig, dataset: dict) -> dict:
             perf.add("train_accuracy", segment_accuracy(
                 torch.cat(preds).cpu().numpy(), torch.cat(targets).cpu().numpy()
             ))
-            evaluate(model, eval_staged, perf, engine.spec.class_majority)
+            evaluate(model, eval_staged, perf, engine.spec.class_majority, dp)
             perf.add("times", float(np.sum(times)))
             if run_dir:
                 utils.save_dict(perf.dict, os.path.join(run_dir, "performance.pkl"))
@@ -193,16 +250,37 @@ def train_model(cfg: TrainConfig, dataset: dict) -> dict:
     return perf.dict
 
 
-def evaluate(model, staged, perf: PerformanceTracker, class_majority=False) -> None:
-    """Recording-level test pass (reference train_model.py:591-670)."""
+def stage_eval(test_ds, batch_size: int, num_classes: int, device,
+               dp: Optional[DataParallel] = None) -> list:
+    """Eval batches on the device as (data, one-hot target, host batch,
+    sharded).  Under data parallelism a batch that divides over the ranks
+    is sharded (this rank's block); one that does not is replicated
+    (JAX ``loop.py:709-723``)."""
+    eye = np.eye(num_classes, dtype=np.float32)
+    staged = []
+    for b in eval_batches(test_ds, batch_size):
+        n = len(b["label"])
+        sharded = dp is not None and n % dp.world == 0
+        sl = dp.block(n) if sharded else slice(None)
+        staged.append((torch.from_numpy(b["data"][sl]).to(device),
+                       torch.from_numpy(eye[b["label"][sl]]).to(device), b, sharded))
+    return staged
+
+
+def evaluate(model, staged, perf: PerformanceTracker, class_majority=False,
+             dp: Optional[DataParallel] = None) -> None:
+    """Recording-level test pass (reference train_model.py:591-670); sharded
+    batches' probabilities and losses are gathered from the ranks."""
     probs, loss_sum, n = [], 0.0, 0
-    for data, target, _ in staged:
+    for data, target, _, sharded in staged:
         p, l = eval_step(model, data, target)
+        if sharded:
+            p, l = dp.gather(p), dp.gather(l)
         probs.append(p.cpu().numpy())
         loss_sum += float(l.sum())
         n += len(l)
-    labels = np.concatenate([b["label"] for _, _, b in staged])
-    wavs = np.concatenate([b["wav"] for _, _, b in staged])
+    labels = np.concatenate([b["label"] for _, _, b, _ in staged])
+    wavs = np.concatenate([b["wav"] for _, _, b, _ in staged])
     perf.add("test_loss", loss_sum / max(n, 1))
     metrics = recording_level_eval(np.concatenate(probs), labels, wavs, class_majority)
     for k, v in metrics.items():

@@ -4,7 +4,8 @@ train_model.py:45-80).
 
 The SELC soft-label table lives on the device; :func:`selc_update` updates
 the batch's rows in place with ``index_copy_``, as the reference mutates
-its CUDA buffer in the forward.
+its CUDA buffer in the forward.  Under data parallelism every rank holds
+the whole table and :func:`selc_share_rows` keeps the replicas equal.
 """
 
 from __future__ import annotations
@@ -45,6 +46,16 @@ def selc_update(
     soft_labels.index_copy_(0, indices, new_rows)
     logp = F.log_softmax(logits, dim=1)
     return -(logp * new_rows).sum(dim=1).mean()
+
+
+def selc_share_rows(soft_labels: torch.Tensor, indices: torch.Tensor, gather) -> None:
+    """Keep the table replicated under data parallelism: after
+    :func:`selc_update` wrote this rank's rows, write every rank's updated
+    rows into every replica.  ``gather`` concatenates a tensor over the
+    ranks; the batch's indices are globally unique, so replicas agree."""
+    indices = indices.long()
+    rows = soft_labels.index_select(0, indices)
+    soft_labels.index_copy_(0, gather(indices), gather(rows))
 
 
 def init_selc_table(labels, num_classes: int, device=None) -> torch.Tensor:

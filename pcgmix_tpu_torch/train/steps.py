@@ -6,6 +6,12 @@ the augmentation plan (mix kernels) → forward → SELC / soft-target CE →
 backward → gradient value clipping → Adam with L2 weight decay → OneCycle
 (lr and cycled β₁).  The reference runs the same sequence
 (train_model.py:498-582); the only per-step host work is the plan.
+
+Under data parallelism (the JAX package's mesh step) a rank runs the same
+step on its block of the global batch: it gathers its rows and its
+partners' rows from the corpus it holds, mixes them through K3/K4, and
+averages the gradients over the ranks before clipping, so the update is
+the global batch's.  Loss, predictions and targets come back global.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcgmix_tpu_torch.train.losses import selc_update
+from pcgmix_tpu_torch.parallel import DataParallel
+from pcgmix_tpu_torch.train.losses import selc_share_rows, selc_update
 
 
 def make_optimizer(model: nn.Module, op: str, lr_max: float, weight_decay: float,
@@ -38,12 +45,15 @@ class TrainStep:
     """A train step over a corpus held on the device.
 
     ``train_data`` (N, C, T) and ``train_labels`` (N,) live on the model's
-    device; a step receives the batch's row ``indices`` and an optional
-    augmentation plan, and returns device tensors (loss, preds, target)."""
+    device; a step receives the global batch's row ``indices`` and an
+    optional augmentation plan, and returns device tensors (loss, preds,
+    target) of the global batch.  With ``dp`` the step is this rank's share
+    of a data-parallel step."""
 
     def __init__(self, model: nn.Module, opt, sched, train_data: torch.Tensor,
                  train_labels: torch.Tensor, soft_labels: torch.Tensor, *,
-                 num_classes: int, grad_clip: float, selc_es: int, engine=None):
+                 num_classes: int, grad_clip: float, selc_es: int, engine=None,
+                 dp: Optional[DataParallel] = None):
         self.model = model
         self.opt = opt
         self.sched = sched
@@ -54,31 +64,54 @@ class TrainStep:
         self.grad_clip = grad_clip
         self.selc_es = selc_es
         self.engine = engine
+        self.dp = dp
 
-    def __call__(self, indices, plan_arrays: Optional[dict], epoch: int) -> dict:
-        dev = self.train_data.device
-        rows = torch.from_numpy(indices.astype("int64")).to(dev)
+    def _rows(self, indices):
+        """(rows, data, one-hot target) of corpus rows ``indices`` (numpy)."""
+        rows = torch.from_numpy(indices.astype("int64")).to(self.train_data.device)
         data = self.train_data.index_select(0, rows)
         target = F.one_hot(
             self.train_labels.index_select(0, rows), self.num_classes
         ).to(data.dtype)
+        return rows, data, target
+
+    def _inputs(self, indices, plan_arrays: Optional[dict]):
+        """This step's (rows, data, target): the whole batch, or under data
+        parallelism this rank's block of it, mixed by the plan."""
+        if self.dp is None:
+            rows, data, target = self._rows(indices)
+            if plan_arrays is not None:
+                data, target = self.engine.apply(data, target, plan_arrays)
+            return rows, data, target
+        rows, data, target = self._rows(indices[self.dp.block(len(indices))])
         if plan_arrays is not None:
-            data, target = self.engine.apply(data, target, plan_arrays)
+            block = self.dp.shard_arrays(plan_arrays, len(indices))
+            _, d2, t2 = self._rows(indices[block["mix"]])
+            data, target = self.engine.apply_prepaired(data, d2, target, t2, block)
+        return rows, data, target
+
+    def __call__(self, indices, plan_arrays: Optional[dict], epoch: int) -> dict:
+        rows, data, target = self._inputs(indices, plan_arrays)
         self.model.train()
         out = self.model(data)
         loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.dp is not None:
+            self.dp.average_gradients(self.model.parameters())
         if self.grad_clip:
             nn.utils.clip_grad_value_(self.model.parameters(), self.grad_clip)
         self.opt.step()
         if self.sched is not None:
             self.sched.step()
-        return {
-            "loss": loss.detach(),
-            "preds": out.detach().argmax(dim=1),
-            "target": target.argmax(dim=1),
-        }
+        loss, preds, target = loss.detach(), out.detach().argmax(dim=1), target.argmax(dim=1)
+        if self.dp is not None:
+            if epoch > self.selc_es:
+                selc_share_rows(self.soft_labels, rows, self.dp.gather)
+            loss, preds, target = (
+                self.dp.mean(loss), self.dp.gather(preds), self.dp.gather(target)
+            )
+        return {"loss": loss, "preds": preds, "target": target}
 
 
 @torch.no_grad()

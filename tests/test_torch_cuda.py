@@ -18,8 +18,12 @@ from pcgmix_tpu_torch.ops.mix_kernels import (
     launch_counts,
     pcgmix_plus_fused,
     pcgmix_plus_fused_plain,
+    pcgmix_plus_fused_prepaired,
+    pcgmix_plus_fused_prepaired_plain,
     piecewise_mix_pairs,
     piecewise_mix_pairs_plain,
+    piecewise_mix_prepaired,
+    piecewise_mix_prepaired_plain,
     reset_launch_counts,
 )
 
@@ -106,3 +110,57 @@ def test_training_on_the_card_launches_the_kernels(dev):
                                        save_artifacts=False), ds)
         assert launch_counts()[kernel] == perf["steps"][-1]
         assert np.isfinite(perf["train_loss"]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_and_k1(batch, dev, dtype):
+    x, a = _plan(batch, "durratiomixup(rand)", dev)
+    x = x.to(dtype)
+    d2 = x.index_select(0, a["mix"].long())
+    reset_launch_counts()
+    got = piecewise_mix_prepaired(x, d2, *_args(a))
+    torch.cuda.synchronize()
+    assert launch_counts()["piecewise_mix_prepaired"] == 1
+    ref = piecewise_mix_prepaired_plain(x, d2, *_args(a))
+    assert got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-6
+    idn = torch.arange(B, dtype=torch.int32, device=dev)
+    assert torch.equal(got, piecewise_mix_pairs(x, idn, a["mix"], *_args(a)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_and_k2(batch, dev, dtype):
+    x, a = _plan(batch, "durmixmagwarp(0.2,4)", dev)
+    x = x.to(dtype)
+    d2 = x.index_select(0, a["mix"].long())
+    got = pcgmix_plus_fused_prepaired(x, d2, *_args(a), a["knots"])
+    ref = pcgmix_plus_fused_prepaired_plain(x, d2, *_args(a), a["knots"])
+    # fp32: 1e-5 (the envelope summed in another order); bf16: one ulp
+    tol = 1e-5 if dtype == torch.float32 else torch.maximum(
+        got.float().abs(), ref.float().abs()) * 2.0 ** -7
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    assert torch.equal(got, pcgmix_plus_fused(x, a["mix"], *_args(a), a["knots"]))
+
+
+def test_data_parallel_route_launches_k3_and_k4(dev, tmp_path):
+    import torch.distributed as dist
+
+    from pcgmix_tpu_torch.parallel import init_group
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    ds = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4,
+                                  segments_per_wav=2, sig_len=512, seed=3)
+    init_group("nccl", 0, 1, str(tmp_path / "store"))
+    try:
+        for method, kernel in (("durratiomixup", "piecewise_mix_prepaired"),
+                               ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused_prepaired")):
+            reset_launch_counts()
+            perf = train_model(TrainConfig(model="resnet9-5k", method=method,
+                                           num_epochs=2, batch_size=8,
+                                           save_artifacts=False), ds)
+            counts = launch_counts()
+            assert counts[kernel] == perf["steps"][-1]
+            assert counts["piecewise_mix_pairs"] == counts["pcgmix_plus_fused"] == 0
+            assert np.isfinite(perf["train_loss"]).all()
+    finally:
+        dist.destroy_process_group()

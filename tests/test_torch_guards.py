@@ -41,7 +41,8 @@ def test_port_imports_nothing_forbidden(path):
 def test_port_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     for required in ("chip_smoke.py", "pcgmix_tpu_torch/ops/mix_kernels.py",
-                     "pcgmix_tpu_torch/train/loop.py"):
+                     "pcgmix_tpu_torch/train/loop.py",
+                     "pcgmix_tpu_torch/parallel/dist.py"):
         assert required in names
     assert (ROOT / "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu").exists()
 
@@ -60,8 +61,19 @@ def test_train_model_refuses_a_missing_card():
                                 save_artifacts=False), ds)
 
 
+def test_spawned_ranks_import_neither_jax_nor_the_jax_package():
+    """A rank that the data-parallel route spawns starts from a fresh
+    interpreter and imports only the port (here it reports its modules)."""
+    from pcgmix_tpu_torch.parallel import spawn
+
+    modules = spawn(eval, 2, "gloo", ("sorted(__import__('sys').modules)",))
+    roots = {m.split(".")[0] for m in modules}
+    assert "pcgmix_tpu_torch" in roots and "torch" in roots
+    assert not roots & FORBIDDEN, sorted(roots & FORBIDDEN)
+
+
 def test_kernel_wrappers_refuse_other_devices():
-    from pcgmix_tpu_torch.ops import piecewise_mix_pairs
+    from pcgmix_tpu_torch.ops import piecewise_mix_pairs, piecewise_mix_prepaired
 
     x = torch.zeros(2, 1, 8, device="meta")
     i = torch.zeros(2, dtype=torch.int32, device="meta")
@@ -69,3 +81,5 @@ def test_kernel_wrappers_refuse_other_devices():
     a = torch.zeros(2, 1, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         piecewise_mix_pairs(x, i, i, p, p, p, p, a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        piecewise_mix_prepaired(x, x, p, p, p, p, a)

@@ -1,6 +1,7 @@
-"""Plain versions of the port's mix kernels K1 (piecewise_mix_pairs) and K2
-(pcgmix_plus_fused) against the JAX package: the Pallas kernels in
-interpret mode and the XLA piecewise_mix_batch / magnitude_warp.
+"""Plain versions of the port's mix kernels K1 (piecewise_mix_pairs), K2
+(pcgmix_plus_fused), K3 (piecewise_mix_prepaired) and K4
+(pcgmix_plus_fused_prepaired) against the JAX package: the Pallas kernels
+in interpret mode and the XLA piecewise_mix_batch / magnitude_warp.
 
 Tolerances: 1e-6 absolute for the blend (same fp32 arithmetic, rounding
 order may differ by one ulp), 1e-5 absolute once the spline warp is applied
@@ -17,14 +18,18 @@ from pcgmix_tpu.ops import magnitude_warp as jwarp
 from pcgmix_tpu.ops import piecewise_mix_batch, piecewise_mix_pairs as jpairs
 from pcgmix_tpu.ops.pallas_mix import (
     pcgmix_plus_fused_pallas,
+    pcgmix_plus_fused_prepaired_pallas,
     piecewise_mix_batch_pallas,
+    piecewise_mix_prepaired_pallas,
 )
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.ops import magnitude_warp, mix_kernels
 from pcgmix_tpu_torch.ops.mix_kernels import (
     launch_counts,
     pcgmix_plus_fused,
+    pcgmix_plus_fused_prepaired,
     piecewise_mix_pairs,
+    piecewise_mix_prepaired,
 )
 
 from .conftest import make_frames
@@ -39,6 +44,18 @@ def _engine_plan(rng, method, step=5):
     frames = make_frames(rng, B, T, min_seg=10, max_seg=60)
     labels = rng.integers(0, 2, B)
     plan = AugmentEngine(AugmentConfig(method, B, C, T)).plan(step, frames, labels)
+    return data, plan.arrays
+
+
+def _k27_engine_plan(rng, method, step=5):
+    """An engine plan over 28-entry frames: the multi-cycle variant's 27
+    segments (disjoint, in-range pieces, as the Pallas body needs)."""
+    data = rng.normal(size=(B, C, T)).astype(np.float32)
+    frames = np.zeros((B, 28), np.int64)
+    frames[:, 1:] = np.cumsum(rng.integers(4, 18, size=(B, 27)), axis=1)
+    labels = rng.integers(0, 2, B)
+    plan = AugmentEngine(AugmentConfig(method, B, C, T)).plan(step, frames, labels)
+    assert plan.arrays["dst"].shape == (B, 27)
     return data, plan.arrays
 
 
@@ -240,3 +257,110 @@ def test_build_dir_is_ignored_by_git():
     root = pathlib.Path(mix_kernels.__file__).resolve().parents[2]
     assert mix_kernels.BUILD_DIR.relative_to(root).parts[0] == "build"
     assert "build/" in (root / ".gitignore").read_text().splitlines()
+
+
+# --------------------------------------------------------------------------- #
+# K3 / K4: partner rows gathered beforehand (the data-parallel path)
+# --------------------------------------------------------------------------- #
+
+
+def _jpieces(a):
+    return (*(jnp.asarray(a[k], jnp.int32) for k in ("dst", "src", "len", "sel")),
+            jnp.asarray(a["alpha"], jnp.float32))
+
+
+@pytest.mark.parametrize("base_is_d1", [True, False])
+@pytest.mark.parametrize("geometry", ["engine", "k27"])
+def test_k3_plain_matches_prepaired_pallas(rng, geometry, base_is_d1):
+    method = "durratiomixup(rand)"
+    data, a = (_engine_plan(rng, method) if geometry == "engine"
+               else _k27_engine_plan(rng, method))
+    d2 = np.ascontiguousarray(data[a["mix"]])
+    t = _t(a)
+    got = piecewise_mix_prepaired(torch.from_numpy(data), torch.from_numpy(d2),
+                                  *_pieces(t), base_is_d1=base_is_d1).numpy()
+    ref = np.asarray(piecewise_mix_prepaired_pallas(
+        jnp.asarray(data), jnp.asarray(d2), *_jpieces(a), base_is_d1=base_is_d1,
+        interpret=True,
+    ))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=MIX_ATOL)
+
+
+@pytest.mark.parametrize("geometry", ["engine", "k27"])
+def test_k4_plain_matches_prepaired_pallas(rng, geometry):
+    method = "(rand)durmixmagwarp(0.2,4)"
+    data, a = (_engine_plan(rng, method) if geometry == "engine"
+               else _k27_engine_plan(rng, method))
+    d2 = np.ascontiguousarray(data[a["mix"]])
+    t = _t(a)
+    got = pcgmix_plus_fused_prepaired(torch.from_numpy(data), torch.from_numpy(d2),
+                                      *_pieces(t), t["knots"]).numpy()
+    ref = np.asarray(pcgmix_plus_fused_prepaired_pallas(
+        jnp.asarray(data), jnp.asarray(d2), *_jpieces(a), jnp.asarray(a["knots"]),
+        interpret=True,
+    ))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=WARP_ATOL)
+
+
+@pytest.mark.parametrize("base_is_d1", [True, False])
+def test_k3_on_gathered_partners_equals_k1_bit_for_bit(rng, base_is_d1):
+    data, a = _zero_length_plan(rng)
+    t = _t(a)
+    x = torch.from_numpy(data)
+    k3 = piecewise_mix_prepaired(x, x.index_select(0, t["mix"].long()), *_pieces(t),
+                                 base_is_d1=base_is_d1)
+    assert torch.equal(k3, torch.from_numpy(_k1(data, a, base_is_d1)))
+
+
+def test_k4_on_gathered_partners_equals_k2_bit_for_bit(rng):
+    data, a = _engine_plan(rng, "durmixmagwarp(0.2,4)")
+    t = _t(a)
+    x = torch.from_numpy(data)
+    k4 = pcgmix_plus_fused_prepaired(x, x.index_select(0, t["mix"].long()),
+                                     *_pieces(t), t["knots"])
+    assert torch.equal(k4, pcgmix_plus_fused(x, t["mix"], *_pieces(t), t["knots"]))
+
+
+def test_prepaired_wrappers_validate_and_take_the_plain_path(rng):
+    data, a = _engine_plan(rng, "durmixmagwarp(0.2,4)")
+    t = _t(a)
+    x = torch.from_numpy(data)
+    before = launch_counts()
+    out = piecewise_mix_prepaired(x.bfloat16(), x.bfloat16(), *_pieces(t))
+    assert out.dtype == torch.bfloat16 and launch_counts() == before
+    with pytest.raises(ValueError, match="share dtype, shape"):
+        piecewise_mix_prepaired(x, x[:-1].contiguous(), *_pieces(t))
+    with pytest.raises(ValueError, match="share dtype, shape"):
+        pcgmix_plus_fused_prepaired(x, x.bfloat16(), *_pieces(t), t["knots"])
+    with pytest.raises(ValueError, match="knots"):
+        pcgmix_plus_fused_prepaired(x, x, *_pieces(t), t["knots"][:-1].contiguous())
+    with pytest.raises(ValueError, match="piece arrays"):
+        piecewise_mix_prepaired(x[:-1].contiguous(), x[:-1].contiguous(), *_pieces(t))
+    half = {k: t[k][: B // 2].contiguous() for k in ("dst", "src", "len", "sel", "alpha")}
+    with pytest.raises(ValueError):
+        piecewise_mix_prepaired(x, x, *_pieces(half))
+
+
+def test_apply_prepaired_equals_apply_on_the_whole_batch(rng):
+    """The engine's data-parallel apply on two blocks of a batch, with the
+    partners gathered beforehand, equals its single-device apply."""
+    for method in ("durratiomixup", "durmixmagwarp(0.2,4)"):
+        data = rng.normal(size=(B, C, T)).astype(np.float32)
+        frames = make_frames(rng, B, T, min_seg=10, max_seg=60)
+        labels = rng.integers(0, 2, B)
+        target = torch.from_numpy(np.eye(2, dtype=np.float32)[labels])
+        eng = AugmentEngine(AugmentConfig(method, B, C, T))
+        arrays = eng.plan(4, frames, labels).arrays
+        x = torch.from_numpy(data)
+        whole, tgt = eng.apply(x, target, arrays)
+        mix = torch.from_numpy(arrays["mix"])
+        parts = []
+        for sl in (slice(0, B // 2), slice(B // 2, B)):
+            block = {k: v[sl] if isinstance(v, np.ndarray) else v
+                     for k, v in arrays.items()}
+            parts.append(eng.apply_prepaired(
+                x[sl], x.index_select(0, mix[sl]), target[sl],
+                target.index_select(0, mix[sl]), block,
+            ))
+        assert torch.equal(torch.cat([p[0] for p in parts]), whole)
+        assert torch.equal(torch.cat([p[1] for p in parts]), tgt)
