@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero):
 
 1. Card and build: print the card's name and power limit as nvidia-smi
-   gives them; build the CUDA mix kernels from csrc/ and time the build.
+   gives them; build the CUDA kernels K1–K5 from csrc/ (one nvcc per
+   source, started together, one library) and time the build.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (B=64, C=4, T=2500, K=4, fp32, plans from the port's own
    AugmentEngine; K3/K4 get d2 = x[mix] gathered beforehand), in bf16, and
@@ -16,12 +17,24 @@ Phases (any failure exits non-zero):
    the plain version computed in fp32 and cast; K2/K4 bf16 within one bf16
    ulp of it.  Each is timed with CUDA events (median of 60 launches,
    queued behind a device sleep so host overhead stays out).
-3. The slice end to end: ``train_model`` with full-width ResNet9, batch 64,
-   4 × 2500 inputs, 16 steps, once with PCGmix+ ``durmixmagwarp(0.2,4)``
-   and once with PCGmix ``durratiomixup``; each run must launch its kernel
-   (K2, K1) once per augmented step.  A small run on the card is also held
-   against the same run on the CPU (plain versions): equal loss traces.  A
-   profiled PCGmix+ run prints device time by kernel and the device's busy
+   K5 (k=3 conv + BatchNorm statistics) against its plain version on the
+   card (fp32 matmuls, TF32 off) at a small odd shape and at the
+   full-width ResNet9 layers res2a 64×312×512→512 and conv3
+   64×1250×128→256: y within one bf16 ulp plus the fp32 accumulation term
+   of ``bench/conv_bn_fused.py::compare``, s1 within 1e-5·Σ|acc| per
+   column, s2 within 1e-5 relative, y without stats bit-equal to y with
+   them.  Then K5's path, the bench harness: every arm at both shapes
+   (cuDNN yardsticks, K5 without and with stats, the plain version), with
+   the harness's decision rule; K5's launches are counted over this run.
+3. The slice end to end: ``train_model`` with full-width ResNet9 and with
+   full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
+   PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
+   each run must launch its kernel (K2, K1) once per augmented step.  Small
+   ResNet9 and ``Potes(noDropout)`` runs on the card are also held against
+   the same runs on the CPU (plain versions; Potes' dropout masks come from
+   a CPU generator on both): equal loss traces.  The host time of a Potes
+   step's plan and dropout masks is printed.  Profiled PCGmix+ runs of
+   ResNet9 and Potes print device time by kernel and the device's busy
    share.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
@@ -41,6 +54,7 @@ without the package beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -89,10 +103,14 @@ def profile_breakdown(torch, run, card, top=10, label="profile"):
         run()
         torch.cuda.synchronize()
     wall_us = (time.time() - t0) * 1e6
-    # kernel events only: a CPU op's self device time repeats its kernels'
+    # kernel and copy events only: a CPU op's self device time repeats its
+    # kernels', and a user annotation on the device's timeline (the
+    # optimizer's step) spans kernels that are listed themselves
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     busy = sum(t for _, t, _ in kernels)
     if not busy:
         print(f"{label}: device time not measured (the trace holds no kernels)")
@@ -131,7 +149,10 @@ def main() -> int:
         import numpy as np
 
         from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+        from pcgmix_tpu_torch.bench import conv_bn_fused as k5
         from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+        from pcgmix_tpu_torch.models import build_model
+        from pcgmix_tpu_torch.models.potes import potes_features
         from pcgmix_tpu_torch.ops import mix_kernels as mk
         from pcgmix_tpu_torch.parallel import init_group
         from pcgmix_tpu_torch.train import TrainConfig, train_model
@@ -247,23 +268,48 @@ def main() -> int:
         print(f"{name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
               f"{bound_ms:.6f} ms ({nbytes} B) on {card}")
 
+    # ---- 2b. K5 against its plain version, then its path: the harness ------
+    k5_errs = {}
+    for tag, shape in (("small_odd", k5.SMALL_ODD), *k5.SHAPES.items()):
+        k5_errs[tag] = k5.check_against_plain(*k5.inputs(*shape, dev))
+        print(f"conv3_bn_stats {tag} {shape}: {k5_errs[tag]}")
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    k5_bench = {tag: k5.bench_shape(tag, shape, 5, 20, dev)
+                for tag, shape in k5.SHAPES.items()}
+    torch.cuda.synchronize()
+    k5_launches = mk.launch_counts()["conv3_bn_stats"]
+    for tag, b in k5_bench.items():
+        a = b["arms"]
+        print(f"conv3_bn_stats {tag}: kernel_fused {a['kernel_fused']['ms']:.6f} ms, "
+              f"kernel_conv {a['kernel_conv']['ms']:.6f} ms, plain "
+              f"{a['plain']['ms']:.6f} ms, cudnn_conv {a['cudnn_conv']['ms']:.6f} ms, "
+              f"cudnn_conv_stats {a['cudnn_conv_stats']['ms']:.6f} ms, bound "
+              f"{b['bound_ms']:.6f} ms ({b['bound_by']}) on {card}")
+    print(f"conv3_bn_stats: {k5_launches} launches on the harness path")
+    if k5_launches == 0:
+        raise AssertionError("the harness never launched K5")
+
     # ---- 3. the slice end to end -------------------------------------------
     small = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4,
                                      segments_per_wav=2, sig_len=512, seed=3)
-    for method in ("durmixmagwarp(0.2,4)", "durratiomixup"):
-        cfg = dict(model="resnet9-5k", method=method, num_epochs=3, batch_size=8,
-                   save_artifacts=False)
-        on_card = train_model(TrainConfig(**cfg), small)["train_loss"]
-        on_cpu = train_model(TrainConfig(**cfg, device="cpu"), small)["train_loss"]
-        diff = float(np.max(np.abs(np.subtract(on_card, on_cpu))))
-        print(f"small {method}: card {on_card} cpu {on_cpu} max |diff| {diff:.3e}")
-        if not abs(on_card[0] - on_cpu[0]) < 1e-5 or diff > 1e-3:
-            raise AssertionError(f"{method}: card and CPU loss traces disagree")
+    for model in ("resnet9-5k", "Potes(noDropout)"):
+        for method in ("durmixmagwarp(0.2,4)", "durratiomixup"):
+            cfg = dict(model=model, method=method, num_epochs=3, batch_size=8,
+                       save_artifacts=False)
+            on_card = train_model(TrainConfig(**cfg), small)["train_loss"]
+            on_cpu = train_model(TrainConfig(**cfg, device="cpu"), small)["train_loss"]
+            diff = float(np.max(np.abs(np.subtract(on_card, on_cpu))))
+            print(f"small {model} {method}: card {on_card} cpu {on_cpu} "
+                  f"max |diff| {diff:.3e}")
+            if not abs(on_card[0] - on_cpu[0]) < 1e-5 or diff > 1e-3:
+                raise AssertionError(f"{model} {method}: card and CPU loss traces "
+                                     "disagree")
 
-    def drive(method, kernel, route, **overrides):
+    def drive(method, kernel, route, model="resnet9", **overrides):
         """One 16-step main-path run; the counts are set to 0 just before
         it and read just after.  Returns (launches of ``kernel``, losses)."""
-        cfg = TrainConfig(model="resnet9", method=method, num_epochs=4, batch_size=B,
+        cfg = TrainConfig(model=model, method=method, num_epochs=4, batch_size=B,
                           num_channels=C, save_artifacts=False, **overrides)
         torch.cuda.synchronize()
         mk.reset_launch_counts()
@@ -282,7 +328,7 @@ def main() -> int:
         # in epoch 1); `times` is cumulative and synced at plot epochs
         d_steps = perf["steps"][-1] - perf["steps"][0]
         d_time = perf["times"][-1] - perf["times"][0]
-        print(f"{route} {method}: resnet9 batch {B} x {C}x{T}, {steps} steps, "
+        print(f"{route} {method}: {model} batch {B} x {C}x{T}, {steps} steps, "
               f"launches {counts}, losses {perf['train_loss']}, "
               f"test_accuracy {perf['test_accuracy'][-1]}")
         print(f"{route} {method}: {d_steps / d_time:.3f} steps/s, "
@@ -295,12 +341,34 @@ def main() -> int:
     for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
                            ("durratiomixup", "piecewise_mix_pairs")):
         launches[kernel], single_losses[method] = drive(method, kernel, "train")
+        drive(method, kernel, "train", model="Potes")
+
+    # host work of a Potes step that the card waits on: the plan, and the
+    # dropout masks drawn on the CPU generator and queued for the card
+    def host_ms(fn, n=16):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    potes = build_model("Potes", 2, C, T).to(dev).train()
+    branch_out = torch.zeros(B, C, 4, potes_features(T), device=dev)
+    plan_ms = host_ms(lambda: AugmentEngine(AugmentConfig(
+        "durmixmagwarp(0.2,4)", B, C, T)).plan(7, frames, labels))
+    drop_ms = host_ms(lambda: potes._drop(branch_out, potes.dropout))
+    torch.cuda.synchronize()
+    print(f"Potes host work per step: PCGmix+ plan {plan_ms:.3f} ms, branch dropout "
+          f"masks ({branch_out.numel()} values) {drop_ms:.3f} ms on {card}")
 
     # where a PCGmix+ step's device time goes (informational: the profiler's
     # CUDA tracing is the only source, and an empty trace fails nothing)
     profiled = TrainConfig(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
                            batch_size=B, num_channels=C, save_artifacts=False)
     profile_breakdown(torch, lambda: train_model(profiled, ds), card)
+    profile_breakdown(
+        torch, lambda: train_model(dataclasses.replace(profiled, model="Potes"), ds),
+        card, label="profile Potes")
 
     # ---- 4. the data-parallel route (1-rank NCCL group) -------------------
     # Full-width training at lr 0.01 is chaotic on this data: the single-
@@ -367,6 +435,18 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for name, r in report.items()
     ]
+    # K5 at res2a (conv3 on its own line above); the library call is cuDNN's
+    # conv alone, cudnn_conv_stats is printed beside it
+    res2a = k5_bench["res2a"]
+    kernels.append({
+        "name": "conv3_bn_stats", "route": "cuda",
+        "source": "pcgmix_tpu_torch/ops/csrc/conv_bn_stats.cu",
+        "replaces": "scripts/bench_conv_bn_fused.py:97", "launches": k5_launches,
+        "max_abs_err": max(e["y_max_abs_err"] for e in k5_errs.values()),
+        "ms": res2a["arms"]["kernel_fused"]["ms"],
+        "plain_ms": res2a["arms"]["plain"]["ms"], "bound_ms": res2a["bound_ms"],
+        "bound_by": res2a["bound_by"],
+        "library_ms": res2a["arms"]["cudnn_conv"]["ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

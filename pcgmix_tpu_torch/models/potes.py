@@ -1,0 +1,92 @@
+"""Potes 1-D CNN (counterpart: ``pcgmix_tpu/models/potes.py``; reference
+models.py:358-465).
+
+Input (B, C, T).  One shared branch ``cnn1`` runs every band: Conv1d k=5
+pad=1 → ReLU → MaxPool(2) → Conv1d k=5 pad=1 → ReLU → MaxPool(2) →
+Dropout.  The bands' outputs are flattened in torch order and concatenated,
+then ``dimreduc`` (→ 20) → ReLU → Dropout(0.5) → ``linear``.  The bands run
+as one batch of B·C single-channel rows.
+
+Module names give the reference state_dict keys (``cnn1.0.0``,
+``cnn1.1.0``, ``dimreduc``, ``linear``), the ones
+``pcgmix_tpu/train/convert.py::torch_potes_to_flax`` reads.  The reference
+also defines ``cnn2``–``cnn4``, which its forward never uses (dead
+parameters, as the JAX package notes); a reference checkpoint loads here
+without them (``load_state_dict(..., strict=False)``).
+
+Dropout draws its masks from the model's own ``torch.Generator`` on the
+CPU, seeded at construction (the run's ``seed``), and copies them to the
+activations' device: two runs with the same seed see the same masks, on
+the card and on the CPU alike.  They cannot equal the JAX package's, which
+come from the JAX PRNG (PARITY.md "Dropout masks").  During a data-parallel
+step (:func:`pcgmix_tpu_torch.parallel.batch_rows`) every rank draws the
+global batch's masks from an identically seeded generator and keeps its own
+rows, so the ranks' generators stay in step and the step equals the
+single-device one.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from pcgmix_tpu_torch.parallel.dist import current_batch_rows
+
+HIDDEN = 20  # dimreduc's width (models.py:379)
+HEAD_DROPOUT = 0.5  # after dimreduc, in every preset (models.py:380)
+
+
+def potes_features(sig_len: int) -> int:
+    """Length of a band after the branch: two (k=5, pad=1) convs, each
+    followed by MaxPool(2) with floor division."""
+    return ((sig_len - 2) // 2 - 2) // 2
+
+
+class Potes(nn.Module):
+    """Input (B, C, T) channel-first; returns (B, num_classes) logits."""
+
+    def __init__(self, num_classes: int = 2, layers: Sequence[int] = (8, 4),
+                 dropout: float = 0.25, num_channels: int = 4, sig_len: int = 2500,
+                 seed: int = 0):
+        super().__init__()
+        l0, l1 = layers
+        self.cnn1 = nn.Sequential(
+            nn.Sequential(nn.Conv1d(1, l0, 5, padding=1), nn.ReLU(), nn.MaxPool1d(2)),
+            nn.Sequential(nn.Conv1d(l0, l1, 5, padding=1), nn.ReLU(), nn.MaxPool1d(2)),
+        )
+        self.dimreduc = nn.Linear(num_channels * l1 * potes_features(sig_len), HIDDEN)
+        self.linear = nn.Linear(HIDDEN, num_classes)
+        self.dropout = dropout
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def _drop(self, h: torch.Tensor, p: float) -> torch.Tensor:
+        """Dropout with rate ``p`` in training: kept values scaled by
+        1/(1−p), as flax's nn.Dropout does."""
+        if not self.training or p == 0.0:
+            return h
+        rows = current_batch_rows()
+        n, sl = (rows.n, rows.rows) if rows is not None else (h.shape[0], slice(None))
+        u = torch.rand((n, *h.shape[1:]), generator=self.generator,
+                       pin_memory=h.is_cuda)[sl]
+        keep = u.to(h.device, non_blocking=True) >= p
+        return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape
+        h = self.cnn1(x.reshape(B * C, 1, T))
+        h = self._drop(h.reshape(B, C, *h.shape[1:]), self.dropout)
+        h = torch.relu(self.dimreduc(h.reshape(B, -1)))
+        return self.linear(self._drop(h, HEAD_DROPOUT))
+
+
+# Width presets (reference models.py:339-356).
+POTES_PRESETS = {
+    "Potes": dict(layers=(8, 4), dropout=0.25),
+    "Potes(noDropout)": dict(layers=(8, 4), dropout=0.0),
+    "PotesBig128and64": dict(layers=(128, 64), dropout=0.25),
+    "PotesBig64and32": dict(layers=(64, 32), dropout=0.25),
+    "Potes0.1": dict(layers=(2, 1), dropout=0.25),
+    "Potes0.02": dict(layers=(1, 1), dropout=0.25),
+}

@@ -17,6 +17,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from pcgmix_tpu_torch.parallel.dist import current_batch_rows
+
 
 class BatchNorm1d(nn.BatchNorm1d):
     """BatchNorm whose running variance follows the JAX package.
@@ -32,7 +34,13 @@ class BatchNorm1d(nn.BatchNorm1d):
     gives flax's BatchNorm on the JAX package's mesh: the per-channel Σx,
     Σx² and count are all-reduced with the differentiable all-reduce, and
     x is normalized with the global mean and the global biased variance
-    E[x²] − E[x]², as flax computes it.
+    E[x²] − E[x]², as flax computes it.  On a batch that every rank holds
+    whole (replicated, :func:`pcgmix_tpu_torch.parallel.batch_rows`) the
+    local statistics are the global ones, and the all-reduce is skipped.
+    It would give the same numbers over ``world`` copies of the batch (its
+    backward sums the ranks' equal statistics gradients, but the count it
+    divides by grew by the same factor); skipping it saves a collective per
+    layer and computes what the JAX package's replicated step computes.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +49,9 @@ class BatchNorm1d(nn.BatchNorm1d):
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps,
             )
-        if dist.is_available() and dist.is_initialized():
+        rows = current_batch_rows()
+        if (dist.is_available() and dist.is_initialized()
+                and (rows is None or not rows.replicated)):
             return self._global_batch_norm(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():

@@ -1,4 +1,4 @@
-"""The piecewise-mix kernels K1–K4: wrappers, plain versions, build.
+"""The piecewise-mix kernels K1–K4: wrappers and plain versions.
 
 K1 ``piecewise_mix_pairs`` replaces ``pcgmix_tpu/ops/pallas_mix.py::
 piecewise_mix_pairs_pallas`` (PCGmix); K2 ``pcgmix_plus_fused`` replaces
@@ -14,115 +14,30 @@ version in this module; a CUDA tensor launches the kernel or raises.  Each
 wrapper counts its kernel launches (:func:`launch_counts`), so a run can
 show that its main path went through the kernels.
 
-The kernels are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface under ``build/torch_kernels/`` beside the package,
-keyed by a hash of the sources and flags, and loaded with ctypes.
+The kernels are compiled at first use, with K5's, into one shared library
+(``ops/build.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
-
 import numpy as np
 import torch
 
+from pcgmix_tpu_torch.ops.build import (  # noqa: F401  (re-exported)
+    BUILD_DIR,
+    MAX_PIECES,
+    MAX_WARP_TERMS,
+    build_library,
+    is_plain,
+    launch,
+    launch_counts,
+    reset_launch_counts,
+)
 from pcgmix_tpu_torch.ops.piecewise import piecewise_mix_f32
 from pcgmix_tpu_torch.ops.spline import cubic_spline_basis, spline_envelope
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-MAX_PIECES = 32  # kMaxPieces in csrc/mix_kernels.cu
-MAX_WARP_TERMS = 256  # kMaxWarpTerms: (knot+2)·C envelope coefficients
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# wrapper name → (C entry point, pointer arguments, int arguments); every
-# entry point takes the stream last
-_ENTRIES = {
-    "piecewise_mix_pairs": ("pcgmix_piecewise_mix_pairs", 9, 7),
-    "pcgmix_plus_fused": ("pcgmix_plus_fused", 10, 6),
-    "piecewise_mix_prepaired": ("pcgmix_piecewise_mix_prepaired", 8, 6),
-    "pcgmix_plus_fused_prepaired": ("pcgmix_plus_fused_prepaired", 10, 6),
-}
-_launches = dict.fromkeys(_ENTRIES, 0)
-_lib = None
-_lib_lock = threading.Lock()
 _basis_cache: dict = {}
-
-
-def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
-
-
-# --------------------------------------------------------------------------- #
-# build and load
-# --------------------------------------------------------------------------- #
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found to build the mix kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_library(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernels' library.
-
-    With ``verbose`` the compile line and ptxas' register/shared-memory
-    report are printed."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        sources = sorted(_CSRC.glob("*.cu"))
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in sorted(_CSRC.iterdir()):
-            digest.update(p.name.encode() + p.read_bytes())
-        so = BUILD_DIR / f"libpcgmix_mix_{digest.hexdigest()[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                   *map(str, sources)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stdout}{res.stderr}"
-                )
-            if verbose:
-                print(" ".join(cmd))
-                print(res.stdout + res.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for entry, n_ptr, n_int in _ENTRIES.values():
-            fn = getattr(lib, entry)
-            fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
-            fn.restype = i
-        lib.pcgmix_max_pieces.restype = i
-        lib.pcgmix_max_warp_terms.restype = i
-        if (lib.pcgmix_max_pieces() != MAX_PIECES
-                or lib.pcgmix_max_warp_terms() != MAX_WARP_TERMS):
-            raise RuntimeError("mix kernel limits disagree with the wrapper")
-        _lib = lib
-        return lib
 
 
 # --------------------------------------------------------------------------- #
@@ -179,30 +94,11 @@ def _check_knots(knots, n, C, device):
         raise ValueError(f"(knot+2)·C must be at most {MAX_WARP_TERMS}")
 
 
-def _is_plain(data) -> bool:
-    """True for a CPU tensor (plain version); False for CUDA (kernel)."""
-    if data.device.type == "cpu":
-        return True
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
-    return False
-
-
 def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
-    """Call wrapper ``name``'s C entry point on out's device and current
-    stream; tensors among ``args`` pass as their data pointers.  Raises on a
-    refused launch, and counts the launch."""
-    if out.shape[0] == 0:
-        return out
-    lib = build_library()
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(out.device):
-        code = getattr(lib, _ENTRIES[name][0])(
-            *c_args, torch.cuda.current_stream().cuda_stream
-        )
-    if code != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
-    _launches[name] += 1
+    """Launch wrapper ``name``'s kernel (:func:`build.launch`) unless the
+    batch is empty; returns ``out``."""
+    if out.shape[0] > 0:
+        launch(name, out.device, *args)
     return out
 
 
@@ -237,7 +133,7 @@ def piecewise_mix_pairs(data, idx1, idx2, dst, src, length, sel, alpha,
     Returns (N, C, T) in data's dtype, blended in float32.
     """
     n, k = _check(data, (idx1, idx2), (dst, src, length, sel), alpha)
-    if _is_plain(data):
+    if is_plain(data):
         return piecewise_mix_pairs_plain(
             data, idx1, idx2, dst, src, length, sel, alpha, base_is_d1=base_is_d1
         )
@@ -260,7 +156,7 @@ def piecewise_mix_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
     """
     _check_rows(d1_rows, d2_rows)
     n, k = _check(d1_rows, (), (dst, src, length, sel), alpha)
-    if _is_plain(d1_rows):
+    if is_plain(d1_rows):
         return piecewise_mix_prepaired_plain(
             d1_rows, d2_rows, dst, src, length, sel, alpha, base_is_d1=base_is_d1
         )
@@ -318,7 +214,7 @@ def pcgmix_plus_fused(data, mix, dst, src, length, sel, alpha, knots):
     if n != B:
         raise ValueError(f"mix must have one entry per row ({B}), got {n}")
     _check_knots(knots, B, C, data.device)
-    if _is_plain(data):
+    if is_plain(data):
         return pcgmix_plus_fused_plain(data, mix, dst, src, length, sel, alpha, knots)
     basis = warp_basis(T, knots.shape[1] - 2, data.device)
     out = torch.empty_like(data)
@@ -341,7 +237,7 @@ def pcgmix_plus_fused_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
     n, k = _check(d1_rows, (), (dst, src, length, sel), alpha)
     _, C, T = d1_rows.shape
     _check_knots(knots, n, C, d1_rows.device)
-    if _is_plain(d1_rows):
+    if is_plain(d1_rows):
         return pcgmix_plus_fused_prepaired_plain(
             d1_rows, d2_rows, dst, src, length, sel, alpha, knots
         )

@@ -13,7 +13,14 @@ hand, one process per device:
   gradients are averaged before clipping (:meth:`average_gradients`), so
   every rank applies the same update;
 - BatchNorm's statistics are global (``models/resnet9.py::BatchNorm1d``)
-  and the SELC table stays replicated (``train/losses.py``).
+  and the SELC table stays replicated (``train/losses.py``);
+- a global batch that does not divide over the ranks is not split: every
+  rank runs all of it, as the single-device step does, the counterpart of
+  the JAX package replicating a leaf that does not divide
+  (``pcgmix_tpu/parallel/mesh.py:39-43``).  :func:`batch_rows` tells the
+  modules, during a step's forward, which rows of how large a global batch
+  this process holds: BatchNorm takes local statistics on a replicated
+  batch, and dropout draws the global batch's masks and keeps its rows.
 
 Groups are NCCL on CUDA and gloo on the CPU; the CPU route exists for the
 tests.  :func:`spawn` starts one worker per device and returns rank 0's
@@ -23,15 +30,47 @@ directory, so no port is chosen.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
 import tempfile
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """This process's ``rows`` of a global batch of ``n`` rows;
+    ``replicated`` when every rank of the group holds all of them."""
+
+    n: int
+    rows: slice
+    replicated: bool = False
+
+
+_batch_rows: Optional[BatchRows] = None
+
+
+@contextlib.contextmanager
+def batch_rows(n: int, rows: slice, replicated: bool = False):
+    """Within: the forward of a step over ``rows`` of a global batch of
+    ``n`` rows, replicated over the ranks or not (see
+    :func:`current_batch_rows`)."""
+    global _batch_rows
+    prev, _batch_rows = _batch_rows, BatchRows(n, rows, replicated)
+    try:
+        yield
+    finally:
+        _batch_rows = prev
+
+
+def current_batch_rows() -> Optional[BatchRows]:
+    """The rows set by :func:`batch_rows`, or None outside a step."""
+    return _batch_rows
 
 
 def init_group(backend: str, rank: int, world_size: int, store_path: str) -> None:
@@ -85,9 +124,13 @@ class DataParallel:
     def current(cls) -> "DataParallel":
         return cls(dist.get_rank(), dist.get_world_size())
 
+    def divides(self, n: int) -> bool:
+        """True when a global batch of ``n`` rows splits over the ranks."""
+        return n % self.world == 0
+
     def block(self, n: int) -> slice:
         """This rank's contiguous block of a global batch of ``n`` rows."""
-        if n % self.world:
+        if not self.divides(n):
             raise ValueError(
                 f"batch of {n} rows does not divide over {self.world} ranks"
             )

@@ -1,6 +1,6 @@
-"""Weight carry-over between the two packages (inverse of
-``pcgmix_tpu/train/convert.py::torch_resnet9_to_flax``) and the reference's
-seeded initialization.
+"""Weight carry-over between the two packages (inverses of
+``pcgmix_tpu/train/convert.py::torch_resnet9_to_flax`` and
+``torch_potes_to_flax``) and the reference's seeded initialization.
 
 Layouts: flax Conv kernel (k, Ci, Co) ↔ torch Conv1d weight (Co, Ci, k);
 flax Dense kernel (Ci, Co) ↔ torch Linear weight (Co, Ci); flax BatchNorm
@@ -54,6 +54,20 @@ def jax_resnet9_to_torch(params: Mapping, batch_stats: Mapping) -> dict:
     return sd
 
 
+def jax_potes_to_torch(params: Mapping) -> dict:
+    """Potes flax params (numpy leaves) → a ``Potes`` state_dict."""
+    sd = {}
+    for i, tname in enumerate(("cnn1.0.0", "cnn1.1.0")):
+        conv = params["cnn1"][f"Conv1d_{i}"]["Conv_0"]
+        sd[f"{tname}.weight"] = _t(np.transpose(conv["kernel"], (2, 1, 0)))
+        sd[f"{tname}.bias"] = _t(conv["bias"])
+    for name in ("dimreduc", "linear"):
+        dense = params[name]["Dense_0"]
+        sd[f"{name}.weight"] = _t(np.asarray(dense["kernel"]).T)
+        sd[f"{name}.bias"] = _t(dense["bias"])
+    return sd
+
+
 def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
     """Re-draw the model's Conv1d/Linear parameters as a fresh reference
     model built under ``torch.manual_seed(seed)`` would hold them
@@ -63,7 +77,10 @@ def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
     U(±1/√fan_in) — then U(±1/√fan_in) on the bias, drawn module by module
     in construction order; BatchNorm draws nothing.  The draws run on a CPU
     generator (a CUDA generator gives other numbers) and are copied to the
-    model's device.
+    model's device.  For Potes the same rule covers its four live layers;
+    the reference also draws its dead ``cnn2``–``cnn4`` branches, so no
+    reference-exact init stream is claimed there (the JAX package has no
+    torch-seeded Potes init either).
     """
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():

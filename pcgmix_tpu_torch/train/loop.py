@@ -13,9 +13,10 @@ Data parallelism (JAX ``TrainConfig.n_devices``, ``loop.py:262-287``): with
 ``n_devices > 1`` the loop spawns one worker per device, each a rank of a
 process group (NCCL on ``cuda:r``, gloo on the CPU); called inside a process
 group that is already initialized (the ``torchrun`` way) it trains on that
-group.  Every rank plans the global batch and steps on its block of it
-(``train/steps.py``); the numbers are the single-device run's.  Rank 0
-writes the run directory; the caller gets the performance dict.
+group.  Every rank plans the global batch and steps on its block of it, or
+on all of it when it does not divide over the ranks (``train/steps.py``);
+the numbers are the single-device run's.  Rank 0 writes the run
+directory; the caller gets the performance dict.
 """
 
 from __future__ import annotations
@@ -118,13 +119,9 @@ def _selc_turnpoint(cfg: TrainConfig) -> int:
     return cfg.num_epochs + 1
 
 
-def _check_world(cfg: TrainConfig, world: int) -> None:
+def _check_world(world: int) -> None:
     if world < 1:
         raise ValueError(f"n_devices must be at least 1, got {world}")
-    if cfg.batch_size % world:
-        raise ValueError(
-            f"batch_size {cfg.batch_size} does not divide over {world} devices"
-        )
 
 
 def train_model(cfg: TrainConfig, dataset: dict) -> dict:
@@ -140,12 +137,12 @@ def train_model(cfg: TrainConfig, dataset: dict) -> dict:
             raise ValueError(
                 f"n_devices={cfg.n_devices} inside a process group of {dp.world}"
             )
-        _check_world(cfg, dp.world)
+        _check_world(dp.world)
         return _train(cfg, dataset, dp)
     world = cfg.n_devices
     if world is None:
         world = torch.cuda.device_count() if device.type == "cuda" else 1
-    _check_world(cfg, world)
+    _check_world(world)
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise ValueError(
             f"n_devices={world} but {torch.cuda.device_count()} CUDA devices"
@@ -178,7 +175,9 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
         raise ValueError("train split smaller than one batch")
     C, T = train_ds.data.shape[1], train_ds.data.shape[-1]
 
-    model = seeded_init(build_model(cfg.model, cfg.num_classes, C, T), cfg.seed_fix)
+    model = seeded_init(
+        build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed), cfg.seed_fix
+    )
     model.to(device)
     if dp is not None:
         dp.broadcast_module(model)

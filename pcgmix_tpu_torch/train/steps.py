@@ -11,7 +11,12 @@ Under data parallelism (the JAX package's mesh step) a rank runs the same
 step on its block of the global batch: it gathers its rows and its
 partners' rows from the corpus it holds, mixes them through K3/K4, and
 averages the gradients over the ranks before clipping, so the update is
-the global batch's.  Loss, predictions and targets come back global.
+the global batch's.  Loss, predictions and targets come back global.  A
+global batch that does not divide over the ranks is replicated instead:
+every rank runs the single-device step on all of it (K1/K2), BatchNorm
+takes local statistics, and the gradients come out equal on every rank
+(the JAX package's unsharded fallback, ``pcgmix_tpu/augment/engine.py:
+914-916``, ``:943-944``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcgmix_tpu_torch.parallel import DataParallel
+from pcgmix_tpu_torch.parallel import DataParallel, batch_rows
 from pcgmix_tpu_torch.train.losses import selc_share_rows, selc_update
 
 
@@ -75,10 +80,10 @@ class TrainStep:
         ).to(data.dtype)
         return rows, data, target
 
-    def _inputs(self, indices, plan_arrays: Optional[dict]):
-        """This step's (rows, data, target): the whole batch, or under data
-        parallelism this rank's block of it, mixed by the plan."""
-        if self.dp is None:
+    def _inputs(self, indices, plan_arrays: Optional[dict], sharded: bool):
+        """This step's (rows, data, target): the whole batch, or when
+        ``sharded`` this rank's block of it, mixed by the plan."""
+        if not sharded:
             rows, data, target = self._rows(indices)
             if plan_arrays is not None:
                 data, target = self.engine.apply(data, target, plan_arrays)
@@ -91,13 +96,20 @@ class TrainStep:
         return rows, data, target
 
     def __call__(self, indices, plan_arrays: Optional[dict], epoch: int) -> dict:
-        rows, data, target = self._inputs(indices, plan_arrays)
+        n = len(indices)
+        sharded = self.dp is not None and self.dp.divides(n)
+        rows, data, target = self._inputs(indices, plan_arrays, sharded)
         self.model.train()
-        out = self.model(data)
+        rows_held = self.dp.block(n) if sharded else slice(0, n)
+        with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):
+            out = self.model(data)
         loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         if self.dp is not None:
+            # replicated: the gradients are equal already, and averaging
+            # them keeps the replicas equal where a kernel is not
+            # deterministic
             self.dp.average_gradients(self.model.parameters())
         if self.grad_clip:
             nn.utils.clip_grad_value_(self.model.parameters(), self.grad_clip)
@@ -105,7 +117,7 @@ class TrainStep:
         if self.sched is not None:
             self.sched.step()
         loss, preds, target = loss.detach(), out.detach().argmax(dim=1), target.argmax(dim=1)
-        if self.dp is not None:
+        if sharded:
             if epoch > self.selc_es:
                 selc_share_rows(self.soft_labels, rows, self.dp.gather)
             loss, preds, target = (

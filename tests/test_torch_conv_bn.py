@@ -1,0 +1,124 @@
+"""K5 of the PyTorch port (``ops/conv_bn.py``) against the Pallas kernel it
+replaces, ``scripts/bench_conv_bn_fused.py::make_arms``, run in interpret
+mode on the CPU; the CPU wrapper takes the plain version.
+
+Bars (measured at B=4, T=96, Cin=Cout=128 between the two: y differs in 5
+of 49,152 elements by one bf16 ulp, the statistics by 2.2e-7 relative):
+y within one bf16 ulp elementwise and at most 0.1 % of its elements
+differing; s2 within rtol 1e-5; s1, which can cancel, within
+1e-5·Σ|acc| per column (the bar ``chip_smoke.py`` holds the card to).
+The wrapper's refusals and the harness's bounds are held here too."""
+
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcgmix_tpu_torch.bench import conv_bn_fused as harness
+from pcgmix_tpu_torch.ops import conv3_bn_stats, launch_counts, reset_launch_counts
+from pcgmix_tpu_torch.ops.conv_bn import conv3_acc_plain, conv3_bn_stats_plain
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def script():
+    spec = importlib.util.spec_from_file_location(
+        "bench_conv_bn_fused", ROOT / "scripts" / "bench_conv_bn_fused.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _inputs(B, T, Cin, Cout, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, Cin)).astype(np.float32)
+    w = (rng.standard_normal((3, Cin, Cout)) * 0.05).astype(np.float32)
+    return (torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(),
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _assert_matches(got, ref, x, w):
+    y, s1, s2 = got
+    y_ref, s1_ref, s2_ref = (_f32(r) for r in ref)
+    y = y.float().numpy()
+    d = np.abs(y - y_ref)
+    ulp = np.maximum(np.abs(y), np.abs(y_ref)) * 2.0 ** -7
+    assert (d <= ulp).all(), d.max()
+    assert (d > 0).mean() <= 1e-3, (d > 0).sum()
+    abs_sum = conv3_acc_plain(x, w).abs().sum(dim=(0, 1)).numpy()
+    assert (np.abs(s1.numpy() - s1_ref.reshape(-1)) <= 1e-5 * abs_sum).all()
+    np.testing.assert_allclose(s2.numpy(), s2_ref.reshape(-1), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arm", ["pallas_fused", "pallas_fused_flat2"])
+def test_plain_matches_the_pallas_kernel(script, arm):
+    x, w, jx, jw = _inputs(4, 96, 128, 128)
+    ref = script.make_arms(4, 96, 128, 128, interpret=True)[arm](jx, jw)
+    _assert_matches(conv3_bn_stats(x, w), ref, x, w)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_short_samples_zero_both_boundary_rows(script, T):
+    x, w, jx, jw = _inputs(3, T, 8, 16, seed=T)
+    ref = script.make_arms(3, T, 8, 16, interpret=True)["pallas_fused"](jx, jw)
+    got = conv3_bn_stats(x, w)
+    _assert_matches(got, ref, x, w)
+    # per sample: only the centre tap sees data when T = 1
+    if T == 1:
+        centre = (x.float() @ w.float()[1]).bfloat16()
+        assert torch.equal(got[0], centre)
+
+
+def test_without_stats_equals_the_pallas_conv(script):
+    x, w, jx, jw = _inputs(2, 24, 16, 24, seed=3)
+    y, s1, s2 = conv3_bn_stats(x, w, with_stats=False)
+    assert s1 is None and s2 is None
+    assert torch.equal(y, conv3_bn_stats(x, w)[0])
+    ref = script.make_arms(2, 24, 16, 24, interpret=True)["pallas_conv"](jx, jw)
+    d = np.abs(y.float().numpy() - _f32(ref))
+    assert (d <= np.abs(_f32(ref)) * 2.0 ** -7 + 1e-30).all()
+
+
+def test_cpu_wrapper_takes_the_plain_version_and_launches_nothing():
+    x, w, _, _ = _inputs(2, 9, 8, 8, seed=4)
+    reset_launch_counts()
+    got = conv3_bn_stats(x, w)
+    ref = conv3_bn_stats_plain(x, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert launch_counts()["conv3_bn_stats"] == 0
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    x, w, _, _ = _inputs(2, 9, 8, 6, seed=5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv3_bn_stats(x.float(), w)
+    with pytest.raises(ValueError, match="w must be"):
+        conv3_bn_stats(x, w[:2].contiguous())
+    with pytest.raises(ValueError, match="w must be"):
+        conv3_bn_stats(x, torch.zeros(3, 7, 6, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3_bn_stats(x.transpose(0, 1), w)
+    with pytest.raises(ValueError, match="x must be"):
+        conv3_bn_stats(x[0], w)
+    meta = torch.zeros(2, 9, 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3_bn_stats(meta, w.to("meta"))
+
+
+def test_harness_bounds_and_cpu_check():
+    # bounds on an H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s
+    assert harness.work(*harness.SHAPES["res2a"]) == (31_406_948_352, 42_471_424)
+    assert harness.work(*harness.SHAPES["conv3"]) == (15_728_640_000, 61_638_656)
+    ms, by = harness.bound(*harness.SHAPES["res2a"])
+    assert by == "operations" and abs(ms - 0.03176) < 1e-5
+    ms, by = harness.bound(*harness.SHAPES["conv3"])
+    assert by == "bytes" and abs(ms - 0.01840) < 1e-5
+    assert harness.main(["--check"]) == 0

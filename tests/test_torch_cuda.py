@@ -164,3 +164,13 @@ def test_data_parallel_route_launches_k3_and_k4(dev, tmp_path):
             assert np.isfinite(perf["train_loss"]).all()
     finally:
         dist.destroy_process_group()
+
+
+def test_k5_matches_plain_at_a_small_odd_shape(dev):
+    from pcgmix_tpu_torch.bench.conv_bn_fused import SMALL_ODD, check_against_plain, inputs
+
+    reset_launch_counts()
+    errs = check_against_plain(*inputs(*SMALL_ODD, dev))  # raises on a miss
+    torch.cuda.synchronize()
+    assert launch_counts()["conv3_bn_stats"] == 2  # with and without stats
+    assert errs["y_ok"] and errs["stats_ok"] and errs["no_stats_bit_equal"]

@@ -5,7 +5,10 @@ Held: BatchNorm over 2 ranks equals BatchNorm over the concatenated batch
 (outputs, input gradients, running statistics within 1e-6); one
 data-parallel train step equals one single-device step (loss within rtol
 1e-5, ``linear.weight`` within rtol 1e-4, the SELC table equal once the
-epoch is past ``es``, predictions identical).
+epoch is past ``es``, predictions identical), for ResNet9 and for Potes
+with its dropout on; ``train_model`` over 2 ranks with a batch that does
+not divide (7 rows, replicated) returns the single-device run's numbers
+(loss trace within 1e-6, identical recording-level predictions).
 
 This module imports neither JAX nor the JAX package: the spawned ranks
 import it to find their entry point."""
@@ -54,13 +57,13 @@ def _bn_case(dp):
             else dp.mean(bn.weight.grad) * dp.world}
 
 
-def _one_step(dp):
+def _one_step(dp, name="resnet9-5k"):
     """One train step with PCGmix and SELC active (es=0, epoch 1) over a
     batch of B rows: the whole batch, or this rank's block of it."""
     ds = synthetic_physionet_dict(num_wavs_train=12, num_wavs_test=2,
                                   segments_per_wav=2, sig_len=T, seed=6)
     train = physionet_split(ds, "train", train_balance=False)
-    model = seeded_init(build_model("resnet9-5k", 2, C, T), 4)
+    model = seeded_init(build_model(name, 2, C, T, seed=3), 4)
     if dp is not None:
         dp.broadcast_module(model)
     opt, sched = make_optimizer(model, "adam", 0.01, 1e-4, 10, True)
@@ -78,16 +81,36 @@ def _one_step(dp):
             "table0": init_selc_table(train.label, 2).numpy()}
 
 
+INDIVISIBLE = dict(model="resnet9-5k", method="durmixmagwarp(0.2,4)", num_epochs=3,
+                   batch_size=7, save_artifacts=False, device="cpu")
+
+
+def _indivisible():
+    """train_model with a batch of 7 rows: inside a group of 2 ranks every
+    rank runs all of it."""
+    ds = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4,
+                                  segments_per_wav=2, sig_len=256, seed=3)
+    return train_model(TrainConfig(**INDIVISIBLE), ds)
+
+
 def _rank_cases():
     """Entry point of each spawned rank."""
     dp = DataParallel.current()
-    return {"bn": _bn_case(dp), "step": _one_step(dp)}
+    return {"bn": _bn_case(dp), "step": _one_step(dp),
+            "potes": _one_step(dp, "Potes"), "indivisible": _indivisible()}
 
 
 @pytest.fixture(scope="module")
 def cases():
-    return {"dp": spawn(_rank_cases, WORLD, "gloo"),
-            "one": {"bn": _bn_case(None), "step": _one_step(None)}}
+    dp = spawn(_rank_cases, WORLD, "gloo")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks' thread count: the same sum orders
+    try:
+        one = {"bn": _bn_case(None), "step": _one_step(None),
+               "potes": _one_step(None, "Potes"), "indivisible": _indivisible()}
+    finally:
+        torch.set_num_threads(threads)
+    return {"dp": dp, "one": one}
 
 
 @pytest.mark.parametrize("key", ["out", "grad", "running_mean", "running_var"])
@@ -103,14 +126,16 @@ def test_batchnorm_weight_gradients_sum_to_the_concatenated_batch(cases):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def test_dp_step_loss_matches_single_device(cases):
-    np.testing.assert_allclose(cases["dp"]["step"]["loss"],
-                               cases["one"]["step"]["loss"], rtol=1e-5, atol=1e-6)
+@pytest.mark.parametrize("model", ["step", "potes"])
+def test_dp_step_loss_matches_single_device(cases, model):
+    np.testing.assert_allclose(cases["dp"][model]["loss"],
+                               cases["one"][model]["loss"], rtol=1e-5, atol=1e-6)
 
 
-def test_dp_step_update_matches_single_device(cases):
-    np.testing.assert_allclose(cases["dp"]["step"]["linear"],
-                               cases["one"]["step"]["linear"], rtol=1e-4, atol=1e-6)
+@pytest.mark.parametrize("model", ["step", "potes"])
+def test_dp_step_update_matches_single_device(cases, model):
+    np.testing.assert_allclose(cases["dp"][model]["linear"],
+                               cases["one"][model]["linear"], rtol=1e-4, atol=1e-6)
 
 
 def test_dp_step_selc_table_is_replicated_and_updated(cases):
@@ -121,20 +146,26 @@ def test_dp_step_selc_table_is_replicated_and_updated(cases):
     assert moved[:B // 2].any() and moved[B // 2:B].any()
 
 
-def test_dp_step_preds_identical(cases):
-    np.testing.assert_array_equal(cases["dp"]["step"]["preds"],
-                                  cases["one"]["step"]["preds"])
+@pytest.mark.parametrize("model", ["step", "potes"])
+def test_dp_step_preds_identical(cases, model):
+    np.testing.assert_array_equal(cases["dp"][model]["preds"],
+                                  cases["one"][model]["preds"])
+
+
+def test_indivisible_batch_is_replicated_and_equals_single_device(cases):
+    got, ref = cases["dp"]["indivisible"], cases["one"]["indivisible"]
+    assert got["steps"] == ref["steps"]
+    np.testing.assert_allclose(got["train_loss"], ref["train_loss"], rtol=0, atol=1e-6)
+    assert got["test_wav_preds"] == ref["test_wav_preds"]
 
 
 def test_batch_that_does_not_divide_raises():
-    ds = synthetic_physionet_dict(num_wavs_train=4, num_wavs_test=2,
-                                  segments_per_wav=2, sig_len=256, seed=1)
-    cfg = TrainConfig(model="resnet9-5k", batch_size=8, num_epochs=1,
-                      save_artifacts=False, device="cpu", n_devices=3)
-    with pytest.raises(ValueError, match=r"batch_size 8 .* 3 devices"):
-        train_model(cfg, ds)
+    """A batch that does not divide has no rank blocks: ``block`` raises,
+    and the train step replicates such a batch instead of splitting it."""
+    dp = DataParallel(rank=0, world=3)
+    assert not dp.divides(8) and dp.divides(9)
     with pytest.raises(ValueError, match="8 rows .* 3 ranks"):
-        DataParallel(rank=0, world=3).block(8)
+        dp.block(8)
 
 
 def test_rank_blocks_cover_the_batch_in_order():

@@ -41,10 +41,14 @@ def test_port_imports_nothing_forbidden(path):
 def test_port_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     for required in ("chip_smoke.py", "pcgmix_tpu_torch/ops/mix_kernels.py",
+                     "pcgmix_tpu_torch/ops/build.py", "pcgmix_tpu_torch/ops/conv_bn.py",
+                     "pcgmix_tpu_torch/bench/conv_bn_fused.py",
+                     "pcgmix_tpu_torch/models/potes.py",
                      "pcgmix_tpu_torch/train/loop.py",
                      "pcgmix_tpu_torch/parallel/dist.py"):
         assert required in names
-    assert (ROOT / "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu").exists()
+    for source in ("mix_kernels.cu", "conv_bn_stats.cu"):
+        assert (ROOT / "pcgmix_tpu_torch/ops/csrc" / source).exists()
 
 
 def test_train_config_defaults_to_cuda():

@@ -126,4 +126,4 @@ def test_registry_presets_and_parameter_counts():
         assert model.linear.in_features == f[3] * (2500 // 32)
     assert count_parameters(build_model("resnet9-5k", 2, C, 2500)) > 0
     with pytest.raises(NotImplementedError):
-        build_model("Potes")
+        build_model("FCN")
