@@ -17,15 +17,21 @@ Phases (any failure exits non-zero):
    the plain version computed in fp32 and cast; K2/K4 bf16 within one bf16
    ulp of it.  Each is timed with CUDA events (median of 60 launches,
    queued behind a device sleep so host overhead stays out).
-   K5 (k=3 conv + BatchNorm statistics) against its plain version on the
-   card (fp32 matmuls, TF32 off) at a small odd shape and at the
-   full-width ResNet9 layers res2a 64×312×512→512 and conv3
-   64×1250×128→256: y within one bf16 ulp plus the fp32 accumulation term
-   of ``bench/conv_bn_fused.py::compare``, s1 within 1e-5·Σ|acc| per
-   column, s2 within 1e-5 relative, y without stats bit-equal to y with
-   them.  Then K5's path, the bench harness: every arm at both shapes
-   (cuDNN yardsticks, K5 without and with stats, the plain version), with
-   the harness's decision rule; K5's launches are counted over this run.
+   K5 (k=3 conv + BatchNorm statistics: wgmma fed by TMA through an
+   mbarrier ring, a producer warp and two consumer warpgroups, chunks of
+   64 rows that never cross a sample, statistics from the fp32
+   accumulator) against its plain version on the card (fp32 matmuls, TF32
+   off) at a small odd shape (channels zero-padded to multiples of 8 for
+   TMA) and at the full-width ResNet9 layers res2a 64×312×512→512 and
+   conv3 64×1250×128→256: y within one bf16 ulp plus the fp32
+   accumulation term of ``bench/conv_bn_fused.py::compare``, s1 within
+   1e-5·Σ|acc| per column, s2 within 1e-5 relative, y without stats
+   bit-equal to y with them.  Then K5's path, the bench harness: every
+   arm at both shapes (cuDNN yardsticks, K5 without and with stats, the
+   plain version), with the harness's decision rule; K5's launches are
+   counted over this run.  The kernels line pairs K5 without stats with
+   cuDNN's conv (the function one PyTorch call computes), and K5 with
+   stats with cuDNN's conv plus its statistics pass.
 3. The slice end to end: ``train_model`` with full-width ResNet9 and with
    full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
    PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
@@ -435,18 +441,25 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for name, r in report.items()
     ]
-    # K5 at res2a (conv3 on its own line above); the library call is cuDNN's
-    # conv alone, cudnn_conv_stats is printed beside it
-    res2a = k5_bench["res2a"]
+    # K5 at res2a, conv3 in a field of its own: ms is K5 without stats and
+    # library_ms cuDNN's conv, the same function; the fused kernel stands
+    # beside cuDNN's conv plus its statistics pass
+    def k5_times(b):
+        a = b["arms"]
+        conv, fused = a["kernel_conv"]["ms"], a["kernel_fused"]["ms"]
+        return {"ms": conv, "plain_ms": a["plain"]["ms"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": a["cudnn_conv"]["ms"],
+                "kernel_fused_ms": fused, "cudnn_conv_stats_ms": a["cudnn_conv_stats"]["ms"],
+                "tflops": b["flop"] / conv / 1e9, "fused_tflops": b["flop"] / fused / 1e9,
+                "bound_share": b["bound_ms"] / conv, "fused_bound_share": b["bound_ms"] / fused}
+
     kernels.append({
         "name": "conv3_bn_stats", "route": "cuda",
         "source": "pcgmix_tpu_torch/ops/csrc/conv_bn_stats.cu",
         "replaces": "scripts/bench_conv_bn_fused.py:97", "launches": k5_launches,
         "max_abs_err": max(e["y_max_abs_err"] for e in k5_errs.values()),
-        "ms": res2a["arms"]["kernel_fused"]["ms"],
-        "plain_ms": res2a["arms"]["plain"]["ms"], "bound_ms": res2a["bound_ms"],
-        "bound_by": res2a["bound_by"],
-        "library_ms": res2a["arms"]["cudnn_conv"]["ms"]})
+        "shape": "res2a 64x312x512->512", **k5_times(k5_bench["res2a"]),
+        "conv3": {"shape": "64x1250x128->256", **k5_times(k5_bench["conv3"])}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 (counterpart: ``scripts/bench_conv_bn_fused.py``, whose Pallas kernel K5
 ``ops/conv_bn.py`` ports.)
 
-    python -m pcgmix_tpu_torch.bench.conv_bn_fused [--windows N] [--reps R]
+    python -m pcgmix_tpu_torch.bench.conv_bn_fused [--windows N] [--reps R] [--profile]
     python -m pcgmix_tpu_torch.bench.conv_bn_fused --check
 
 Two shapes, the full-width ResNet9 layers at T = 2500 that carry most of
@@ -22,6 +22,10 @@ TFLOP/s at the min, spread):
   plain                 K5's plain PyTorch version (fp32 matmuls)
   cudnn_conv_stats_ctrl cudnn_conv_stats again, a trailing control for
                         drift within the run
+
+``--profile`` adds, per shape, the device time of each kernel that K5
+with stats and without launches (torch.profiler): the conv kernel and the
+second pass over the statistics' partial sums.
 
 Decision rule (the script's :19-21): if kernel_fused cannot beat
 cudnn_conv_stats, fusing the statistics into the conv does not pay yet on
@@ -45,11 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pcgmix_tpu_torch.ops.conv_bn import (
-    conv3_acc_plain,
-    conv3_bn_stats,
-    conv3_bn_stats_plain,
-)
+from pcgmix_tpu_torch.ops.conv_bn import conv3_acc_plain, conv3_bn_stats, conv3_bn_stats_plain
 
 SHAPES = {"res2a": (64, 312, 512, 512), "conv3": (64, 1250, 128, 256)}
 SMALL_ODD = (3, 37, 44, 70)  # ragged M and N edges, Cin not a multiple of 8
@@ -177,20 +177,45 @@ def time_ms(fn, windows: int, reps: int, sleep_cycles: int = 20_000_000) -> list
     return times
 
 
-def bench_shape(tag: str, shape, windows: int, reps: int, device) -> dict:
-    """Every arm at one shape; prints a line per arm and the decision."""
+def kernel_times(fn, reps: int) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, from
+    torch.profiler over ``reps`` calls (empty where the trace holds no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def bench_shape(tag: str, shape, windows: int, reps: int, device,
+                profile: bool = False) -> dict:
+    """Every arm at one shape; prints a line per arm and the decision
+    (with ``profile``, also K5's device time per kernel)."""
     x, w = inputs(*shape, device)
     flops, nbytes = work(*shape)
     bound_ms, bound_by = bound(*shape)
     out = {"shape": list(shape), "flop": flops, "bytes": nbytes,
            "bound_ms": bound_ms, "bound_by": bound_by, "arms": {}}
-    for name, fn in make_arms(x, w).items():
+
+    def timed(fn):
         t = time_ms(fn, windows, reps)
         med, lo = statistics.median(t), min(t)
-        r = {"ms": med, "min_ms": lo, "tflops_at_min": flops / (lo * 1e-3) / 1e12,
-             "spread_pct": 100 * (max(t) - lo) / med}
-        out["arms"][name] = r
+        return {"ms": med, "min_ms": lo, "tflops_at_min": flops / (lo * 1e-3) / 1e12,
+                "spread_pct": 100 * (max(t) - lo) / med}
+
+    arms = make_arms(x, w)
+    for name, fn in arms.items():
+        out["arms"][name] = r = timed(fn)
         print(f"{tag} {name}: {r}", flush=True)
+    for name in ("kernel_conv", "kernel_fused") if profile else ():
+        out[f"{name}_kernels_ms"] = r = kernel_times(arms[name], reps)
+        print(f"{tag} {name} device ms per kernel: {r}", flush=True)
     a = out["arms"]
     fused, yard = a["kernel_fused"]["min_ms"], a["cudnn_conv_stats"]["min_ms"]
     out["fused_beats_cudnn_conv_stats"] = fused < yard
@@ -229,6 +254,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
                     help="the plain version against F.conv1d on the CPU only")
+    ap.add_argument("--profile", action="store_true",
+                    help="also K5's device time per kernel (torch.profiler)")
     args = ap.parse_args(argv)
     if args.check:
         print(json.dumps({"check": "ok", **check_plain_on_cpu()}))
@@ -246,7 +273,7 @@ def main(argv=None) -> int:
         out["check"][tag] = errs = check_against_plain(*inputs(*shape, dev))
         print(f"{tag} check: {errs}", flush=True)
     for tag, shape in SHAPES.items():
-        out[tag] = bench_shape(tag, shape, args.windows, args.reps, dev)
+        out[tag] = bench_shape(tag, shape, args.windows, args.reps, dev, args.profile)
     print(json.dumps(out))
     return 0
 

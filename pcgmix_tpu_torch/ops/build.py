@@ -28,7 +28,8 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 MAX_PIECES = 32  # kMaxPieces in csrc/mix_kernels.cu
 MAX_WARP_TERMS = 256  # kMaxWarpTerms: (knot+2)·C envelope coefficients
-CONV3_ROW_TILE = 128  # kBM in csrc/conv_bn_stats.cu: rows of y per block
+CONV3_CHUNK_ROWS = 64  # kChunkRows in csrc/conv_bn_stats.cu: rows of y per chunk
+CONV3_CHUNKS_PER_TILE = 2  # kChunksPerTile: chunks per block (a statistics row each)
 
 # wrapper name → (C entry point, pointer arguments, int arguments); every
 # entry point takes the stream last
@@ -43,7 +44,8 @@ _ENTRIES = {
 _LIMITS = {
     "pcgmix_max_pieces": MAX_PIECES,
     "pcgmix_max_warp_terms": MAX_WARP_TERMS,
-    "pcgmix_conv3_row_tile": CONV3_ROW_TILE,
+    "pcgmix_conv3_chunk_rows": CONV3_CHUNK_ROWS,
+    "pcgmix_conv3_chunks_per_tile": CONV3_CHUNKS_PER_TILE,
 }
 _launches = dict.fromkeys(_ENTRIES, 0)
 _lib = None

@@ -5,8 +5,13 @@
 ``pallas_call_flat``, one function in two TPU block shapes): y = conv(x, w)
 in bf16 and, with stats, the per-channel Σacc and Σacc² of the fp32
 accumulator.  It keeps the JAX layout: x (B, T, Cin) NWC, w (3, Cin, Cout)
-WIO.  The CUDA source is ``csrc/conv_bn_stats.cu``; it builds into the one
-library of ``ops/build.py`` with K1–K4.
+WIO.  The CUDA source is ``csrc/conv_bn_stats.cu`` (wgmma fed by TMA
+through a ring of stages); it builds into the one library of
+``ops/build.py`` with K1–K4.  TMA reads rows of 16-byte multiples from
+16-byte-aligned bases, so where Cin or Cout is not a multiple of 8, or a
+pointer is not aligned, the wrapper launches on zero-padded copies
+(:func:`pad_channels`) and slices the result back; other shapes take no
+copy.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the kernel or raises.  K5
@@ -17,7 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from pcgmix_tpu_torch.ops.build import CONV3_ROW_TILE, is_plain, launch
+from pcgmix_tpu_torch.ops.build import (
+    CONV3_CHUNK_ROWS,
+    CONV3_CHUNKS_PER_TILE,
+    is_plain,
+    launch,
+)
+
+CHANNEL_ALIGN = 8  # bf16 channels in TMA's 16 bytes
 
 
 def conv3_acc_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -40,6 +52,33 @@ def conv3_bn_stats_plain(x: torch.Tensor, w: torch.Tensor, with_stats: bool = Tr
     if not with_stats:
         return y, None, None
     return y, acc.sum(dim=(0, 1)), (acc * acc).sum(dim=(0, 1))
+
+
+def conv3_partial_rows(B: int, T: int) -> int:
+    """Rows of the kernel's fp32 partial-sum scratch: one per block, and a
+    block holds CONV3_CHUNKS_PER_TILE chunks of CONV3_CHUNK_ROWS rows of y
+    that never cross a sample."""
+    chunks = B * -(-T // CONV3_CHUNK_ROWS)
+    return -(-chunks // CONV3_CHUNKS_PER_TILE)
+
+
+def pad_channels(x: torch.Tensor, w: torch.Tensor):
+    """x (B, T, Cin) and w (3, Cin, Cout) with Cin and Cout rounded up to a
+    multiple of CHANNEL_ALIGN by zero channels, in new (aligned) tensors.
+    A zero channel adds exact zeros to acc, and a zero column of w gives a
+    column of y that is sliced off."""
+    B, T, Cin = x.shape
+    Cout = w.shape[2]
+    cin, cout = (-(-n // CHANNEL_ALIGN) * CHANNEL_ALIGN for n in (Cin, Cout))
+    xp = x.new_zeros((B, T, cin))
+    xp[..., :Cin] = x
+    wp = w.new_zeros((3, cin, cout))
+    wp[:, :Cin, :Cout] = w
+    return xp, wp
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    return t.shape[-1] % CHANNEL_ALIGN == 0 and t.data_ptr() % 16 == 0
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -70,15 +109,22 @@ def conv3_bn_stats(x: torch.Tensor, w: torch.Tensor, with_stats: bool = True):
     _check(x, w)
     if is_plain(x):
         return conv3_bn_stats_plain(x, w, with_stats)
-    B, T, Cin = x.shape
     Cout = w.shape[2]
-    y = torch.empty((B, T, Cout), dtype=torch.bfloat16, device=x.device)
+    if not (_tma_ready(x) and _tma_ready(w)):
+        x, w = pad_channels(x, w)
+    B, T, cin = x.shape
+    cout = w.shape[2]
+    y = torch.empty((B, T, cout), dtype=torch.bfloat16, device=x.device)
     partial = s1 = s2 = None
     if with_stats:
-        tiles = -(-B * T // CONV3_ROW_TILE)
-        partial = torch.empty((tiles, 2, Cout), dtype=torch.float32, device=x.device)
-        s1 = torch.empty(Cout, dtype=torch.float32, device=x.device)
+        partial = torch.empty((conv3_partial_rows(B, T), 2, cout), dtype=torch.float32,
+                              device=x.device)
+        s1 = torch.empty(cout, dtype=torch.float32, device=x.device)
         s2 = torch.empty_like(s1)
-    launch("conv3_bn_stats", x.device, x, w, y, partial, s1, s2, B, T, Cin, Cout,
+    launch("conv3_bn_stats", x.device, x, w, y, partial, s1, s2, B, T, cin, cout,
            int(with_stats))
+    if cout != Cout:
+        y = y[..., :Cout].contiguous()
+        if with_stats:
+            s1, s2 = s1[:Cout], s2[:Cout]
     return y, s1, s2

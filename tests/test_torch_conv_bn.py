@@ -19,7 +19,12 @@ import torch
 
 from pcgmix_tpu_torch.bench import conv_bn_fused as harness
 from pcgmix_tpu_torch.ops import conv3_bn_stats, launch_counts, reset_launch_counts
-from pcgmix_tpu_torch.ops.conv_bn import conv3_acc_plain, conv3_bn_stats_plain
+from pcgmix_tpu_torch.ops.conv_bn import (
+    conv3_acc_plain,
+    conv3_bn_stats_plain,
+    conv3_partial_rows,
+    pad_channels,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -122,3 +127,32 @@ def test_harness_bounds_and_cpu_check():
     ms, by = harness.bound(*harness.SHAPES["conv3"])
     assert by == "bytes" and abs(ms - 0.01840) < 1e-5
     assert harness.main(["--check"]) == 0
+
+
+@pytest.mark.parametrize("shape", [harness.SMALL_ODD, (3, 1, 44, 70)])
+def test_zero_padded_channels_change_nothing(shape):
+    # the card's wrapper launches on these copies where TMA cannot describe
+    # the tensors (Cin or Cout not a multiple of 8) and slices back
+    x, w = harness.inputs(*shape, "cpu")
+    xp, wp = pad_channels(x, w)
+    assert xp.shape[2] % 8 == 0 and wp.shape[1:] == (xp.shape[2], 72)
+    y, s1, s2 = conv3_bn_stats_plain(xp, wp)
+    Cout = shape[3]
+    ref = conv3_bn_stats_plain(x, w)
+    assert torch.equal(y[..., :Cout], ref[0])
+    assert torch.equal(s1[:Cout], ref[1]) and torch.equal(s2[:Cout], ref[2])
+    assert not y[..., Cout:].any() and not s2[Cout:].any()
+
+
+@pytest.mark.parametrize("B, T, rows", [
+    (64, 312, 160),   # res2a: 5 chunks a sample
+    (64, 1250, 640),  # conv3: 20 chunks a sample
+    (3, 63, 2),       # 3 chunks: the last block's second chunk is empty
+    (5, 312, 13),     # 25 chunks
+    (2, 1, 1),        # T < 64: one chunk a sample
+    (1, 64, 1),
+    (1, 65, 1),
+    (3, 65, 3),
+])
+def test_partial_rows_count_blocks_of_two_chunks(B, T, rows):
+    assert conv3_partial_rows(B, T) == rows

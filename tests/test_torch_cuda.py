@@ -174,3 +174,30 @@ def test_k5_matches_plain_at_a_small_odd_shape(dev):
     torch.cuda.synchronize()
     assert launch_counts()["conv3_bn_stats"] == 2  # with and without stats
     assert errs["y_ok"] and errs["stats_ok"] and errs["no_stats_bit_equal"]
+
+
+# K5 at shapes that reach every edge of its tiling: chunks of 64 rows that
+# never cross a sample, two chunks per block, 64 channels per K step, and
+# 128 columns per block where Cout ≤ 128, else 256
+K5_EDGES = [
+    (1, 64, 64, 64),     # one chunk, one channel block per tap
+    (2, 1, 64, 64),      # T = 1: only the centre tap sees data
+    (3, 63, 64, 128),    # T = 63, 3 chunks: the last block's second chunk is empty
+    (2, 64, 128, 64),    # T = 64: a chunk ends where the sample does
+    (3, 65, 64, 72),     # T = 65: a chunk of one row; Cout = 72, inside one N tile
+    (5, 312, 128, 256),  # res2a's T, 25 chunks (odd); 256 columns per block
+    (2, 40, 72, 136),    # Cin = 72: a part-filled channel block; Cout = 136
+    (2, 65, 64, 384),    # a second column block of 256, half filled
+]
+
+
+@pytest.mark.parametrize("shape", K5_EDGES + ["small_odd"])
+def test_k5_matches_plain_at_the_tiling_edges(dev, shape):
+    from pcgmix_tpu_torch.bench.conv_bn_fused import SMALL_ODD, check_against_plain, inputs
+
+    shape = SMALL_ODD if shape == "small_odd" else shape  # padded to 48 → 72 channels
+    reset_launch_counts()
+    errs = check_against_plain(*inputs(*shape, dev, seed=sum(shape)))
+    torch.cuda.synchronize()
+    assert launch_counts()["conv3_bn_stats"] == 2  # with and without stats
+    assert errs["y_ok"] and errs["stats_ok"] and errs["no_stats_bit_equal"]
