@@ -16,7 +16,11 @@ Phases (any failure exits non-zero):
    summed in another order than the plain einsum); K1/K3 bf16 bit-equal to
    the plain version computed in fp32 and cast; K2/K4 bf16 within one bf16
    ulp of it.  Each is timed with CUDA events (median of 60 launches,
-   queued behind a device sleep so host overhead stays out).
+   queued behind a device sleep so host overhead stays out), and so is a
+   one-element ``zero_()``, the launch floor that this method reads (no
+   kernel can be timed below it), and a device copy of the batch, which
+   moves K1/K2's bytes.  K2/K4 are one warp kernel with 16-byte
+   vectors (``mix_warp_kernel``); K1/K3 the older ``mix_kernel``.
    K5 (k=3 conv + BatchNorm statistics: wgmma fed by TMA through an
    mbarrier ring, a producer warp and two consumer warpgroups, chunks of
    64 rows that never cross a sample, statistics from the fp32
@@ -126,7 +130,7 @@ def profile_breakdown(torch, run, card, top=10, label="profile"):
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:top]:
         print(f"{label}: {100 * t / busy:6.2f}% {t:12.1f} us {n:5d}x {name[:100]}")
     for name, t, n in kernels:
-        if "mix_kernel" in name:
+        if "mix_kernel" in name or "mix_warp_kernel" in name:
             print(f"{label}: {100 * t / busy:6.3f}% {t:12.1f} us {n:5d}x {name[:100]}")
 
 
@@ -272,7 +276,14 @@ def main() -> int:
             "bound_by": "bytes" if nbytes / bw >= nflops / flops else "operations",
         }
         print(f"{name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-              f"{bound_ms:.6f} ms ({nbytes} B) on {card}")
+              f"{bound_ms:.6f} ms ({nbytes} B, {100 * bound_ms / ms:.1f} % of it "
+              f"reached) on {card}")
+
+    one, copy = torch.zeros(1, device=dev), torch.empty_like(x32)
+    floor_ms = device_time_ms(torch, one.zero_)
+    copy_ms = device_time_ms(torch, lambda: copy.copy_(x32))
+    print(f"launch floor: one-element zero_() {floor_ms:.6f} ms; a copy of the "
+          f"batch, K1/K2's bytes ({2 * x32.numel() * 4} B): {copy_ms:.6f} ms on {card}")
 
     # ---- 2b. K5 against its plain version, then its path: the harness ------
     k5_errs = {}
@@ -438,7 +449,8 @@ def main() -> int:
          "source": "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu",
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+         "floor_ms": floor_ms}
         for name, r in report.items()
     ]
     # K5 at res2a, conv3 in a field of its own: ms is K5 without stats and

@@ -1,0 +1,131 @@
+"""Where K2's time goes: the warp kernel beside copies of itself with one
+step taken out, at the main path's shape, on the card.
+
+    python -m pcgmix_tpu_torch.bench.mix_warp_ablation [--windows N] [--reps R]
+
+Each ablation is ``ops/csrc/mix_kernels.cu`` with a few lines replaced
+(``ABLATIONS``), built with nvcc into a library of its own under
+``build/`` and called through K2's C entry point on the main path's
+inputs (B=64, C=4, T=2500, fp32, a PCGmix+ plan from the engine).  The
+ablations' outputs are wrong by design: they measure what a step costs.
+Each is timed by CUDA events around windows of back-to-back calls (queued
+behind a device sleep) and by the profiler's kernel time; beside them a
+one-element ``zero_()`` and a device copy of the batch, which moves K2's
+bytes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import sys
+
+import torch
+
+from pcgmix_tpu_torch.bench.conv_bn_fused import card_name, kernel_times, time_ms
+from pcgmix_tpu_torch.ops import build
+from pcgmix_tpu_torch.ops.mix_kernels import WARP_BASIS_CHUNK, warp_basis
+
+B, C, T = 64, 4, 2500
+_SOURCE_LOAD = "? ldg_f32(srow[v], (int64_t)(c0 + g) * Tlen + ti[v])"
+_NO_SOURCE_LOAD = (_SOURCE_LOAD, "? x1[g][v]")
+_NO_ENVELOPE = ("y[v] = __fmul_rn(val, w[g][v]);", "y[v] = val;")
+ABLATIONS = {
+    "kernel": (),
+    "64_threads": (("constexpr int kWarpThreads = 128;", "constexpr int kWarpThreads = 64;"),),
+    "no_source_loads": (_NO_SOURCE_LOAD,),
+    "no_envelope": (_NO_ENVELOPE,),
+    "neither": (_NO_SOURCE_LOAD, _NO_ENVELOPE),
+}
+
+
+def sources() -> dict:
+    """Each ablation's source text; raises where an edit no longer matches
+    the kernel's source."""
+    kernel = (build._CSRC / "mix_kernels.cu").read_text()
+    out = {}
+    for name, edits in ABLATIONS.items():
+        text = kernel
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError(f"ablation {name}: {old!r} is not in mix_kernels.cu once")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def build_ablations() -> dict:
+    """Compile every ablation (one nvcc each, started together); returns
+    name → K2's C entry point in its library."""
+    out_dir = build.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, text in sources().items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        procs.append(build._start([build._nvcc(), *build.COMPILE_FLAGS, "-shared",
+                                   str(cu), "-o", str(out_dir / f"{name}.so")]))
+    build._run(procs)
+    entries = {}
+    for name in ABLATIONS:
+        fn = ctypes.CDLL(str(out_dir / f"{name}.so")).pcgmix_plus_fused
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def main_path_inputs(device):
+    """The main path's batch and PCGmix+ plan (as chip_smoke.py's phase 2)."""
+    from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+    from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+
+    ds = synthetic_physionet_dict(num_wavs_train=36, num_wavs_test=12,
+                                  segments_per_wav=8, sig_len=T, seed=11)
+    split = physionet_split(ds, "train")
+    plan = AugmentEngine(AugmentConfig("durmixmagwarp(0.2,4)", B, C, T)).plan(
+        7, split.frames[:B], split.label[:B])
+    x = torch.from_numpy(split.data[:B]).to(device)
+    return x, AugmentEngine.device_arrays(plan.arrays, device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--windows", type=int, default=9)
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("mix_warp_ablation: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_name()
+    entries = build_ablations()
+    x, a = main_path_inputs(dev)
+    basis = warp_basis(T, a["knots"].shape[1] - 2, dev, columns=WARP_BASIS_CHUNK)
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, out, a["mix"], a["dst"], a["src"], a["len"],
+                                   a["sel"], a["alpha"], a["knots"], basis)]
+    ints = (B, C, T, a["dst"].shape[1], a["knots"].shape[1], 4, 0)
+
+    def k2(fn):
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: fn(*ptrs, *ints, stream)
+
+    one, copy = torch.zeros(1, device=dev), torch.empty_like(x)
+    arms = {name: k2(fn) for name, fn in entries.items()}
+    arms |= {"zero_1": one.zero_, "copy_batch": lambda: copy.copy_(x)}
+    report = {}
+    for name, fn in arms.items():
+        ms = statistics.median(time_ms(fn, args.windows, args.reps))
+        kernel_us = sum(kernel_times(fn, args.reps).values()) * 1e3
+        report[name] = {"ms": ms, "kernel_us": kernel_us}
+        print(f"{name}: {ms * 1e3:.3f} us a call in windows of {args.reps}, profiler "
+              f"kernel time {kernel_us:.3f} us, on {card}", flush=True)
+    print(json.dumps({"card": card, "shape": [B, C, T], "arms": report}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,8 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 MAX_PIECES = 32  # kMaxPieces in csrc/mix_kernels.cu
 MAX_WARP_TERMS = 256  # kMaxWarpTerms: (knot+2)·C envelope coefficients
+WARP_THREADS = 128  # kWarpThreads: threads per K2/K4 block, V steps each
+WARP_BASIS_CHUNK = 8  # kBasisChunk: K2/K4's basis columns are padded to a multiple
 CONV3_CHUNK_ROWS = 64  # kChunkRows in csrc/conv_bn_stats.cu: rows of y per chunk
 CONV3_CHUNKS_PER_TILE = 2  # kChunksPerTile: chunks per block (a statistics row each)
 
@@ -35,15 +37,17 @@ CONV3_CHUNKS_PER_TILE = 2  # kChunksPerTile: chunks per block (a statistics row 
 # entry point takes the stream last
 _ENTRIES = {
     "piecewise_mix_pairs": ("pcgmix_piecewise_mix_pairs", 9, 7),
-    "pcgmix_plus_fused": ("pcgmix_plus_fused", 10, 6),
+    "pcgmix_plus_fused": ("pcgmix_plus_fused", 10, 7),
     "piecewise_mix_prepaired": ("pcgmix_piecewise_mix_prepaired", 8, 6),
-    "pcgmix_plus_fused_prepaired": ("pcgmix_plus_fused_prepaired", 10, 6),
+    "pcgmix_plus_fused_prepaired": ("pcgmix_plus_fused_prepaired", 10, 7),
     "conv3_bn_stats": ("pcgmix_conv3_bn_stats", 6, 5),
 }
 # C functions that report a compiled-in limit → the value the wrappers use
 _LIMITS = {
     "pcgmix_max_pieces": MAX_PIECES,
     "pcgmix_max_warp_terms": MAX_WARP_TERMS,
+    "pcgmix_warp_threads": WARP_THREADS,
+    "pcgmix_warp_basis_chunk": WARP_BASIS_CHUNK,
     "pcgmix_conv3_chunk_rows": CONV3_CHUNK_ROWS,
     "pcgmix_conv3_chunks_per_tile": CONV3_CHUNKS_PER_TILE,
 }

@@ -14,8 +14,11 @@ version in this module; a CUDA tensor launches the kernel or raises.  Each
 wrapper counts its kernel launches (:func:`launch_counts`), so a run can
 show that its main path went through the kernels.
 
-The kernels are compiled at first use, with K5's, into one shared library
-(``ops/build.py``).
+K1/K3 share one kernel; K2/K4 another, in which each thread owns 16 bytes
+of consecutive steps in every channel where the rows allow it
+(:func:`_warp_vector_width`), else one step (the kernel's scalar edge
+path).  The kernels are compiled at first use, with K5's, into one shared
+library (``ops/build.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from pcgmix_tpu_torch.ops.build import (  # noqa: F401  (re-exported)
     BUILD_DIR,
     MAX_PIECES,
     MAX_WARP_TERMS,
+    WARP_BASIS_CHUNK,
+    WARP_THREADS,
     build_library,
     is_plain,
     launch,
@@ -173,15 +178,25 @@ def piecewise_mix_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
 # --------------------------------------------------------------------------- #
 
 
-def warp_basis(sig_len: int, knot: int, device) -> torch.Tensor:
-    """(T, knot+2) float32 spline basis on ``device``, built once per key."""
-    key = (sig_len, knot, str(device))
+def warp_basis(sig_len: int, knot: int, device, *, columns: int = 1) -> torch.Tensor:
+    """(T, knot+2) float32 spline basis on ``device``, built once per key;
+    with ``columns``, zero columns pad its width to a multiple of it."""
+    key = (sig_len, knot, str(device), columns)
     if key not in _basis_cache:
-        _basis_cache[key] = torch.as_tensor(
-            np.asarray(cubic_spline_basis(sig_len, knot), np.float32),
-            device=device,
-        )
+        basis = np.asarray(cubic_spline_basis(sig_len, knot), np.float32)
+        basis = np.pad(basis, ((0, 0), (0, -basis.shape[1] % columns)))
+        _basis_cache[key] = torch.as_tensor(basis, device=device)
     return _basis_cache[key]
+
+
+def _warp_vector_width(T: int, dtype: torch.dtype, *tensors) -> int:
+    """Time steps per thread of K2/K4: 16 bytes of ``dtype`` where T is a
+    multiple of that and every tensor's data starts on a 16-byte boundary
+    (so does every row), else 1, the kernel's scalar edge path."""
+    v = 16 // (torch.finfo(dtype).bits // 8)
+    if T % v == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return v
+    return 1
 
 
 def pcgmix_plus_fused_prepaired_plain(d1_rows, d2_rows, dst, src, length, sel,
@@ -216,11 +231,13 @@ def pcgmix_plus_fused(data, mix, dst, src, length, sel, alpha, knots):
     _check_knots(knots, B, C, data.device)
     if is_plain(data):
         return pcgmix_plus_fused_plain(data, mix, dst, src, length, sel, alpha, knots)
-    basis = warp_basis(T, knots.shape[1] - 2, data.device)
+    basis = warp_basis(T, knots.shape[1] - 2, data.device,
+                       columns=WARP_BASIS_CHUNK)
     out = torch.empty_like(data)
     return _launch(
         "pcgmix_plus_fused", out, data, out, mix, dst, src, length, sel, alpha,
-        knots, basis, B, C, T, k, knots.shape[1], _DTYPE_CODES[data.dtype],
+        knots, basis, B, C, T, k, knots.shape[1],
+        _warp_vector_width(T, data.dtype, data, out), _DTYPE_CODES[data.dtype],
     )
 
 
@@ -241,10 +258,12 @@ def pcgmix_plus_fused_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
         return pcgmix_plus_fused_prepaired_plain(
             d1_rows, d2_rows, dst, src, length, sel, alpha, knots
         )
-    basis = warp_basis(T, knots.shape[1] - 2, d1_rows.device)
+    basis = warp_basis(T, knots.shape[1] - 2, d1_rows.device,
+                       columns=WARP_BASIS_CHUNK)
     out = torch.empty_like(d1_rows)
     return _launch(
         "pcgmix_plus_fused_prepaired", out, d1_rows, d2_rows, out, dst, src,
         length, sel, alpha, knots, basis, n, C, T, k, knots.shape[1],
+        _warp_vector_width(T, d1_rows.dtype, d1_rows, d2_rows, out),
         _DTYPE_CODES[d1_rows.dtype],
     )

@@ -142,6 +142,105 @@ def test_k4_matches_plain_and_k2(batch, dev, dtype):
     assert torch.equal(got, pcgmix_plus_fused(x, a["mix"], *_args(a), a["knots"]))
 
 
+# K2/K4 at lengths that reach every edge of their tiling: tiles of
+# WARP_THREADS·V steps, V = 16 bytes of the dtype where T is a multiple of V
+# and the rows are 16-byte aligned, else V = 1 (the scalar edge path)
+WARP_LENGTHS = [1, 3, 4, 5, "tile-1", "tile", "tile+1", "tile+V", 2500, 2509]
+
+
+def _warp_edge_inputs(n, C, T, K2, dtype, tile, dev, k=5):
+    """Rows, partners, a plan and knots.  Pieces are disjoint and cover the
+    row, one slot is empty; sources run past both ends (clamped): row 0's
+    first window starts at −3, row 1's last runs 5 steps past T, and row 2
+    is one piece shifted by half a tile plus one, so its window crosses a
+    tile boundary."""
+    rng = np.random.default_rng(T * 100 + C * 10 + K2)
+    dst = np.sort(rng.integers(0, T, (n, k)), axis=1)
+    dst[:, 0] = 0
+    ln = np.diff(np.concatenate([dst, np.full((n, 1), T)], 1), axis=1)
+    ln[:, 2] = 0
+    src = dst + rng.integers(-(T // 3) - 6, T // 3 + 7, (n, k))
+    src[0, 0] = -3
+    src[1, -1] = dst[1, -1] + 5
+    dst[2], ln[2], src[2] = 0, 0, 0
+    ln[2, 0], src[2, 0] = T, tile // 2 + 1
+    i32 = lambda v: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+    f32 = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    x = f32(rng.normal(size=(n, C, T))).to(dtype)
+    mix = i32(rng.permutation(n))
+    pieces = (i32(dst), i32(src), i32(ln), i32(rng.integers(0, 2, (n, k))),
+              f32(rng.uniform(0, 1, (n, k))))
+    return x, mix, pieces, f32(rng.normal(1.0, 0.2, (n, K2, C)))
+
+
+def _within_k2_bar(got, ref):
+    """fp32: 1e-5 (the envelope summed in another order); bf16: one ulp."""
+    if got.dtype == torch.float32:
+        return bool(((got - ref).abs() <= 1e-5).all())
+    ulp = torch.maximum(got.float().abs(), ref.float().abs()) * 2.0 ** -7
+    return bool(((got.float() - ref.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K2", [3, 6])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("length", WARP_LENGTHS)
+def test_k2_k4_match_plain_at_the_tiling_edges(dev, monkeypatch, length, C, K2, dtype):
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    tile = mix_kernels.WARP_THREADS * vec
+    T = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "tile+V": tile + vec}.get(length, length)
+    if T == 1:  # scipy has no spline through knots at one point: a seeded basis
+        basis = np.random.default_rng(K2).normal(size=(1, K2))
+        monkeypatch.setattr(mix_kernels, "cubic_spline_basis", lambda t, knot: basis)
+        monkeypatch.setattr(mix_kernels, "_basis_cache", {})
+    n = 5
+    x, mix, pieces, knots = _warp_edge_inputs(n, C, T, K2, dtype, tile, dev)
+    d2 = x.index_select(0, mix.long())
+    reset_launch_counts()
+    k2 = pcgmix_plus_fused(x, mix, *pieces, knots)
+    k4 = pcgmix_plus_fused_prepaired(x, d2, *pieces, knots)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["pcgmix_plus_fused"] == counts["pcgmix_plus_fused_prepaired"] == 1
+    assert k2.dtype == k4.dtype == dtype and k2.shape == (n, C, T)
+    assert _within_k2_bar(k2, pcgmix_plus_fused_plain(x, mix, *pieces, knots))
+    assert _within_k2_bar(k4, pcgmix_plus_fused_prepaired_plain(x, d2, *pieces, knots))
+    assert torch.equal(k4, k2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,K2", [(5, 9), (9, 17)])
+def test_k2_k4_match_plain_beyond_one_channel_group_and_basis_chunk(dev, C, K2, dtype):
+    """A thread holds 4 channels and 8 basis columns at once: more of either
+    take further passes."""
+    T = 2 * mix_kernels.WARP_THREADS * 16 // (torch.finfo(dtype).bits // 8)
+    x, mix, pieces, knots = _warp_edge_inputs(5, C, T, K2, dtype, T, dev)
+    d2 = x.index_select(0, mix.long())
+    k2 = pcgmix_plus_fused(x, mix, *pieces, knots)
+    assert _within_k2_bar(k2, pcgmix_plus_fused_plain(x, mix, *pieces, knots))
+    assert torch.equal(pcgmix_plus_fused_prepaired(x, d2, *pieces, knots), k2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k4_scalar_edge_path_equals_the_vector_path(dev, dtype):
+    """An offset view misaligns every row, so the wrapper takes V = 1: the
+    same arithmetic per element as the vector path, bit for bit."""
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    n, C, T = 5, 4, 2 * mix_kernels.WARP_THREADS * vec + 4 * vec
+    x, mix, pieces, knots = _warp_edge_inputs(n, C, T, 6, dtype, T, dev)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    buf[1:] = x.flatten()
+    shifted = buf[1:].view(n, C, T)
+    assert mix_kernels._warp_vector_width(T, dtype, x) == vec
+    assert mix_kernels._warp_vector_width(T, dtype, shifted) == 1
+    for fn, partner in ((pcgmix_plus_fused, lambda r: mix),
+                        (pcgmix_plus_fused_prepaired,
+                         lambda r: r.index_select(0, mix.long()).contiguous())):
+        assert torch.equal(fn(shifted, partner(shifted), *pieces, knots),
+                           fn(x, partner(x), *pieces, knots))
+
+
 def test_data_parallel_route_launches_k3_and_k4(dev, tmp_path):
     import torch.distributed as dist
 

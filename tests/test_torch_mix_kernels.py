@@ -321,6 +321,70 @@ def test_k4_on_gathered_partners_equals_k2_bit_for_bit(rng):
     assert torch.equal(k4, pcgmix_plus_fused(x, t["mix"], *_pieces(t), t["knots"]))
 
 
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+def test_k2_k4_plain_match_pallas_and_xla_at_an_unaligned_length(rng, kernel):
+    """T = 509 is not a multiple of 4: the length at which the card takes
+    K2/K4's scalar edge path, held there against these plain versions."""
+    T509 = 509
+    data = rng.normal(size=(B, C, T509)).astype(np.float32)
+    frames = make_frames(rng, B, T509, min_seg=10, max_seg=60)
+    labels = rng.integers(0, 2, B)
+    a = AugmentEngine(AugmentConfig("durmixmagwarp(0.2,4)", B, C, T509)).plan(
+        5, frames, labels).arrays
+    t = _t(a)
+    x = torch.from_numpy(data)
+    knots = jnp.asarray(a["knots"])
+    xla = np.asarray(jwarp(piecewise_mix_batch(*_jargs(data, a)), knots))
+    if kernel == "k2":
+        got = pcgmix_plus_fused(x, t["mix"], *_pieces(t), t["knots"]).numpy()
+        pallas = pcgmix_plus_fused_pallas(*_jargs(data, a), knots, interpret=True)
+    else:
+        d2 = np.ascontiguousarray(data[a["mix"]])
+        got = pcgmix_plus_fused_prepaired(x, torch.from_numpy(d2), *_pieces(t),
+                                          t["knots"]).numpy()
+        pallas = pcgmix_plus_fused_prepaired_pallas(
+            jnp.asarray(data), jnp.asarray(d2), *_jpieces(a), knots, interpret=True)
+    assert got.shape == (B, C, T509)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=WARP_ATOL)
+    np.testing.assert_allclose(got, xla, rtol=0, atol=WARP_ATOL)
+
+
+@pytest.mark.parametrize("dtype,T,offset,want", [
+    (torch.float32, 2500, 0, 4),   # the main path: 16-byte vectors
+    (torch.float32, 509, 0, 1),    # T not a multiple of 4
+    (torch.float32, 2500, 1, 1),   # an offset view: rows off the 16-byte grid
+    (torch.float32, 2500, 4, 4),   # offset by 16 bytes: aligned again
+    (torch.bfloat16, 1024, 0, 8),
+    (torch.bfloat16, 2500, 0, 1),  # 2500 bf16 steps: rows 8 bytes off the grid
+    (torch.bfloat16, 509, 0, 1),   # a bf16 row of odd length
+])
+def test_warp_vector_width_takes_16_bytes_only_where_rows_are_aligned(
+        dtype, T, offset, want):
+    buf = torch.zeros(2 * C * T + 8, dtype=dtype)
+    rows = buf[offset:offset + 2 * C * T].view(2, C, T)
+    out = torch.empty_like(rows)
+    assert mix_kernels._warp_vector_width(T, dtype, out, rows) == want
+
+
+@pytest.mark.parametrize("knot", [1, 4, 6, 7])
+def test_kernel_basis_is_the_spline_basis_padded_with_zero_columns(knot):
+    basis = mix_kernels.warp_basis(T, knot, "cpu")
+    padded = mix_kernels.warp_basis(T, knot, "cpu", columns=mix_kernels.WARP_BASIS_CHUNK)
+    assert padded.shape == (T, -(-(knot + 2) // 8) * 8)
+    assert torch.equal(padded[:, :knot + 2], basis)
+    assert not padded[:, knot + 2:].any()
+
+
+def test_warp_ablations_edit_the_kernel_source_and_need_the_card():
+    from pcgmix_tpu_torch.bench import mix_warp_ablation
+
+    src = mix_warp_ablation.sources()  # raises where an edit went stale
+    assert set(src) == set(mix_warp_ablation.ABLATIONS)
+    kernel = src.pop("kernel")
+    assert all(text != kernel for text in src.values())
+    assert mix_warp_ablation.main([]) == 2  # no CUDA here: refused, no result
+
+
 def test_prepaired_wrappers_validate_and_take_the_plain_path(rng):
     data, a = _engine_plan(rng, "durmixmagwarp(0.2,4)")
     t = _t(a)
