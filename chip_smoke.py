@@ -15,12 +15,13 @@ Phases (any failure exits non-zero):
    K1/K3 1e-6 abs (fp32); K2/K4 1e-5 abs (fp32; the 6-term envelope is
    summed in another order than the plain einsum); K1/K3 bf16 bit-equal to
    the plain version computed in fp32 and cast; K2/K4 bf16 within one bf16
-   ulp of it.  Each is timed with CUDA events (median of 60 launches,
-   queued behind a device sleep so host overhead stays out), and so is a
-   one-element ``zero_()``, the launch floor that this method reads (no
-   kernel can be timed below it), and a device copy of the batch, which
-   moves K1/K2's bytes.  K2/K4 are one warp kernel with 16-byte
-   vectors (``mix_warp_kernel``); K1/K3 the older ``mix_kernel``.
+   ulp of it.  K1 is called as the main path calls it,
+   ``piecewise_mix_batch`` (no row index).  Each is timed with CUDA events
+   (median of 60 launches, queued behind a device sleep so host overhead
+   stays out), and so is a one-element ``zero_()``, the launch floor that
+   this method reads (no kernel can be timed below it), and a device copy
+   of the batch, which moves K1/K2's bytes.  K1–K4 are one kernel body
+   with 16-byte vectors (``mix_warp_kernel``), K2/K4 with the envelope.
    K5 (k=3 conv + BatchNorm statistics: wgmma fed by TMA through an
    mbarrier ring, a producer warp and two consumer warpgroups, chunks of
    64 rows that never cross a sample, statistics from the fp32
@@ -55,7 +56,11 @@ Phases (any failure exits non-zero):
    width, and the script prints how far the single-device route drifts from
    itself there.  Phase 3's profiled PCGmix+ call is repeated on this
    route.
-5. Summary: a ``{"kernels": [...]}`` line, then the result line
+5. The profiler's kernel time of K1–K4 over 60 calls of phase 2's
+   closures, which has no launch floor, and each kernel's share of its
+   bound against it and against the bursts (last, since a profiler
+   session leaves host overhead behind it).  Summary: a
+   ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and one card, and exits non-zero without CUDA or
@@ -130,7 +135,7 @@ def profile_breakdown(torch, run, card, top=10, label="profile"):
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:top]:
         print(f"{label}: {100 * t / busy:6.2f}% {t:12.1f} us {n:5d}x {name[:100]}")
     for name, t, n in kernels:
-        if "mix_kernel" in name or "mix_warp_kernel" in name:
+        if "mix_warp_kernel" in name:
             print(f"{label}: {100 * t / busy:6.3f}% {t:12.1f} us {n:5d}x {name[:100]}")
 
 
@@ -197,7 +202,6 @@ def main() -> int:
     frames, labels = split.frames[:B], split.label[:B]
     rng = np.random.default_rng(11)
     k27 = AugmentEngine.device_arrays(k27_geometry(np, rng, B, T), dev)
-    idn = torch.arange(B, dtype=torch.int32, device=dev)
 
     def plan(method):
         eng = AugmentEngine(AugmentConfig(method, B, C, T))
@@ -207,8 +211,8 @@ def main() -> int:
         return a["dst"], a["src"], a["len"], a["sel"], a["alpha"]
 
     def k1(x, a, plain=False):
-        fn = mk.piecewise_mix_pairs_plain if plain else mk.piecewise_mix_pairs
-        return lambda: fn(x, idn, a["mix"], *pieces(a))
+        fn = mk.piecewise_mix_batch_plain if plain else mk.piecewise_mix_batch
+        return lambda: fn(x, a["mix"], *pieces(a))
 
     def k2(x, a, plain=False):
         fn = mk.pcgmix_plus_fused_plain if plain else mk.pcgmix_plus_fused
@@ -232,12 +236,12 @@ def main() -> int:
 
     pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
     x16 = x32.bfloat16()
-    report = {}
+    report, profiled_closures = {}, {}
     # name, wrapper, main-path plan, fp32 tolerance, bytes of row indices
     # per output row, row buffers read (K3/K4 read the partner rows from a
     # buffer of their own), warp
     for name, make, a_main, tol, idx_bytes, row_reads, warp in (
-        ("piecewise_mix_pairs", k1, pcgmix, 1e-6, 8, 1, False),
+        ("piecewise_mix_pairs", k1, pcgmix, 1e-6, 4, 1, False),
         ("pcgmix_plus_fused", k2, pcgmix_plus, 1e-5, 4, 1, True),
         ("piecewise_mix_prepaired", k3, pcgmix, 1e-6, 0, 2, False),
         ("pcgmix_plus_fused_prepaired", k4, pcgmix_plus, 1e-5, 0, 2, True),
@@ -257,6 +261,7 @@ def main() -> int:
         if not (err_main <= tol and err_k27 <= tol and bf16_ok):
             raise AssertionError(f"{name} disagrees with its plain version")
         ms = device_time_ms(torch, make(x32, a_main))
+        profiled_closures[name] = make(x32, a_main)
         plain_ms = device_time_ms(torch, make(x32, a_main, plain=True))
         # bytes the function must move: each row buffer read once, the
         # output written once, the row indices and the five piece arrays
@@ -439,7 +444,18 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
-    # ---- 5. summary ---------------------------------------------------------
+    # ---- 5. the profiler's kernel time of K1–K4, then the summary ----------
+    # taken last: the profiler's sessions leave host overhead behind them,
+    # which the host-bound runs of phases 3–4 would read
+    for name, fn in profiled_closures.items():
+        r = report[name]
+        r["kernel_us"] = sum(k5.kernel_times(fn, 60).values()) * 1e3
+        share = (f"{100 * r['bound_ms'] * 1e3 / r['kernel_us']:.1f} %" if r["kernel_us"]
+                 else "not measured")
+        print(f"{name}: {r['kernel_us']:.3f} us by the profiler over 60 calls, "
+              f"{r['ms']:.6f} ms by the bursts; bound {r['bound_ms']:.6f} ms: "
+              f"{share} of it reached by the profiler's time, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % by the bursts', on {card}")
     replaces = {"piecewise_mix_pairs": "pcgmix_tpu/ops/pallas_mix.py:74",
                 "pcgmix_plus_fused": "pcgmix_tpu/ops/pallas_mix.py:241",
                 "piecewise_mix_prepaired": "pcgmix_tpu/ops/pallas_mix.py:146",
@@ -448,7 +464,8 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": "pcgmix_tpu_torch/ops/csrc/mix_kernels.cu",
          "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_us": r["kernel_us"],
+         "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
          "floor_ms": floor_ms}
         for name, r in report.items()

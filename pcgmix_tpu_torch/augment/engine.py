@@ -7,8 +7,8 @@
   partner indices, per-segment piece windows, λ, spline knots — equal to
   the JAX engine's, or None when the ``+p`` gate leaves the batch alone.
 - ``apply(data, target_ohe, arrays)`` uploads the plan and rewrites the
-  device batch through the mix kernels: K1 (``piecewise_mix_pairs``) for
-  PCGmix, K2 (``pcgmix_plus_fused``) for PCGmix+.
+  device batch through the mix kernels: K1 (``piecewise_mix_batch``, K1
+  without a row index) for PCGmix, K2 (``pcgmix_plus_fused``) for PCGmix+.
 - ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
   counterpart (JAX ``engine.py:877-953``): a rank passes its block of the
   batch, its partners' rows gathered beforehand and its block of the plan,
@@ -34,7 +34,7 @@ from pcgmix_tpu_torch.augment.methods import MethodSpec, parse_method
 from pcgmix_tpu_torch.ops.mix_kernels import (
     pcgmix_plus_fused,
     pcgmix_plus_fused_prepaired,
-    piecewise_mix_pairs,
+    piecewise_mix_batch,
     piecewise_mix_prepaired,
 )
 from pcgmix_tpu_torch.ops.piecewise import segment_blend_pieces
@@ -238,10 +238,9 @@ class AugmentEngine:
         return out
 
     def _keepdur_apply(self, data, a):
-        idn = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
-        return piecewise_mix_pairs(
-            data, idn, a["mix"], a["dst"], a["src"], a["len"], a["sel"],
-            a["alpha"], base_is_d1=True,
+        return piecewise_mix_batch(
+            data, a["mix"], a["dst"], a["src"], a["len"], a["sel"], a["alpha"],
+            base_is_d1=True,
         )
 
     def apply(self, data: torch.Tensor, target_ohe: torch.Tensor, arrays: dict):

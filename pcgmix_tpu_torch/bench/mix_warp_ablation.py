@@ -1,5 +1,6 @@
 """Where K2's time goes: the warp kernel beside copies of itself with one
-step taken out, at the main path's shape, on the card.
+step taken out, and beside K1 on the same kernel body, at the main path's
+shape, on the card.
 
     python -m pcgmix_tpu_torch.bench.mix_warp_ablation [--windows N] [--reps R]
 
@@ -8,6 +9,10 @@ Each ablation is ``ops/csrc/mix_kernels.cu`` with a few lines replaced
 ``build/`` and called through K2's C entry point on the main path's
 inputs (B=64, C=4, T=2500, fp32, a PCGmix+ plan from the engine).  The
 ablations' outputs are wrong by design: they measure what a step costs.
+The ``k1`` arm calls K1's entry point in the unedited library as the main
+path does (no row index, a PCGmix plan), the body's instantiation without
+the envelope, beside ``no_envelope``; ``k1_64_threads`` does so in the
+64-thread library.
 Each is timed by CUDA events around windows of back-to-back calls (queued
 behind a device sleep) and by the profiler's kernel time; beside them a
 one-element ``zero_()`` and a device copy of the batch, which moves K2's
@@ -25,10 +30,10 @@ import sys
 import torch
 
 from pcgmix_tpu_torch.bench.conv_bn_fused import card_name, kernel_times, time_ms
+from pcgmix_tpu_torch.bench.mix_kernel_times import B, C, T, main_path_inputs
 from pcgmix_tpu_torch.ops import build
 from pcgmix_tpu_torch.ops.mix_kernels import WARP_BASIS_CHUNK, warp_basis
 
-B, C, T = 64, 4, 2500
 _SOURCE_LOAD = "? ldg_f32(srow[v], (int64_t)(c0 + g) * Tlen + ti[v])"
 _NO_SOURCE_LOAD = (_SOURCE_LOAD, "? x1[g][v]")
 _NO_ENVELOPE = ("y[v] = __fmul_rn(val, w[g][v]);", "y[v] = val;")
@@ -38,6 +43,13 @@ ABLATIONS = {
     "no_source_loads": (_NO_SOURCE_LOAD,),
     "no_envelope": (_NO_ENVELOPE,),
     "neither": (_NO_SOURCE_LOAD, _NO_ENVELOPE),
+    # K2/K4 with the base row's loads after the barrier, as K1/K3 (the
+    # basis rows stay before it)
+    "base_after_barrier": (
+        ("constexpr bool kBaseBeforeBarrier = kWarp;", "constexpr bool kBaseBeforeBarrier = false;"),
+        ("      load_group<T, V>(src1.base + (int64_t)row * row_len, 0, C, Tlen, t0, x1);\n", ""),
+        ("  if constexpr (kBaseBeforeBarrier) {", "  if constexpr (kWarp) {"),
+    ),
 }
 
 
@@ -58,7 +70,7 @@ def sources() -> dict:
 
 def build_ablations() -> dict:
     """Compile every ablation (one nvcc each, started together); returns
-    name → K2's C entry point in its library."""
+    name → its library."""
     out_dir = build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -68,27 +80,16 @@ def build_ablations() -> dict:
         procs.append(build._start([build._nvcc(), *build.COMPILE_FLAGS, "-shared",
                                    str(cu), "-o", str(out_dir / f"{name}.so")]))
     build._run(procs)
-    entries = {}
-    for name in ABLATIONS:
-        fn = ctypes.CDLL(str(out_dir / f"{name}.so")).pcgmix_plus_fused
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return entries
+    return {name: ctypes.CDLL(str(out_dir / f"{name}.so")) for name in ABLATIONS}
 
 
-def main_path_inputs(device):
-    """The main path's batch and PCGmix+ plan (as chip_smoke.py's phase 2)."""
-    from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
-    from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
-
-    ds = synthetic_physionet_dict(num_wavs_train=36, num_wavs_test=12,
-                                  segments_per_wav=8, sig_len=T, seed=11)
-    split = physionet_split(ds, "train")
-    plan = AugmentEngine(AugmentConfig("durmixmagwarp(0.2,4)", B, C, T)).plan(
-        7, split.frames[:B], split.label[:B])
-    x = torch.from_numpy(split.data[:B]).to(device)
-    return x, AugmentEngine.device_arrays(plan.arrays, device)
+def entry(lib, wrapper: str):
+    """``wrapper``'s C entry point in ``lib``, typed as ``build`` types it."""
+    name, n_ptr, n_int = build._ENTRIES[wrapper]
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def main(argv=None) -> int:
@@ -101,20 +102,30 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     card = card_name()
-    entries = build_ablations()
-    x, a = main_path_inputs(dev)
+    libs = build_ablations()
+    x, a = main_path_inputs(dev, "durmixmagwarp(0.2,4)")
+    _, p = main_path_inputs(dev, "durratiomixup")
     basis = warp_basis(T, a["knots"].shape[1] - 2, dev, columns=WARP_BASIS_CHUNK)
     out = torch.empty_like(x)
-    ptrs = [t.data_ptr() for t in (x, out, a["mix"], a["dst"], a["src"], a["len"],
-                                   a["sel"], a["alpha"], a["knots"], basis)]
-    ints = (B, C, T, a["dst"].shape[1], a["knots"].shape[1], 4, 0)
+    stream = torch.cuda.current_stream().cuda_stream
 
-    def k2(fn):
-        stream = torch.cuda.current_stream().cuda_stream
-        return lambda: fn(*ptrs, *ints, stream)
+    def call(fn, *args):
+        args = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in args]
+        if fn(*args, stream) != 0:
+            raise RuntimeError(f"{fn.__name__} refused its launch")
+        return lambda: fn(*args, stream)
+
+    def k2(lib):
+        return call(entry(lib, "pcgmix_plus_fused"), x, out, a["mix"], a["dst"],
+                    a["src"], a["len"], a["sel"], a["alpha"], a["knots"], basis,
+                    B, C, T, a["dst"].shape[1], a["knots"].shape[1], 4, 0)
 
     one, copy = torch.zeros(1, device=dev), torch.empty_like(x)
-    arms = {name: k2(fn) for name, fn in entries.items()}
+    arms = {name: k2(lib) for name, lib in libs.items()}
+    for name, lib in (("k1", libs["kernel"]), ("k1_64_threads", libs["64_threads"])):
+        arms[name] = call(entry(lib, "piecewise_mix_pairs"), x, out, None, p["mix"],
+                          p["dst"], p["src"], p["len"], p["sel"], p["alpha"],
+                          B, B, C, T, p["dst"].shape[1], 1, 4, 0)
     arms |= {"zero_1": one.zero_, "copy_batch": lambda: copy.copy_(x)}
     report = {}
     for name, fn in arms.items():

@@ -6,6 +6,7 @@ from pcgmix_tpu_torch.ops.conv_bn import conv3_bn_stats, conv3_bn_stats_plain
 from pcgmix_tpu_torch.ops.mix_kernels import (
     pcgmix_plus_fused,
     pcgmix_plus_fused_prepaired,
+    piecewise_mix_batch,
     piecewise_mix_pairs,
     piecewise_mix_prepaired,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "launch_counts",
     "pcgmix_plus_fused",
     "pcgmix_plus_fused_prepaired",
+    "piecewise_mix_batch",
     "piecewise_mix_pairs",
     "piecewise_mix_prepaired",
     "reset_launch_counts",

@@ -28,7 +28,7 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 MAX_PIECES = 32  # kMaxPieces in csrc/mix_kernels.cu
 MAX_WARP_TERMS = 256  # kMaxWarpTerms: (knot+2)·C envelope coefficients
-WARP_THREADS = 128  # kWarpThreads: threads per K2/K4 block, V steps each
+WARP_THREADS = 128  # kWarpThreads: threads per K1–K4 block, V steps each
 WARP_BASIS_CHUNK = 8  # kBasisChunk: K2/K4's basis columns are padded to a multiple
 CONV3_CHUNK_ROWS = 64  # kChunkRows in csrc/conv_bn_stats.cu: rows of y per chunk
 CONV3_CHUNKS_PER_TILE = 2  # kChunksPerTile: chunks per block (a statistics row each)
@@ -36,9 +36,9 @@ CONV3_CHUNKS_PER_TILE = 2  # kChunksPerTile: chunks per block (a statistics row 
 # wrapper name → (C entry point, pointer arguments, int arguments); every
 # entry point takes the stream last
 _ENTRIES = {
-    "piecewise_mix_pairs": ("pcgmix_piecewise_mix_pairs", 9, 7),
+    "piecewise_mix_pairs": ("pcgmix_piecewise_mix_pairs", 9, 8),
     "pcgmix_plus_fused": ("pcgmix_plus_fused", 10, 7),
-    "piecewise_mix_prepaired": ("pcgmix_piecewise_mix_prepaired", 8, 6),
+    "piecewise_mix_prepaired": ("pcgmix_piecewise_mix_prepaired", 8, 7),
     "pcgmix_plus_fused_prepaired": ("pcgmix_plus_fused_prepaired", 10, 7),
     "conv3_bn_stats": ("pcgmix_conv3_bn_stats", 6, 5),
 }

@@ -24,9 +24,8 @@
 // srcrow = d2 if that sum of sel is non-zero else d1, and base = d1 or 0.
 // These are the semantics of pcgmix_tpu/ops/piecewise.py::piecewise_mix
 // (:70-86), which the engine's disjoint in-range pieces share with the
-// Pallas body.  The four differ only in where the rows come from (K1/K3
-// are `mix_kernel`, K2/K4 `mix_warp_kernel`):
-//    K1  d1 = data[idx1[i]], d2 = data[idx2[i]]
+// Pallas body.  The four differ only in where the rows come from:
+//    K1  d1 = data[idx1[i]], d2 = data[idx2[i]]   (no idx1: d1 = data[i])
 //    K2  d1 = data[i],       d2 = data[mix[i]],  base = d1, times the warp
 //    K3  d1 = d1_rows[i],    d2 = d2_rows[i]     (partners gathered before)
 //    K4  as K3,                                  base = d1, times the warp
@@ -45,48 +44,52 @@
 // one (2.56 MB), 7.68 MB plus the plan arrays (and K4's basis and knots):
 // about 2.3 µs.  One launch costs about as much as K2's whole bound.
 //
-// K1 and K3, `mix_kernel`: one grid row (blockIdx.y) per output row, so a
-// block reads its row's pieces once into shared memory; blocks along x
-// cover C·T with neighbouring threads on neighbouring t, so the base read,
-// the source window read (contiguous inside a piece) and the store are all
-// coalesced.  Rows are read straight from device memory; the whole batch
-// fits in the 50 MB L2, so a second read of a row mostly hits L2.
-//
-// K2 and K4, `mix_warp_kernel`.  They were `mix_kernel` with the warp
-// fused in, and reached 12–18 % of their bounds (0.0132 ms).  That time is
-// device time (the timing queues its launches behind a device sleep), so
-// what held them was latency: each thread waited on a chain of dependent
-// round trips to memory.
+// All four are one kernel body, `mix_warp_kernel<T, V, kWarp, kBaseIsD1>`:
+// kWarp multiplies by the envelope (K2/K4; without it nothing of the
+// envelope is loaded or computed), kBaseIsD1 picks the base (K1/K3 take
+// either; with base 0 the base row is never loaded and d1 is read only as
+// a source).  The first port's kernel, a grid-stride loop over C·T,
+// reached 12–18 % of these bounds (0.010–0.013 ms).  That time is device
+// time (the timing queues its launches behind a device sleep), so what
+// held it was latency: each thread waited on a chain of dependent round
+// trips to memory.
 //   1. A grid-stride loop of four single elements per thread over C·T.
-//   2. The plan went to shared memory, then a barrier, and only then was
-//      the row index idx[row] read: two round trips before the first load
-//      of data.
+//   2. The plan went to shared memory, then a barrier, and only then were
+//      the row indices read: two round trips before the first load of data.
 //   3. `out` was not __restrict__, so no load of the next iteration could
 //      move above this iteration's store: the four ran one after another.
 //   4. A 64-bit division e / T per element.
-//   5. Six basis values per element, read from device memory, 24 bytes
-//      apart between neighbouring threads.
+//   5. Six basis values per element (the warp), read from device memory,
+//      24 bytes apart between neighbouring threads.
 //   6. Scalar 4-byte loads and stores only.
-// What the warp kernel does about each:
+// What this kernel does about each:
 //   1. One block per (output row, tile of kWarpThreads·V steps) covering
 //      all C channels; each thread owns V consecutive steps, 16 bytes (V = 4
 //      in fp32, 8 in bf16), in every channel.  t comes from the block and
 //      thread indices and c from a loop over channels: no grid-stride loop.
 //      128 threads × 4 = 512 steps per tile gives 5 × 64 = 320 blocks at
 //      N = 64, T = 2500 fp32, about 2.4 per SM of the 132, all resident at
-//      once (at 128 registers a thread, 4 blocks fit an SM: 528 places),
-//      so the whole batch is in flight in one wave.
-//   2. One prologue round trip.  The loads that depend on nothing in the
-//      plan go first: the base row's first kChannelGroup channels and the
-//      thread's basis rows.  In the same round each piece's five values
-//      (thread k loads piece k), the row's knots (every thread) and K2's
-//      partner index (the last thread) go to shared memory.  Then one
-//      barrier, then the source loads, which need the offsets, selectors
-//      and the partner row.  These are per-thread loads, not Hopper's bulk
-//      copy: the plan arrays are a few dozen bytes at offsets row·K·4 that
-//      are not 16-byte aligned, and padding them in the wrapper would add a
-//      copy per step, while per-thread loads already issue in the same
-//      round as the data.
+//      once (at 128 registers a thread, the warp's instantiation, 4 blocks
+//      fit an SM: 528 places), so the whole batch is in flight in one wave.
+//   2. One prologue round trip: each piece's five values (thread k loads
+//      piece k), the row's knots (every thread) and the row indices (the
+//      last thread) go to shared memory; then one barrier, then the loads
+//      of data, the source loads needing the offsets, selectors and
+//      partner row.  K2/K4 issue the loads that depend on nothing in the
+//      plan (the base row's first kChannelGroup channels and the thread's
+//      basis rows) before the barrier, beside the plan's.  K1/K3 issue the
+//      base row after it, beside the source loads: early base loads are
+//      not free, since the plan's loads, which the barrier waits on, queue
+//      behind them.  On an H100 SXM (700 W) K1 at the main shape took 3.15
+//      µs with its base row issued before the plan's loads, 3.10 after
+//      them and 2.86 after the barrier (profiler kernel time).  So K1
+//      called with an explicit idx1 (the concat family, idx1[row] loaded
+//      beside the partner index) costs no more than the main path's K1,
+//      which passes none.
+//      These are per-thread loads, not Hopper's bulk copy: the plan arrays
+//      are a few dozen bytes at offsets row·K·4 that are not 16-byte
+//      aligned, and padding them in the wrapper would add a copy per step,
+//      while per-thread loads already issue in the same round as the data.
 //   3. __restrict__ on every pointer, `out` included; every read goes
 //      through the non-coherent path (__ldg).
 //   4. No division: the thread's steps are t0 .. t0+V−1 in every channel.
@@ -109,12 +112,12 @@
 // past T take part in the barrier and store nothing.
 //
 // The blend uses explicitly rounded fp32 operations (__fmul_rn, __fadd_rn)
-// so the compiler cannot contract it into an FMA: the result is then
-// bit-equal to the plain PyTorch version, which rounds every operation.
-// The envelope is a chain of fp32 FMAs over j in order, the same in every
-// instantiation, so K4 on gathered partners is bit-equal to K2 and V = 1
-// to V = 4.  bf16 rows are widened exactly on load and narrowed once at
-// the store with round to nearest even, as torch's cast.
+// so the compiler cannot contract it into an FMA: K1/K3 are then bit-equal
+// to the plain PyTorch version, which rounds every operation.  The
+// envelope is a chain of fp32 FMAs over j in order, the same in every
+// instantiation, so K3 on gathered partners is bit-equal to K1, K4 to K2,
+// and V = 1 to V = vec.  bf16 rows are widened exactly on load and
+// narrowed once at the store with round to nearest even, as torch's cast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,25 +127,10 @@ namespace {
 
 constexpr int kMaxPieces = 32;      // the multi-cycle variant needs 27
 constexpr int kMaxWarpTerms = 256;  // (knot+2)·C envelope coefficients
-constexpr int kThreads = 256;       // K1/K3
-constexpr int kItemsPerThread = 4;  // K1/K3
-constexpr int kWarpThreads = 128;   // K2/K4: threads per block
-constexpr int kChannelGroup = 4;    // K2/K4: channels a thread holds at once
-constexpr int kBasisChunk = 8;      // K2/K4: basis columns a thread holds at once
+constexpr int kWarpThreads = 128;   // threads per block
+constexpr int kChannelGroup = 4;    // channels a thread holds at once
+constexpr int kBasisChunk = 8;      // basis columns a thread holds at once
 static_assert(kMaxPieces <= kWarpThreads, "one thread loads each piece");
-
-__device__ __forceinline__ float load_f32(const float* p, int64_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f32(float* p, int64_t i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16(v);
-}
 
 // bf16 → fp32 is exact: the 16 bits become the top of the fp32 word
 __device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits) {
@@ -236,6 +224,7 @@ __device__ __forceinline__ void load_basis(const float* __restrict__ basis,
   }
 }
 
+
 __device__ __forceinline__ int clamp_row(int r, int B) {
   return r < 0 ? 0 : (r >= B ? B - 1 : r);
 }
@@ -249,106 +238,61 @@ struct RowSource {
   int rows;
 };
 
-// K1 and K3
-template <typename T, bool kBaseIsD1>
-__global__ void __launch_bounds__(kThreads) mix_kernel(
-    RowSource<T> src1, RowSource<T> src2, T* __restrict__ out,
-    const int* __restrict__ dst, const int* __restrict__ src,
-    const int* __restrict__ len, const int* __restrict__ sel,
-    const float* __restrict__ alpha, int C, int Tlen, int K) {
-  __shared__ int s_start[kMaxPieces];
-  __shared__ int s_end[kMaxPieces];
-  __shared__ int s_off[kMaxPieces];
-  __shared__ int s_sel[kMaxPieces];
-  __shared__ float s_alpha[kMaxPieces];
-
-  const int row = blockIdx.y;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const int d = dst[row * K + k];
-    s_start[k] = d;
-    s_end[k] = d + len[row * K + k];
-    s_off[k] = src[row * K + k] - d;
-    s_sel[k] = sel[row * K + k];
-    s_alpha[k] = alpha[row * K + k];
-  }
-  __syncthreads();
-
-  const int64_t row_len = (int64_t)C * Tlen;
-  const int r1 = src1.idx == nullptr ? row : clamp_row(src1.idx[row], src1.rows);
-  const int r2 = src2.idx == nullptr ? row : clamp_row(src2.idx[row], src2.rows);
-  const T* __restrict__ d1 = src1.base + (int64_t)r1 * row_len;
-  const T* __restrict__ d2 = src2.base + (int64_t)r2 * row_len;
-  T* o = out + (int64_t)row * row_len;
-
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < row_len;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(e / Tlen);
-    const int t = (int)(e - (int64_t)c * Tlen);
-    bool covered = false;
-    float a = 0.f;
-    int off = 0;
-    int sl = 0;
-    for (int k = 0; k < K; ++k) {
-      if (t >= s_start[k] && t < s_end[k]) {
-        covered = true;
-        a = __fadd_rn(a, s_alpha[k]);
-        off += s_off[k];
-        sl += s_sel[k];
-      }
-    }
-    float base = 0.f;
-    if constexpr (kBaseIsD1) base = load_f32(d1, e);
-    float v = base;
-    if (covered) {
-      int ti = t + off;
-      ti = ti < 0 ? 0 : (ti >= Tlen ? Tlen - 1 : ti);
-      const float s = load_f32(sl != 0 ? d2 : d1, (int64_t)c * Tlen + ti);
-      v = __fadd_rn(__fmul_rn(a, base), __fmul_rn(__fsub_rn(1.f, a), s));
-    }
-    store_f32(o, e, v);
+// Channels c0 .. c0+kChannelGroup−1 (those below C) of steps t0 .. t0+V−1
+template <typename T, int V>
+__device__ __forceinline__ void load_group(const T* __restrict__ row, int c0,
+                                           int C, int Tlen, int t0,
+                                           float (&x)[kChannelGroup][V]) {
+#pragma unroll
+  for (int g = 0; g < kChannelGroup; ++g) {
+    if (c0 + g < C) load_steps<V>(row + (int64_t)(c0 + g) * Tlen + t0, x[g]);
   }
 }
 
-// K2 and K4: output row i blends d1_rows[i] with its partner row from src2
-// and multiplies by the envelope; V steps per thread (see the note above)
-template <typename T, int V>
+// K1–K4: output row i blends its row from src1 with its partner row from
+// src2 over its pieces (base d1, or 0 without kBaseIsD1) and, with kWarp,
+// multiplies by the envelope; V steps per thread (see the note above).
+// src1.idx is read only without kWarp (K2/K4 take row i).
+template <typename T, int V, bool kWarp, bool kBaseIsD1>
 __global__ void __launch_bounds__(kWarpThreads) mix_warp_kernel(
-    const T* __restrict__ d1_rows, RowSource<T> src2, T* __restrict__ out,
+    RowSource<T> src1, RowSource<T> src2, T* __restrict__ out,
     const int* __restrict__ dst, const int* __restrict__ src,
     const int* __restrict__ len, const int* __restrict__ sel,
     const float* __restrict__ alpha,
-    const float* __restrict__ knots,  // (N, K2, C)
-    const float* __restrict__ basis,  // (T, kb): K2 columns, then zeros
+    const float* __restrict__ knots,  // (N, K2, C), kWarp only
+    const float* __restrict__ basis,  // (T, kb): K2 columns, then zeros; kWarp only
     int C, int Tlen, int K, int K2) {
   __shared__ int s_start[kMaxPieces];
   __shared__ int s_end[kMaxPieces];
   __shared__ int s_off[kMaxPieces];
   __shared__ int s_sel[kMaxPieces];
   __shared__ float s_alpha[kMaxPieces];
-  __shared__ float s_knots[kMaxWarpTerms];
-  __shared__ int s_row2;
+  __shared__ float s_knots[kWarp ? kMaxWarpTerms : 1];
+  __shared__ int s_row1, s_row2;
 
   const int row = blockIdx.y;
   const int t0 = (blockIdx.x * kWarpThreads + threadIdx.x) * V;
   const bool active = t0 < Tlen;
   const int64_t row_len = (int64_t)C * Tlen;
   const int kb = (K2 + kBasisChunk - 1) / kBasisChunk * kBasisChunk;
-  const T* __restrict__ d1 = d1_rows + (int64_t)row * row_len;
+  // K2/K4 issue the base row's loads before the barrier, beside the
+  // plan's; K1/K3 after it, so that the plan's loads, which the barrier
+  // waits on, meet no other traffic (K2/K4 take row i; only K1 reads idx1)
+  constexpr bool kBaseBeforeBarrier = kWarp;
 
   // 1. what depends on nothing in the plan: the base row's first channel
   //    group and this thread's basis rows
   float x1[kChannelGroup][V];
   float b[V][kBasisChunk];
-  if (active) {
-#pragma unroll
-    for (int g = 0; g < kChannelGroup; ++g) {
-      if (g < C) load_steps<V>(d1 + (int64_t)g * Tlen + t0, x1[g]);
+  if constexpr (kBaseBeforeBarrier) {
+    if (active) {
+      load_group<T, V>(src1.base + (int64_t)row * row_len, 0, C, Tlen, t0, x1);
+      load_basis<V>(basis, t0, kb, 0, b);
     }
-    load_basis<V>(basis, t0, kb, 0, b);
   }
 
   // 2. the plan, in the same round: thread k loads piece k, every thread
-  //    some knots, the last thread the partner row
+  //    some knots, the last thread the row indices
   const int64_t prow = (int64_t)row * K;
   if ((int)threadIdx.x < K) {
     const int k = threadIdx.x;
@@ -359,15 +303,24 @@ __global__ void __launch_bounds__(kWarpThreads) mix_warp_kernel(
     s_sel[k] = __ldg(sel + prow + k);
     s_alpha[k] = __ldg(alpha + prow + k);
   }
-  const float* __restrict__ row_knots = knots + (int64_t)row * K2 * C;
-  for (int j = threadIdx.x; j < K2 * C; j += kWarpThreads) {
-    s_knots[j] = __ldg(row_knots + j);
+  if constexpr (kWarp) {
+    const float* __restrict__ row_knots = knots + (int64_t)row * K2 * C;
+    for (int j = threadIdx.x; j < K2 * C; j += kWarpThreads) {
+      s_knots[j] = __ldg(row_knots + j);
+    }
   }
   if (threadIdx.x == kWarpThreads - 1) {
     s_row2 = src2.idx == nullptr ? row : clamp_row(__ldg(src2.idx + row), src2.rows);
+    if (!kWarp && src1.idx != nullptr) {
+      s_row1 = clamp_row(__ldg(src1.idx + row), src1.rows);
+    }
   }
   __syncthreads();
   if (!active) return;
+
+  const bool row1_given = !kWarp && src1.idx != nullptr;
+  const T* __restrict__ d1 = src1.base + (int64_t)(row1_given ? s_row1 : row) * row_len;
+  if (!kBaseBeforeBarrier && kBaseIsD1) load_group<T, V>(d1, 0, C, Tlen, t0, x1);
 
   // 3. this thread's steps: a, off and sel summed over the covering pieces
   //    in piece order; the source index clamped, as XLA's piecewise_mix
@@ -408,11 +361,10 @@ __global__ void __launch_bounds__(kWarpThreads) mix_warp_kernel(
   T* __restrict__ o = out + (int64_t)row * row_len + t0;
   for (int c0 = 0; c0 < C; c0 += kChannelGroup) {
     if (c0 > 0) {
-#pragma unroll
-      for (int g = 0; g < kChannelGroup; ++g) {
-        if (c0 + g < C) load_steps<V>(d1 + (int64_t)(c0 + g) * Tlen + t0, x1[g]);
+      if constexpr (kBaseIsD1) load_group<T, V>(d1, c0, C, Tlen, t0, x1);
+      if constexpr (kWarp) {
+        if (K2 > kBasisChunk) load_basis<V>(basis, t0, kb, 0, b);
       }
-      if (K2 > kBasisChunk) load_basis<V>(basis, t0, kb, 0, b);
     }
     float s[kChannelGroup][V];
 #pragma unroll
@@ -426,21 +378,23 @@ __global__ void __launch_bounds__(kWarpThreads) mix_warp_kernel(
     }
     // Σ_j basis[t, j]·knots[j, c], one fp32 FMA per term, j in order
     float w[kChannelGroup][V];
+    if constexpr (kWarp) {
 #pragma unroll
-    for (int g = 0; g < kChannelGroup; ++g) {
+      for (int g = 0; g < kChannelGroup; ++g) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) w[g][v] = 0.f;
-    }
-    for (int j0 = 0; j0 < K2; j0 += kBasisChunk) {
-      if (j0 > 0) load_basis<V>(basis, t0, kb, j0, b);
+        for (int v = 0; v < V; ++v) w[g][v] = 0.f;
+      }
+      for (int j0 = 0; j0 < K2; j0 += kBasisChunk) {
+        if (j0 > 0) load_basis<V>(basis, t0, kb, j0, b);
 #pragma unroll
-      for (int j = 0; j < kBasisChunk; ++j) {
+        for (int j = 0; j < kBasisChunk; ++j) {
 #pragma unroll
-        for (int g = 0; g < kChannelGroup; ++g) {
-          if (j0 + j < K2 && c0 + g < C) {
-            const float kn = s_knots[(j0 + j) * C + c0 + g];
+          for (int g = 0; g < kChannelGroup; ++g) {
+            if (j0 + j < K2 && c0 + g < C) {
+              const float kn = s_knots[(j0 + j) * C + c0 + g];
 #pragma unroll
-            for (int v = 0; v < V; ++v) w[g][v] = fmaf(b[v][j], kn, w[g][v]);
+              for (int v = 0; v < V; ++v) w[g][v] = fmaf(b[v][j], kn, w[g][v]);
+            }
           }
         }
       }
@@ -451,108 +405,82 @@ __global__ void __launch_bounds__(kWarpThreads) mix_warp_kernel(
       float y[V];
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const float base = x1[g][v];
+        const float base = kBaseIsD1 ? x1[g][v] : 0.f;
         float val = base;
         if (covered[v]) {
           val = __fadd_rn(__fmul_rn(a[v], base),
                           __fmul_rn(__fsub_rn(1.f, a[v]), s[g][v]));
         }
-        y[v] = __fmul_rn(val, w[g][v]);
+        if constexpr (kWarp) {
+          y[v] = __fmul_rn(val, w[g][v]);
+        } else {
+          y[v] = val;
+        }
       }
       store_steps<V>(o + (int64_t)(c0 + g) * Tlen, y);
     }
   }
 }
 
-dim3 grid_for(int N, int C, int Tlen) {
-  const int64_t row_len = (int64_t)C * Tlen;
-  const int64_t per_block = (int64_t)kThreads * kItemsPerThread;
-  return dim3((unsigned)((row_len + per_block - 1) / per_block), (unsigned)N);
-}
-
-// One launch of K1 or K3.
-template <typename T>
-void launch(RowSource<T> s1, RowSource<T> s2, void* out, const int* dst,
-            const int* src, const int* len, const int* sel,
-            const float* alpha, int N, int C, int Tlen, int K, int base_is_d1,
-            cudaStream_t stream) {
-  const dim3 grid = grid_for(N, C, Tlen);
-  T* o = (T*)out;
-  if (base_is_d1) {
-    mix_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        s1, s2, o, dst, src, len, sel, alpha, C, Tlen, K);
-  } else {
-    mix_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        s1, s2, o, dst, src, len, sel, alpha, C, Tlen, K);
-  }
-}
-
-// K1/K3: dispatch on dtype_code (0 = float32, 1 = bfloat16); returns
-// cudaGetLastError() after the launch (0 = launched).
-int dispatch(const void* base1, const int* idx1, int rows1, const void* base2,
-             const int* idx2, int rows2, void* out, const int* dst,
-             const int* src, const int* len, const int* sel,
-             const float* alpha, int N, int C, int Tlen, int K, int base_is_d1,
-             int dtype_code, void* stream) {
-  if (rows1 <= 0 || rows2 <= 0 || N <= 0 || N > 65535 || C <= 0 ||
-      Tlen <= 0 || K < 0 || K > kMaxPieces ||
-      (dtype_code != 0 && dtype_code != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype_code == 0) {
-    launch<float>({(const float*)base1, idx1, rows1},
-                  {(const float*)base2, idx2, rows2}, out, dst, src, len, sel,
-                  alpha, N, C, Tlen, K, base_is_d1, s);
-  } else {
-    using bf16 = __nv_bfloat16;
-    launch<bf16>({(const bf16*)base1, idx1, rows1},
-                 {(const bf16*)base2, idx2, rows2}, out, dst, src, len, sel,
-                 alpha, N, C, Tlen, K, base_is_d1, s);
-  }
-  return (int)cudaGetLastError();
-}
-
-// One launch of K2 or K4 with V steps per thread.
+// One launch with V steps per thread: the envelope's instantiation (K2/K4)
+// or the blend's, with base d1 or 0 (K1/K3).
 template <typename T, int V>
-void launch_warp(const void* d1_rows, const void* base2, const int* idx2,
-                 int rows2, void* out, const int* dst, const int* src,
-                 const int* len, const int* sel, const float* alpha,
-                 const float* knots, const float* basis, int N, int C,
-                 int Tlen, int K, int K2, cudaStream_t stream) {
+void launch_warp(RowSource<T> s1, RowSource<T> s2, void* out, const int* dst,
+                 const int* src, const int* len, const int* sel,
+                 const float* alpha, const float* knots, const float* basis,
+                 int N, int C, int Tlen, int K, int K2, bool warp,
+                 bool base_is_d1, cudaStream_t stream) {
   const int per_block = kWarpThreads * V;
   const dim3 grid((unsigned)((Tlen + per_block - 1) / per_block), (unsigned)N);
-  mix_warp_kernel<T, V><<<grid, kWarpThreads, 0, stream>>>(
-      (const T*)d1_rows, RowSource<T>{(const T*)base2, idx2, rows2}, (T*)out,
-      dst, src, len, sel, alpha, knots, basis, C, Tlen, K, K2);
+  auto* kernel = warp         ? mix_warp_kernel<T, V, true, true>
+                 : base_is_d1 ? mix_warp_kernel<T, V, false, true>
+                              : mix_warp_kernel<T, V, false, false>;
+  kernel<<<grid, kWarpThreads, 0, stream>>>(s1, s2, (T*)out, dst, src, len, sel,
+                                           alpha, knots, basis, C, Tlen, K, K2);
 }
 
-// K2/K4: V = vector_width steps per thread, 16 / sizeof(T) or 1; refused
-// where the vector path's alignment does not hold.
-int dispatch_warp(const void* d1_rows, const void* base2, const int* idx2,
-                  int rows2, void* out, const int* dst, const int* src,
-                  const int* len, const int* sel, const float* alpha,
-                  const float* knots, const float* basis, int N, int C,
-                  int Tlen, int K, int K2, int vector_width, int dtype_code,
+// K1–K4: dispatch on dtype_code (0 = float32, 1 = bfloat16) and
+// vector_width (16 / sizeof(T) or 1).  Refused where the vector path's
+// alignment does not hold, where a null index would read past its rows,
+// and, with the warp, without the envelope's inputs.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+int dispatch_warp(const void* base1, const int* idx1, int rows1,
+                  const void* base2, const int* idx2, int rows2, void* out,
+                  const int* dst, const int* src, const int* len,
+                  const int* sel, const float* alpha, const float* knots,
+                  const float* basis, int N, int C, int Tlen, int K, int K2,
+                  bool warp, bool base_is_d1, int vector_width, int dtype_code,
                   void* stream) {
   const int v16 = dtype_code == 0 ? 4 : 8;
   const bool aligned =
       Tlen % v16 == 0 &&
-      ((uintptr_t)d1_rows | (uintptr_t)base2 | (uintptr_t)out) % 16 == 0;
-  if (rows2 <= 0 || N <= 0 || N > 65535 || C <= 0 || Tlen <= 0 || K < 0 ||
-      K > kMaxPieces || K2 <= 0 || K2 * C > kMaxWarpTerms ||
-      knots == nullptr || basis == nullptr || (uintptr_t)basis % 16 != 0 ||
+      ((uintptr_t)base1 | (uintptr_t)base2 | (uintptr_t)out) % 16 == 0;
+  const bool envelope_ok =
+      !warp || (K2 > 0 && K2 * C <= kMaxWarpTerms && knots != nullptr &&
+                basis != nullptr && (uintptr_t)basis % 16 == 0 &&
+                idx1 == nullptr && base_is_d1);
+  if (rows1 <= 0 || rows2 <= 0 || N <= 0 || N > 65535 || C <= 0 ||
+      Tlen <= 0 || K < 0 || K > kMaxPieces || !envelope_ok ||
+      (idx1 == nullptr && N > rows1) || (idx2 == nullptr && N > rows2) ||
       (dtype_code != 0 && dtype_code != 1) ||
       !(vector_width == 1 || (vector_width == v16 && aligned))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  using bf16 = __nv_bfloat16;
-  auto* go = dtype_code == 0
-                 ? (vector_width == 1 ? launch_warp<float, 1> : launch_warp<float, 4>)
-                 : (vector_width == 1 ? launch_warp<bf16, 1> : launch_warp<bf16, 8>);
-  go(d1_rows, base2, idx2, rows2, out, dst, src, len, sel, alpha, knots, basis,
-     N, C, Tlen, K, K2, s);
+  if (dtype_code == 0) {
+    const RowSource<float> s1{(const float*)base1, idx1, rows1};
+    const RowSource<float> s2{(const float*)base2, idx2, rows2};
+    (vector_width == 1 ? launch_warp<float, 1> : launch_warp<float, 4>)(
+        s1, s2, out, dst, src, len, sel, alpha, knots, basis, N, C, Tlen, K,
+        K2, warp, base_is_d1, s);
+  } else {
+    using bf16 = __nv_bfloat16;
+    const RowSource<bf16> s1{(const bf16*)base1, idx1, rows1};
+    const RowSource<bf16> s2{(const bf16*)base2, idx2, rows2};
+    (vector_width == 1 ? launch_warp<bf16, 1> : launch_warp<bf16, 8>)(
+        s1, s2, out, dst, src, len, sel, alpha, knots, basis, N, C, Tlen, K,
+        K2, warp, base_is_d1, s);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -560,39 +488,42 @@ int dispatch_warp(const void* d1_rows, const void* base2, const int* idx2,
 
 extern "C" {
 
-// K1: data (B, C, T); idx1 may be NULL (identity).
+// K1: data (B, C, T); idx1 may be NULL (row i, as on the main path; then
+// N ≤ B); vector_width 16 / sizeof(T) or 1.
 int pcgmix_piecewise_mix_pairs(const void* data, void* out, const int* idx1,
                                const int* idx2, const int* dst,
                                const int* src, const int* len, const int* sel,
                                const float* alpha, int B, int N, int C,
-                               int Tlen, int K, int base_is_d1, int dtype_code,
-                               void* stream) {
-  return dispatch(data, idx1, B, data, idx2, B, out, dst, src, len, sel,
-                  alpha, N, C, Tlen, K, base_is_d1, dtype_code, stream);
+                               int Tlen, int K, int base_is_d1,
+                               int vector_width, int dtype_code, void* stream) {
+  return dispatch_warp(data, idx1, B, data, idx2, B, out, dst, src, len, sel,
+                       alpha, nullptr, nullptr, N, C, Tlen, K, 0, false,
+                       base_is_d1 != 0, vector_width, dtype_code, stream);
 }
 
 // K2: data (B, C, T); knots (B, K2, C); basis (T, K2 rounded up to
-// kBasisChunk), zero past column K2; vector_width 16 / sizeof(T) or 1.
+// kBasisChunk), zero past column K2; vector_width as K1's.
 int pcgmix_plus_fused(const void* data, void* out, const int* mix,
                       const int* dst, const int* src, const int* len,
                       const int* sel, const float* alpha, const float* knots,
                       const float* basis, int B, int C, int Tlen, int K,
                       int K2, int vector_width, int dtype_code, void* stream) {
-  return dispatch_warp(data, data, mix, B, out, dst, src, len, sel, alpha,
-                       knots, basis, B, C, Tlen, K, K2, vector_width,
-                       dtype_code, stream);
+  return dispatch_warp(data, nullptr, B, data, mix, B, out, dst, src, len, sel,
+                       alpha, knots, basis, B, C, Tlen, K, K2, true, true,
+                       vector_width, dtype_code, stream);
 }
 
-// K3: d1_rows, d2_rows (N, C, T).
+// K3: d1_rows, d2_rows (N, C, T); vector_width as K1's.
 int pcgmix_piecewise_mix_prepaired(const void* d1_rows, const void* d2_rows,
                                    void* out, const int* dst, const int* src,
                                    const int* len, const int* sel,
                                    const float* alpha, int N, int C, int Tlen,
-                                   int K, int base_is_d1, int dtype_code,
-                                   void* stream) {
-  return dispatch(d1_rows, nullptr, N, d2_rows, nullptr, N, out, dst, src,
-                  len, sel, alpha, N, C, Tlen, K, base_is_d1, dtype_code,
-                  stream);
+                                   int K, int base_is_d1, int vector_width,
+                                   int dtype_code, void* stream) {
+  return dispatch_warp(d1_rows, nullptr, N, d2_rows, nullptr, N, out, dst,
+                       src, len, sel, alpha, nullptr, nullptr, N, C, Tlen, K,
+                       0, false, base_is_d1 != 0, vector_width, dtype_code,
+                       stream);
 }
 
 // K4: d1_rows, d2_rows (N, C, T); knots, basis and vector_width as K2's.
@@ -603,9 +534,9 @@ int pcgmix_plus_fused_prepaired(const void* d1_rows, const void* d2_rows,
                                 const float* basis, int N, int C, int Tlen,
                                 int K, int K2, int vector_width,
                                 int dtype_code, void* stream) {
-  return dispatch_warp(d1_rows, d2_rows, nullptr, N, out, dst, src, len, sel,
-                       alpha, knots, basis, N, C, Tlen, K, K2, vector_width,
-                       dtype_code, stream);
+  return dispatch_warp(d1_rows, nullptr, N, d2_rows, nullptr, N, out, dst,
+                       src, len, sel, alpha, knots, basis, N, C, Tlen, K, K2,
+                       true, true, vector_width, dtype_code, stream);
 }
 
 int pcgmix_max_pieces(void) { return kMaxPieces; }

@@ -14,11 +14,13 @@ version in this module; a CUDA tensor launches the kernel or raises.  Each
 wrapper counts its kernel launches (:func:`launch_counts`), so a run can
 show that its main path went through the kernels.
 
-K1/K3 share one kernel; K2/K4 another, in which each thread owns 16 bytes
-of consecutive steps in every channel where the rows allow it
+K1–K4 are one kernel body, in which each thread owns 16 bytes of
+consecutive steps in every channel where the rows allow it
 (:func:`_warp_vector_width`), else one step (the kernel's scalar edge
-path).  The kernels are compiled at first use, with K5's, into one shared
-library (``ops/build.py``).
+path); K2/K4 add the envelope.  :func:`piecewise_mix_batch` is K1 with
+row i of the batch as each output row's base (the main path's PCGmix),
+launched without a row index.  The kernels are compiled at first use,
+with K5's, into one shared library (``ops/build.py``).
 """
 
 from __future__ import annotations
@@ -99,6 +101,16 @@ def _check_knots(knots, n, C, device):
         raise ValueError(f"(knot+2)·C must be at most {MAX_WARP_TERMS}")
 
 
+def _warp_vector_width(T: int, dtype: torch.dtype, *tensors) -> int:
+    """Time steps per thread of K1–K4: 16 bytes of ``dtype`` where T is a
+    multiple of that and every tensor's data starts on a 16-byte boundary
+    (so does every row), else 1, the kernel's scalar edge path."""
+    v = 16 // (torch.finfo(dtype).bits // 8)
+    if T % v == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return v
+    return 1
+
+
 def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
     """Launch wrapper ``name``'s kernel (:func:`build.launch`) unless the
     batch is empty; returns ``out``."""
@@ -129,6 +141,25 @@ def piecewise_mix_pairs_plain(data, idx1, idx2, dst, src, length, sel, alpha,
     )
 
 
+def piecewise_mix_batch_plain(data, mix, dst, src, length, sel, alpha,
+                              *, base_is_d1: bool = True):
+    """Plain version of :func:`piecewise_mix_batch`: K1's with idx1 = arange."""
+    idn = torch.arange(data.shape[0], dtype=torch.int32, device=data.device)
+    return piecewise_mix_pairs_plain(data, idn, mix, dst, src, length, sel, alpha,
+                                     base_is_d1=base_is_d1)
+
+
+def _mix_pairs(data, idx1, idx2, n, k, pieces, alpha, base_is_d1):
+    """Launch K1 (``idx1`` None: row i is output row i's base row)."""
+    B, C, T = data.shape
+    out = torch.empty((n, C, T), dtype=data.dtype, device=data.device)
+    return _launch(
+        "piecewise_mix_pairs", out, data, out, idx1, idx2, *pieces, alpha, B, n,
+        C, T, k, int(base_is_d1), _warp_vector_width(T, data.dtype, data, out),
+        _DTYPE_CODES[data.dtype],
+    )
+
+
 def piecewise_mix_pairs(data, idx1, idx2, dst, src, length, sel, alpha,
                         *, base_is_d1: bool = True):
     """Output row i mixes data[idx1[i]] with data[idx2[i]] over K pieces.
@@ -142,12 +173,29 @@ def piecewise_mix_pairs(data, idx1, idx2, dst, src, length, sel, alpha,
         return piecewise_mix_pairs_plain(
             data, idx1, idx2, dst, src, length, sel, alpha, base_is_d1=base_is_d1
         )
-    B, C, T = data.shape
-    out = torch.empty((n, C, T), dtype=data.dtype, device=data.device)
-    return _launch(
-        "piecewise_mix_pairs", out, data, out, idx1, idx2, dst, src, length,
-        sel, alpha, B, n, C, T, k, int(base_is_d1), _DTYPE_CODES[data.dtype],
-    )
+    return _mix_pairs(data, idx1, idx2, n, k, (dst, src, length, sel), alpha,
+                      base_is_d1)
+
+
+def piecewise_mix_batch(data, mix, dst, src, length, sel, alpha,
+                        *, base_is_d1: bool = True):
+    """Output row i mixes data[i] with data[mix[i]] over K pieces: K1 with
+    idx1 = arange (``pcgmix_tpu/ops/pallas_mix.py::
+    piecewise_mix_batch_pallas``), launched without a row index.
+
+    data (B, C, T) float32/bfloat16 contiguous; mix (B,) int32;
+    dst, src, length, sel (B, K) int32; alpha (B, K) float32.
+    Launches count under ``"piecewise_mix_pairs"``.
+    """
+    n, k = _check(data, (mix,), (dst, src, length, sel), alpha)
+    if n != data.shape[0]:
+        raise ValueError(f"mix must have one entry per row ({data.shape[0]}), got {n}")
+    if is_plain(data):
+        return piecewise_mix_batch_plain(
+            data, mix, dst, src, length, sel, alpha, base_is_d1=base_is_d1
+        )
+    return _mix_pairs(data, None, mix, n, k, (dst, src, length, sel), alpha,
+                      base_is_d1)
 
 
 def piecewise_mix_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
@@ -169,7 +217,9 @@ def piecewise_mix_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
     out = torch.empty_like(d1_rows)
     return _launch(
         "piecewise_mix_prepaired", out, d1_rows, d2_rows, out, dst, src, length,
-        sel, alpha, n, C, T, k, int(base_is_d1), _DTYPE_CODES[d1_rows.dtype],
+        sel, alpha, n, C, T, k, int(base_is_d1),
+        _warp_vector_width(T, d1_rows.dtype, d1_rows, d2_rows, out),
+        _DTYPE_CODES[d1_rows.dtype],
     )
 
 
@@ -187,16 +237,6 @@ def warp_basis(sig_len: int, knot: int, device, *, columns: int = 1) -> torch.Te
         basis = np.pad(basis, ((0, 0), (0, -basis.shape[1] % columns)))
         _basis_cache[key] = torch.as_tensor(basis, device=device)
     return _basis_cache[key]
-
-
-def _warp_vector_width(T: int, dtype: torch.dtype, *tensors) -> int:
-    """Time steps per thread of K2/K4: 16 bytes of ``dtype`` where T is a
-    multiple of that and every tensor's data starts on a 16-byte boundary
-    (so does every row), else 1, the kernel's scalar edge path."""
-    v = 16 // (torch.finfo(dtype).bits // 8)
-    if T % v == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
-        return v
-    return 1
 
 
 def pcgmix_plus_fused_prepaired_plain(d1_rows, d2_rows, dst, src, length, sel,

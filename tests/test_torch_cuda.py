@@ -20,6 +20,8 @@ from pcgmix_tpu_torch.ops.mix_kernels import (
     pcgmix_plus_fused_plain,
     pcgmix_plus_fused_prepaired,
     pcgmix_plus_fused_prepaired_plain,
+    piecewise_mix_batch,
+    piecewise_mix_batch_plain,
     piecewise_mix_pairs,
     piecewise_mix_pairs_plain,
     piecewise_mix_prepaired,
@@ -239,6 +241,81 @@ def test_k2_k4_scalar_edge_path_equals_the_vector_path(dev, dtype):
                          lambda r: r.index_select(0, mix.long()).contiguous())):
         assert torch.equal(fn(shifted, partner(shifted), *pieces, knots),
                            fn(x, partner(x), *pieces, knots))
+
+
+def _warp_length(length, dtype):
+    """(T, V, tile) for one of WARP_LENGTHS in ``dtype``."""
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    tile = mix_kernels.WARP_THREADS * vec
+    T = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "tile+V": tile + vec}.get(length, length)
+    return T, vec, tile
+
+
+def _concat_pairs(n, C, T, dtype, tile, dev):
+    """Explicit (idx1, idx2) pairs over a batch of n rows with repeated rows
+    and twice as many output rows as inputs, and a plan for them."""
+    _, _, pieces, _ = _warp_edge_inputs(2 * n, C, T, 2, dtype, tile, dev)
+    rng = np.random.default_rng(T + C)
+    idx1 = rng.integers(0, n, 2 * n)
+    idx1[:2] = 1  # a row used twice as the base
+    i32 = lambda v: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+    return i32(idx1), i32(rng.integers(0, n, 2 * n)), pieces
+
+
+# K1/K3 run on K2/K4's kernel body without the envelope: the same tiling
+# edges, with base d1 (keep-duration) and base 0 (the concat family)
+@pytest.mark.parametrize("base_is_d1", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 4, 5])
+@pytest.mark.parametrize("length", WARP_LENGTHS)
+def test_k1_k3_match_plain_at_the_tiling_edges(dev, length, C, dtype, base_is_d1):
+    T, _, tile = _warp_length(length, dtype)
+    n = 5
+    x, mix, pieces, _ = _warp_edge_inputs(n, C, T, 1, dtype, tile, dev)
+    d2 = x.index_select(0, mix.long())
+    idx1, idx2, pair_pieces = _concat_pairs(n, C, T, dtype, tile, dev)
+    kw = {"base_is_d1": base_is_d1}
+    reset_launch_counts()
+    k1 = piecewise_mix_batch(x, mix, *pieces, **kw)
+    k1_pairs = piecewise_mix_pairs(x, idx1, idx2, *pair_pieces, **kw)
+    k3 = piecewise_mix_prepaired(x, d2, *pieces, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["piecewise_mix_pairs"] == 2 and counts["piecewise_mix_prepaired"] == 1
+    assert k1.dtype == k3.dtype == k1_pairs.dtype == dtype
+    assert k1.shape == (n, C, T) and k1_pairs.shape == (2 * n, C, T)
+    assert torch.equal(k1, piecewise_mix_batch_plain(x, mix, *pieces, **kw))
+    assert torch.equal(k1_pairs,
+                       piecewise_mix_pairs_plain(x, idx1, idx2, *pair_pieces, **kw))
+    assert torch.equal(k3, piecewise_mix_prepaired_plain(x, d2, *pieces, **kw))
+    assert torch.equal(k3, k1)
+
+
+@pytest.mark.parametrize("base_is_d1", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k3_scalar_edge_path_equals_the_vector_path(dev, dtype, base_is_d1):
+    """An offset view misaligns every row, so the wrappers take V = 1: the
+    same arithmetic per element as the vector path, bit for bit."""
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    n, C, T = 5, 4, 2 * mix_kernels.WARP_THREADS * vec + 4 * vec
+    x, mix, pieces, _ = _warp_edge_inputs(n, C, T, 1, dtype, T, dev)
+    idx1, idx2, pair_pieces = _concat_pairs(n, C, T, dtype, T, dev)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    buf[1:] = x.flatten()
+    shifted = buf[1:].view(n, C, T)
+    assert mix_kernels._warp_vector_width(T, dtype, x) == vec
+    assert mix_kernels._warp_vector_width(T, dtype, shifted) == 1
+    kw = {"base_is_d1": base_is_d1}
+
+    def k1_k1_pairs_k3(rows):
+        return (piecewise_mix_batch(rows, mix, *pieces, **kw),
+                piecewise_mix_pairs(rows, idx1, idx2, *pair_pieces, **kw),
+                piecewise_mix_prepaired(rows, rows.index_select(0, mix.long()),
+                                        *pieces, **kw))
+
+    assert all(torch.equal(s, v) for s, v in zip(k1_k1_pairs_k3(shifted),
+                                                   k1_k1_pairs_k3(x)))
 
 
 def test_data_parallel_route_launches_k3_and_k4(dev, tmp_path):

@@ -7,6 +7,8 @@ Tolerances: 1e-6 absolute for the blend (same fp32 arithmetic, rounding
 order may differ by one ulp), 1e-5 absolute once the spline warp is applied
 (a 6-term fp32 contraction summed in another order)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from pcgmix_tpu.ops.pallas_mix import (
     piecewise_mix_prepaired_pallas,
 )
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
-from pcgmix_tpu_torch.ops import magnitude_warp, mix_kernels
+from pcgmix_tpu_torch.ops import build, magnitude_warp, mix_kernels
 from pcgmix_tpu_torch.ops.mix_kernels import (
     launch_counts,
     pcgmix_plus_fused,
@@ -108,6 +110,33 @@ def test_k1_plain_matches_pallas_and_xla_on_engine_plans(rng, method):
     xla = np.asarray(piecewise_mix_batch(*_jargs(data, a)))
     np.testing.assert_allclose(got, pallas, rtol=0, atol=MIX_ATOL)
     np.testing.assert_allclose(got, xla, rtol=0, atol=MIX_ATOL)
+
+
+@pytest.mark.parametrize("base_is_d1", [True, False])
+def test_k1_batch_plain_matches_pallas_and_xla(rng, base_is_d1):
+    """piecewise_mix_batch, K1 without a row index (the main path's PCGmix),
+    against piecewise_mix_batch_pallas and XLA's piecewise_mix_batch."""
+    data, a = _engine_plan(rng, "durratiomixup(rand)")
+    t = _t(a)
+    got = mix_kernels.piecewise_mix_batch(torch.from_numpy(data), t["mix"], *_pieces(t),
+                                          base_is_d1=base_is_d1).numpy()
+    pallas = np.asarray(piecewise_mix_batch_pallas(*_jargs(data, a), base_is_d1=base_is_d1,
+                                                   interpret=True))
+    xla = np.asarray(piecewise_mix_batch(*_jargs(data, a), base_is_d1=base_is_d1))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=MIX_ATOL)
+    np.testing.assert_allclose(got, xla, rtol=0, atol=MIX_ATOL)
+    assert np.array_equal(got, _k1(data, a, base_is_d1))
+
+
+def test_k1_batch_takes_one_partner_per_row(rng):
+    data, a = _engine_plan(rng, "durratiomixup")
+    t = _t(a)
+    with pytest.raises(ValueError, match="one entry per row"):
+        mix_kernels.piecewise_mix_batch(torch.from_numpy(data), t["mix"][:-1].contiguous(),
+                                        *(p[:-1].contiguous() for p in _pieces(t)))
+    with pytest.raises(ValueError, match="int32"):
+        mix_kernels.piecewise_mix_batch(torch.from_numpy(data), t["mix"][:-1].contiguous(),
+                                        *_pieces(t))
 
 
 @pytest.mark.parametrize("base_is_d1", [True, False])
@@ -366,6 +395,52 @@ def test_warp_vector_width_takes_16_bytes_only_where_rows_are_aligned(
     assert mix_kernels._warp_vector_width(T, dtype, out, rows) == want
 
 
+@pytest.mark.parametrize("dtype,T,offset,want", [
+    (torch.float32, 2500, 0, 4),   # the main path
+    (torch.float32, 2500, 1, 1),   # an offset view
+    (torch.bfloat16, 1024, 0, 8),
+    (torch.bfloat16, 2500, 0, 1),  # bf16 rows 8 bytes off the grid
+])
+@pytest.mark.parametrize("wrapper", ["pairs", "batch", "prepaired"])
+def test_k1_k3_wrappers_hand_their_entry_points_the_vector_width(
+        monkeypatch, wrapper, dtype, T, offset, want):
+    """K1/K3 take K2/K4's vector-width rule; the main path's K1
+    (piecewise_mix_batch) passes no row index and counts as K1.  The
+    launch is intercepted, so this runs without the card."""
+    calls = []
+    monkeypatch.setattr(mix_kernels, "is_plain", lambda t: False)
+    monkeypatch.setattr(mix_kernels, "launch",
+                        lambda name, device, *args: calls.append((name, args)))
+    n = 2
+    buf = torch.zeros(n * C * T + 8, dtype=dtype)
+    rows = buf[offset:offset + n * C * T].view(n, C, T)
+    idx = torch.zeros(n, dtype=torch.int32)
+    pieces = [torch.zeros((n, 1), dtype=torch.int32) for _ in range(4)]
+    alpha = torch.zeros((n, 1))
+    if wrapper == "pairs":
+        mix_kernels.piecewise_mix_pairs(rows, idx, idx, *pieces, alpha)
+    elif wrapper == "batch":
+        mix_kernels.piecewise_mix_batch(rows, idx, *pieces, alpha)
+    else:
+        mix_kernels.piecewise_mix_prepaired(rows, rows.clone(), *pieces, alpha)
+    (name, args), = calls
+    _, n_ptr, n_int = build._ENTRIES[name]
+    assert name == ("piecewise_mix_prepaired" if wrapper == "prepaired"
+                    else "piecewise_mix_pairs")
+    assert len(args) == n_ptr + n_int
+    assert args[-2] == want  # vector_width, then the dtype code
+    if wrapper != "prepaired":
+        assert (args[2] is None) == (wrapper == "batch")  # idx1
+
+
+def test_mix_kernels_cu_holds_one_kernel_body():
+    """K1–K4 are instantiations of one __global__ body."""
+    text = (build._CSRC / "mix_kernels.cu").read_text()
+    assert text.count("__global__") == 1
+    assert re.search(r"__global__ void __launch_bounds__\(kWarpThreads\) mix_warp_kernel\(",
+                     text)
+
+
 @pytest.mark.parametrize("knot", [1, 4, 6, 7])
 def test_kernel_basis_is_the_spline_basis_padded_with_zero_columns(knot):
     basis = mix_kernels.warp_basis(T, knot, "cpu")
@@ -383,6 +458,13 @@ def test_warp_ablations_edit_the_kernel_source_and_need_the_card():
     kernel = src.pop("kernel")
     assert all(text != kernel for text in src.values())
     assert mix_warp_ablation.main([]) == 2  # no CUDA here: refused, no result
+
+
+def test_mix_kernel_times_needs_the_card(capsys):
+    from pcgmix_tpu_torch.bench import mix_kernel_times
+
+    assert mix_kernel_times.main([]) == 2  # no CUDA here: refused, no result
+    assert capsys.readouterr().out == ""
 
 
 def test_prepaired_wrappers_validate_and_take_the_plain_path(rng):
