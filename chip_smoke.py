@@ -56,6 +56,21 @@ Phases (any failure exits non-zero):
    width, and the script prints how far the single-device route drifts from
    itself there.  Phase 3's profiled PCGmix+ call is repeated on this
    route.
+4b. The experiment grid: a ``synthetic_effect_dict`` corpus (240 train
+   recordings × 4 cycles, 40 test recordings, 4 × 2500, seed 7) with a
+   ``cvds_map.csv`` for its recordings goes through
+   ``python -m pcgmix_tpu_torch.exp.runner`` in a subprocess on the card:
+   full-width ResNet9, batch 64, n_fraction 0.1 (96 rows: one step an
+   epoch), one seed_data, no '+cp' schedules, 3 epochs (cut from 50; the
+   width is not cut), 13 methods: base, PCGmix and PCGmix+, the 1-D
+   baselines (mixup, the warps, respiratory scale, time mask, Gaussian
+   noise) and the four pairings.  Every run dir must hold
+   ``performance.pkl`` and ``model.pth`` with finite losses; every K1 or
+   K2 method must launch its kernel once per step and no other (the
+   runner's ``done:`` lines report each run's launches), the others none;
+   a second identical invocation must train nothing and print
+   ``skip (done):`` for each run.  The port's ``exp/results.py`` then
+   assembles the grid's table, printed with each run's wall time.
 5. The profiler's kernel time of K1–K4 over 60 calls of phase 2's
    closures, which has no launch floor, and each kernel's share of its
    bound against it and against the bursts (last, since a profiler
@@ -137,6 +152,93 @@ def profile_breakdown(torch, run, card, top=10, label="profile"):
     for name, t, n in kernels:
         if "mix_warp_kernel" in name:
             print(f"{label}: {100 * t / busy:6.3f}% {t:12.1f} us {n:5d}x {name[:100]}")
+
+
+GRID_METHODS = (
+    "base", "durratiomixup", "durmixmagwarp(0.2,4)", "mixup(same)",
+    "magnitudewarp(0.2,4)", "timewarp(0.05,4)", "respiratoryscale(12,20)",
+    "timemask(0.2)", "gaussiannoise(25,40)", "(sameCVD)durratiomixup",
+    "(samePCG)durmixmagwarp(0.2,4)", "(sameDataset)durmixmagwarp(0.2,4)",
+    "(mixAll)durmixmagwarp(0.2,4)",
+)
+
+
+def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
+               n_train=240, n_test=40, segments=4, epochs=3):
+    """Phase 4b: the runner CLI over GRID_METHODS in a subprocess, twice;
+    returns {method: (wall s, steps, launches)} of the first invocation."""
+    from pcgmix_tpu_torch import utils
+    from pcgmix_tpu_torch.data import synthetic_effect_dict
+    from pcgmix_tpu_torch.exp.dirs import experiment_dir
+    from pcgmix_tpu_torch.exp.results import results_table, to_string
+    from pcgmix_tpu_torch.train import TrainConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
+        corpus = synthetic_effect_dict(num_wavs_train=n_train, num_wavs_test=n_test,
+                                       segments_per_wav=segments, sig_len=sig_len, seed=7)
+        dat, csv_path = os.path.join(tmp, "effect.dat"), os.path.join(tmp, "cvds_map.csv")
+        utils.dict2file(corpus, dat)
+        names = sorted({w for split in corpus.values() for w in split["wav"]})
+        with open(csv_path, "w") as f:  # normal recordings N, abnormal a valve disease
+            f.write("wav,diagnosis\n" + "".join(
+                f"{w},{'N' if int(w[-4:]) % 2 == 0 else ('AS', 'MR', 'MVP')[int(w[-4:]) % 3]}\n"
+                for w in names))
+        root = os.path.join(tmp, "experiments")
+        cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
+               "--device", device, "--model", model, "--batch-size", str(batch),
+               "--n-fractions", "0.1", "--seed-datas", "1010001", "--no-robust",
+               "--num-epochs", str(epochs), "--cvd-map-csv", csv_path,
+               "--experiments-root", root, "--methods", *GRID_METHODS]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+
+        def invoke():
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"the runner exited {proc.returncode}")
+            return proc.stdout.splitlines(), time.time() - t0
+
+        first, wall_first = invoke()
+        template = TrainConfig(model=model, num_epochs=epochs, batch_size=batch,
+                               n_fraction=0.1, seed_data=1010001, experiments_root=root)
+        runs, done = {}, [ln for ln in first if ln.startswith("done: ")]
+        for method in GRID_METHODS:
+            cfg = dataclasses.replace(template, method=method)
+            run_dir = experiment_dir(cfg)
+            line = [ln for ln in done if ln.startswith(f"done: {run_dir} in ")]
+            if len(line) != 1:
+                raise AssertionError(f"grid {method}: no single done line")
+            rest = line[0][len(f"done: {run_dir} in "):]
+            wall, steps = float(rest.split(" s, ")[0]), int(rest.split(", ")[1].split()[0])
+            launches = json.loads(rest.split(" launches ", 1)[1])
+            kernel = ("pcgmix_plus_fused" if "durmixmagwarp" in method
+                      else "piecewise_mix_pairs" if "durratiomixup" in method else None)
+            on_card = device.startswith("cuda")  # the CPU runs the plain versions
+            if launches != ({kernel: steps} if kernel and on_card else {}):
+                raise AssertionError(f"grid {method}: {steps} steps but launches {launches}")
+            if not all(os.path.exists(os.path.join(run_dir, f))
+                       for f in ("performance.pkl", "model.pth")):
+                raise AssertionError(f"grid {method}: run dir incomplete")
+            perf = utils.load_dict(os.path.join(run_dir, "performance.pkl"))
+            if not (np.isfinite(perf["train_loss"]).all() and np.isfinite(perf["test_loss"]).all()):
+                raise AssertionError(f"grid {method}: non-finite loss")
+            runs[method] = (wall, steps, launches)
+        second, wall_second = invoke()
+        skips = [ln for ln in second if ln.startswith("skip (done): ")]
+        if len(skips) != len(GRID_METHODS) or any(
+                ln.startswith(("run: ", "done: ")) for ln in second):
+            raise AssertionError(f"grid rerun trained: {second}")
+        print(f"grid: {len(GRID_METHODS)} runs of {model} batch {batch} x 4x{sig_len}, "
+              f"{epochs} epochs at n_frac 0.1: runner call {wall_first:.3f} s; the rerun "
+              f"skipped all {len(skips)} in {wall_second:.3f} s, on {card}")
+        for method, (wall, steps, launches) in runs.items():
+            print(f"grid {method}: {wall:.3f} s, {steps} steps, launches {launches}")
+        print(to_string(results_table(template, GRID_METHODS, [0.1], robust=False)))
+    return runs
 
 
 def k27_geometry(np, rng, n, sig_len, k=27):
@@ -443,6 +545,9 @@ def main() -> int:
                               label="profile data-parallel")
         finally:
             dist.destroy_process_group()
+
+    # ---- 4b. the experiment grid: the runner CLI on the card ----------------
+    grid_phase(np, card)
 
     # ---- 5. the profiler's kernel time of K1–K4, then the summary ----------
     # taken last: the profiler's sessions leave host overhead behind them,

@@ -4,20 +4,36 @@
 - ``plan(step, frames, labels, wavs)`` runs on the host in O(batch) scalar
   work and reproduces the reference's step-seeded RNG protocol bit-exactly.
   It returns a :class:`Plan` whose ``arrays`` are a few KB of numpy —
-  partner indices, per-segment piece windows, λ, spline knots — equal to
-  the JAX engine's, or None when the ``+p`` gate leaves the batch alone.
+  partner indices, per-segment piece windows, λ, spline knots, mask
+  bounds, SNRs — equal to the JAX engine's, or None when the ``+p`` gate
+  leaves the batch alone.
 - ``apply(data, target_ohe, arrays)`` uploads the plan and rewrites the
-  device batch through the mix kernels: K1 (``piecewise_mix_batch``, K1
-  without a row index) for PCGmix, K2 (``pcgmix_plus_fused``) for PCGmix+.
+  device batch: the keep-duration blends through the mix kernels, K1
+  (``piecewise_mix_batch``, K1 without a row index) for PCGmix and
+  ``durmixrespscale``, K2 (``pcgmix_plus_fused``) for PCGmix+; the other
+  bases in plain tensor code, as the JAX package computes them in XLA
+  outside any Pallas kernel (whole-signal mixup, masks, warps, the
+  respiratory sinusoid, Gaussian noise).
 - ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
-  counterpart (JAX ``engine.py:877-953``): a rank passes its block of the
-  batch, its partners' rows gathered beforehand and its block of the plan,
-  and the rows go through K3 (``piecewise_mix_prepaired``) or K4
-  (``pcgmix_plus_fused_prepaired``).
+  counterpart for the keep-duration blends (JAX ``engine.py:877-953``): a
+  rank passes its block of the batch, its partners' rows gathered
+  beforehand and its block of the plan, and the rows go through K3
+  (``piecewise_mix_prepaired``) or K4 (``pcgmix_plus_fused_prepaired``).
 
-This slice ports the keep-duration blend bases of the main path,
-``durratiomixup`` and ``durmixmagwarp``, with same-label pairing and the
-``(rand)``, ``(alpha=…)`` and ``+p`` modifiers; other bases raise.
+Ported 1-D bases: ``durratiomixup``, ``durmixmagwarp``, ``durmixrespscale``,
+``mixup``, ``timemask``, ``respiratoryscale``, ``magnitudewarp``,
+``timewarp``, ``gaussiannoise``, ``cutout`` (with ``(ch)``) and
+``s1s2mask``, with the ``(sameCVD)``, ``(samePCG)``, ``(sameDataset)`` and
+``(mixAll)`` pairings and the ``(rand)``, ``(alpha=…)`` and ``+p``
+modifiers; other bases and pairings raise.
+
+One deviation from the JAX engine: ``gaussiannoise`` draws its noise
+tensor from ``jax.random`` there, which torch cannot reproduce (as with
+dropout).  Here it comes from a ``torch.Generator`` on the batch's device
+seeded with ``SEED_FIX·2³² + step`` (:data:`NOISE_SEED_BASE`), a function of
+the step alone, so a gated-off step consumes nothing and a rerun on the
+same device draws the same noise.  The per-row SNR and the zero-after end
+are the JAX plan's, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,11 +53,17 @@ from pcgmix_tpu_torch.ops.mix_kernels import (
     piecewise_mix_batch,
     piecewise_mix_prepaired,
 )
+from pcgmix_tpu_torch.ops.masks import time_mask, zero_after
 from pcgmix_tpu_torch.ops.piecewise import segment_blend_pieces
+from pcgmix_tpu_torch.ops.spline import magnitude_warp, time_warp
 
-PORTED_BASES = ("durratiomixup", "durmixmagwarp")
-_INT_KEYS = ("mix", "dst", "src", "len", "sel")
-_FLOAT_KEYS = ("alpha", "knots")
+KEEPDUR_BASES = ("durratiomixup", "durmixmagwarp", "durmixrespscale")
+PORTED_BASES = KEEPDUR_BASES + (
+    "mixup", "timemask", "respiratoryscale", "magnitudewarp", "timewarp",
+    "gaussiannoise", "cutout", "s1s2mask",
+)
+SEED_FIX = 4  # the reference's seed_fix: the mirror stream's seed
+NOISE_SEED_BASE = SEED_FIX << 32  # gaussiannoise's generator: + step
 
 
 @dataclasses.dataclass
@@ -50,6 +72,8 @@ class AugmentConfig:
     batch_size: int
     num_channels: int
     sig_len: int
+    sample_rate: int = 1000
+    cvd_map: Optional[dict] = None  # wav → diagnosis, for (sameCVD) pairing
 
 
 @dataclasses.dataclass
@@ -82,6 +106,37 @@ def _lerp_targets(target_ohe, partner_ohe, lam_t):
     return target_ohe * lam_t + partner_ohe * (1.0 - lam_t)
 
 
+def _blend(data, mix_idx, lam):
+    """Whole-signal mixup: data·λ + data[mix]·(1−λ) (augmentations.py:849)."""
+    mixed = data.index_select(0, mix_idx.long())
+    lam = torch.tensor(lam, dtype=data.dtype, device=data.device)
+    return data * lam + mixed * (1.0 - lam)
+
+
+def _mask_bb(data, bb):
+    """Zero data[..., bb0:bb1) per sample; bb (B, 2), or (B, C, 2) per channel."""
+    return time_mask(data, bb[..., 0], bb[..., 1])
+
+
+def _gaussian_noise(data, snr, end, seed: int):
+    """data + N(0, 1)·rms/10^(snr/20) per row, zero at/after ``end``
+    (augmentations.py:1060-1076); the noise from a generator on the batch's
+    device seeded with ``seed``."""
+    rms = data.square().mean(dim=(1, 2), keepdim=True).sqrt()
+    std = rms / torch.pow(10.0, snr[:, None, None] / 20.0)
+    gen = torch.Generator(device=data.device)
+    gen.manual_seed(seed)
+    noise = torch.randn(data.shape, generator=gen, device=data.device, dtype=data.dtype)
+    return zero_after(data + noise * std, end)
+
+
+def frames_end(frames: np.ndarray) -> np.ndarray:
+    """Last valid segment boundary per row (the row max: frames[:, -1] for
+    the zero-pad variant, the last non-padding entry for −1-padded
+    multi-cycle frames)."""
+    return np.asarray(frames).max(axis=-1)
+
+
 class AugmentEngine:
     """One engine per (method, dataset geometry).  See module docstring."""
 
@@ -91,18 +146,20 @@ class AugmentEngine:
         spec = self.spec
         if spec.enabled and (
             spec.base not in PORTED_BASES
-            or spec.pairing != "same_label"
+            or spec.pairing not in pairing_mod.PORTED_PAIRINGS
             or spec.salopt is not None
+            or spec.manifold
         ):
             raise NotImplementedError(
-                f"method {cfg.method!r} is not ported yet; this slice covers "
-                f"{', '.join(PORTED_BASES)} with same-label pairing"
+                f"method {cfg.method!r} is not ported yet; the port covers the "
+                f"bases {', '.join(PORTED_BASES)} with the pairings "
+                f"{', '.join(pairing_mod.PORTED_PAIRINGS)}"
             )
         # Mirror of the reference's ambient NumPy stream, seeded once per run
-        # with seed_fix=4.  The ported bases reseed per step and never draw
-        # from it; it is kept so plans and RNG state stay equal to the JAX
-        # engine's as more bases arrive.
-        self.np_stream = np.random.RandomState(4)
+        # with seed_fix (train_model.py:222): magnitudewarp, timewarp and
+        # gaussiannoise's SNR draw from it without reseeding, so their plans
+        # equal the JAX engine's only while every draw comes in its order.
+        self.np_stream = np.random.RandomState(SEED_FIX)
         self._identity_cache: dict = {}
 
     @property
@@ -126,21 +183,63 @@ class AugmentEngine:
             return None
         if not _force and spec.prob < 1.0 and prng.py_uniform(step) >= spec.prob:
             return None
+        cfg, base = self.cfg, spec.base
         frames = np.asarray(frames, np.int64)
         labels = np.asarray(labels)
-        mix = pairing_mod.build_pairing(spec, step, labels)
-        return self._plan_keepdur_blend(step, frames, labels, mix)
+        B = len(labels)
+
+        def pair():
+            return pairing_mod.build_pairing(
+                spec, step, labels, frames, wavs, cfg.batch_size, cvd_map=cfg.cvd_map
+            )
+
+        if base in KEEPDUR_BASES:
+            return self._plan_keepdur_blend(step, frames, labels, pair())
+        if base == "mixup":
+            mix = pair()
+            return Plan(arrays={"mix": mix,
+                                "lam": np.float32(prng.np_beta_lambda(1.0, step))})
+        if base == "timemask":
+            f1, f2 = prng.py_masked_region(step, spec.params[0])
+            end = frames_end(frames)
+            bb = np.stack([(f1 * end).astype(np.int64),
+                           (f2 * end).astype(np.int64)], axis=1)
+            return Plan(arrays={"bb": bb})
+        if base == "respiratoryscale":
+            rmin, rmax = spec.params
+            return Plan(arrays=self._resp_arrays(prng.py_uniform(step), rmin, rmax))
+        if base in ("magnitudewarp", "timewarp"):
+            sigma, knot = spec.params[0], int(spec.params[1])
+            knots = prng.np_magwarp_knots_unseeded(
+                self.np_stream, B, knot, cfg.num_channels, sigma
+            )
+            return Plan(arrays={"knots": knots})
+        if base == "gaussiannoise":
+            smin, smax = spec.params
+            snr = self.np_stream.uniform(smin, smax, size=(B,)).astype(np.float32)
+            # zero-after only applies to the zero-pad variant's tail contract
+            # (augmentations.py:1076); multi-cycle windows carry real signal
+            # to sig_len
+            end = (frames_end(frames) if frames.shape[1] == 5
+                   else np.full(B, cfg.sig_len, np.int64))
+            return Plan(arrays={"snr": snr, "end": end,
+                                "noise_seed": np.int64(NOISE_SEED_BASE + step)})
+        if base == "cutout":
+            return self._plan_cutout_1d(step, frames)
+        # s1s2mask
+        return Plan(arrays={"bb1": frames[:, 0:2], "bb2": frames[:, 2:4]})
 
     def _plan_keepdur_blend(self, step, frames, labels, mix):
         spec, cfg = self.spec, self.cfg
+        alpha = 1.0 if spec.base == "durmixrespscale" else spec.alpha
         knots = None
         if spec.base == "durmixmagwarp":
             sigma, knot = spec.params[0], int(spec.params[1])
             lam, knots = prng.np_lambda_then_magwarp_knots(
-                spec.alpha, step, len(labels), knot, cfg.num_channels, sigma
+                alpha, step, len(labels), knot, cfg.num_channels, sigma
             )
         else:
-            lam = prng.np_beta_lambda(spec.alpha, step)
+            lam = prng.np_beta_lambda(alpha, step)
         nseg = frames.shape[1] - 1  # 4 (zero-pad variant) or 27 (multi-cycle)
         disp = np.zeros((len(labels), nseg), np.int64)
         if spec.rand:
@@ -160,7 +259,39 @@ class AugmentEngine:
         }
         if knots is not None:
             arrays["knots"] = knots
+        if spec.base == "durmixrespscale":
+            rmin, rmax = spec.params
+            arrays.update(self._resp_arrays(prng.py_uniform(step), rmin, rmax))
         return Plan(arrays=arrays)
+
+    def _plan_cutout_1d(self, step, frames):
+        """1-D cutout bounds: one window per row, or with ``(ch)`` one per
+        (row, channel) from per-channel seeds (JAX ``engine.py:705-728``)."""
+        B = frames.shape[0]
+        end = frames_end(frames)
+        if self.spec.per_channel:
+            C = self.cfg.num_channels
+            bb = np.zeros((B, C, 2), np.int64)
+            for c in range(C):
+                draws = sorted(
+                    prng.py_uniform(step + i * 131071 + c * 524287) for i in range(2)
+                )
+                bb[:, c, 0] = (draws[0] * end).astype(np.int64)
+                bb[:, c, 1] = (draws[1] * end).astype(np.int64)
+            return Plan(arrays={"bb": bb})
+        lo, hi = prng.py_masked_region(step, self.spec.params[0])
+        bb = np.stack([(lo * end).astype(np.int64), (hi * end).astype(np.int64)], axis=1)
+        return Plan(arrays={"bb": bb})
+
+    def _resp_arrays(self, u, rmin, rmax):
+        """Respiratory sinusoid (augmentations.py:765-773): rate and phase
+        from one uniform draw, on a time axis of sig_len samples at the
+        sample rate."""
+        rate = rmin + u * (rmax - rmin)
+        phase = u * 2.0 * np.pi
+        T, sr = self.cfg.sig_len, self.cfg.sample_rate
+        t = np.linspace(0, T / sr, T)
+        return {"sinusoid": np.sin(2 * np.pi * rate * t + phase).astype(np.float32)}
 
     def _rand_displacements(self, step, frames, mix, segs):
         """(rand) displacement draws: randint(0, |gap|) from a fresh
@@ -208,16 +339,29 @@ class AugmentEngine:
         return self._identity_cache[fkey]
 
     def _identity_arrays(self, arrays: dict, batch: int) -> dict:
-        """Rewrite a plan's arrays so apply() is the identity."""
+        """Rewrite a plan's arrays so apply() is the identity (Gaussian
+        noise: an SNR of 300 dB, whose noise rounds away in float32)."""
+        T = self.cfg.sig_len
         out = {
             k: np.array(v, copy=True) if isinstance(v, np.ndarray) else v
             for k, v in arrays.items()
         }
-        out["mix"] = np.arange(batch, dtype=np.int64)
-        out["len"][:] = 0
-        out["lam"] = np.float32(1.0)
-        if "knots" in out:
-            out["knots"] = np.ones_like(out["knots"])
+        if "mix" in out:
+            out["mix"] = np.arange(batch, dtype=np.int64)
+        if "len" in out:
+            out["len"][:] = 0
+        if "lam" in out:
+            out["lam"] = np.float32(1.0)
+        for k in ("knots", "sinusoid"):
+            if k in out:
+                out[k] = np.ones_like(out[k])
+        for k in ("bb", "bb1", "bb2"):
+            if k in out:
+                out[k] = np.zeros_like(out[k])
+        if "snr" in out:
+            out["snr"] = np.full_like(out["snr"], 300.0)
+        if "end" in out:
+            out["end"] = np.full_like(out["end"], T)
         return out
 
     # ------------------------------------------------------------------ #
@@ -225,16 +369,18 @@ class AugmentEngine:
     # ------------------------------------------------------------------ #
     @staticmethod
     def device_arrays(arrays: dict, device) -> dict:
-        """Upload a plan's arrays: int32 indices/pieces, float32 alpha/knots."""
+        """Upload a plan's arrays: integer arrays as int32, floating ones as
+        float32; λ stays a Python float and the noise seed an int."""
         out = {}
-        for k in _INT_KEYS:
-            out[k] = torch.from_numpy(np.ascontiguousarray(arrays[k], np.int32)).to(device)
-        for k in _FLOAT_KEYS:
-            if k in arrays:
-                out[k] = torch.from_numpy(
-                    np.ascontiguousarray(arrays[k], np.float32)
-                ).to(device)
-        out["lam"] = float(arrays["lam"])
+        for k, v in arrays.items():
+            if k == "lam":
+                out[k] = float(v)
+            elif k == "noise_seed":
+                out[k] = int(v)
+            else:
+                v = np.asarray(v)
+                dtype = np.float32 if v.dtype.kind == "f" else np.int32
+                out[k] = torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
         return out
 
     def _keepdur_apply(self, data, a):
@@ -245,18 +391,46 @@ class AugmentEngine:
 
     def apply(self, data: torch.Tensor, target_ohe: torch.Tensor, arrays: dict):
         """Apply a plan to the device batch; returns (data, target_ohe)."""
+        base = self.spec.base
         a = self.device_arrays(arrays, data.device)
-        if self.spec.base == "durmixmagwarp":
-            # one kernel: partner fetch + segment blend + spline warp
-            out = pcgmix_plus_fused(
-                data, a["mix"], a["dst"], a["src"], a["len"], a["sel"],
-                a["alpha"], a["knots"],
+        if base in KEEPDUR_BASES or base == "mixup":
+            if base == "durmixmagwarp":
+                # one kernel: partner fetch + segment blend + spline warp
+                out = pcgmix_plus_fused(
+                    data, a["mix"], a["dst"], a["src"], a["len"], a["sel"],
+                    a["alpha"], a["knots"],
+                )
+            elif base == "mixup":
+                out = _blend(data, a["mix"], a["lam"])
+            else:
+                out = self._keepdur_apply(data, a)
+            if base == "durmixrespscale":
+                out = out * a["sinusoid"]
+            if self.spec.mix_all_targets:
+                target_ohe = _blend_targets(target_ohe, a["mix"], a["lam"])
+            return out, target_ohe
+        if base in ("timemask", "cutout"):
+            return _mask_bb(data, a["bb"]), target_ohe
+        if base == "s1s2mask":
+            return _mask_bb(_mask_bb(data, a["bb1"]), a["bb2"]), target_ohe
+        if base == "respiratoryscale":
+            return data * a["sinusoid"], target_ohe
+        if base == "magnitudewarp":
+            return magnitude_warp(data, a["knots"]), target_ohe
+        if base == "timewarp":
+            return time_warp(data, a["knots"]), target_ohe
+        # gaussiannoise
+        return _gaussian_noise(data, a["snr"], a["end"], a["noise_seed"]), target_ohe
+
+    def check_prepaired(self) -> None:
+        """Raise unless :meth:`apply_prepaired` takes this method: the
+        data-parallel route splits a batch over the ranks only for the
+        keep-duration blends."""
+        if self.spec.base not in KEEPDUR_BASES:
+            raise NotImplementedError(
+                f"{self.spec.base!r} on a data-parallel batch split over the "
+                "ranks is not ported yet; run it on one device"
             )
-        else:
-            out = self._keepdur_apply(data, a)
-        if self.spec.mix_all_targets:
-            target_ohe = _blend_targets(target_ohe, a["mix"], a["lam"])
-        return out, target_ohe
 
     def apply_prepaired(self, d1: torch.Tensor, d2: torch.Tensor,
                         target1: torch.Tensor, target2: torch.Tensor,
@@ -266,12 +440,15 @@ class AugmentEngine:
         one-hot target with row i of ``target2``.  ``arrays`` holds the
         block's rows of every batch-leading plan array.  Returns
         (data, target_ohe)."""
+        self.check_prepaired()
         a = self.device_arrays(arrays, d1.device)
         pieces = (a["dst"], a["src"], a["len"], a["sel"], a["alpha"])
         if self.spec.base == "durmixmagwarp":
             out = pcgmix_plus_fused_prepaired(d1, d2, *pieces, a["knots"])
         else:
             out = piecewise_mix_prepaired(d1, d2, *pieces, base_is_d1=True)
+        if self.spec.base == "durmixrespscale":
+            out = out * a["sinusoid"]
         if self.spec.mix_all_targets:
             target1 = _lerp_targets(target1, target2, a["lam"])
         return out, target1

@@ -1,9 +1,9 @@
 """Datasets, the PhysioNet split pipeline, loaders and synthetic fixtures."""
 
-from pcgmix_tpu_torch.data.datasets import ArrayDataset, bands_to_channels
+from pcgmix_tpu_torch.data.datasets import ArrayDataset, bands_to_channels, load_cvd_map
 from pcgmix_tpu_torch.data.loader import EpochIterator, epoch_permutation, eval_batches
 from pcgmix_tpu_torch.data.physionet import physionet_split
-from pcgmix_tpu_torch.data.synthetic import synthetic_physionet_dict
+from pcgmix_tpu_torch.data.synthetic import synthetic_effect_dict, synthetic_physionet_dict
 
 __all__ = [
     "ArrayDataset",
@@ -11,6 +11,8 @@ __all__ = [
     "EpochIterator",
     "epoch_permutation",
     "eval_batches",
+    "load_cvd_map",
     "physionet_split",
+    "synthetic_effect_dict",
     "synthetic_physionet_dict",
 ]

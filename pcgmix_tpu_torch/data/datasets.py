@@ -18,6 +18,27 @@ MODEL_BANDS = ("25-45", "45-80", "80-200", "200-400")
 WIDE_BAND = "25-400"
 
 
+def load_cvd_map(csv_path: str) -> dict:
+    """Load the wav → cardiovascular-diagnosis map used by the (sameCVD)
+    pairing constraint.  The reference reads this csv at import time from a
+    hardcoded out-of-repo path (augmentations.py:26-28, columns 'wav' and
+    'diagnosis'); here it is an explicit input."""
+    import csv
+
+    with open(csv_path, newline="") as f:
+        reader = csv.DictReader(f)
+        rows = list(reader)
+        fields = reader.fieldnames or []
+    if "wav" not in fields or "diagnosis" not in fields:
+        raise ValueError(
+            f"{csv_path}: expected csv columns 'wav' and 'diagnosis' "
+            "(cvds_map.csv contract, augmentations.py:26-28)"
+        )
+    if not rows:
+        raise ValueError(f"{csv_path}: header is valid but the csv has no rows")
+    return {r["wav"]: r["diagnosis"] for r in rows}
+
+
 def bands_to_channels(data_dict: dict, num_channels: int) -> np.ndarray:
     """Stack band arrays into (N, C, T) float32: the wide band alone for
     num_channels=1, the four narrow bands for num_channels=4."""

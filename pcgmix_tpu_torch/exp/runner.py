@@ -1,0 +1,192 @@
+"""Experiment grid runner + CLI (counterpart: ``pcgmix_tpu/exp/runner.py``,
+sequential runs only).
+
+The reference drives experiments from notebook cells that loop
+``train_model`` over method × n_fraction × seed_data × seed grids with
+``hyperparameters_robust`` rewriting and ``experiment_already_done``
+resume-skipping (experiments_timeseries.ipynb cells 4/9).  This module is
+the CLI equivalent; it trains on the card unless ``--device cpu`` is given:
+
+  python -m pcgmix_tpu_torch.exp.runner --dataset-file physionet.dat \\
+      --methods base durratiomixup "durmixmagwarp(0.2,4)" \\
+      --n-fractions 0.1 1.0 --seeds 1 2 3
+
+It prints ``run: <dir>`` before each run it trains, ``skip (done): <dir>``
+for each finished one, and after each run ``done: <dir>`` with its wall
+time, steps and kernel launches.  Gang training, multi-step dispatch,
+checkpoints, the classical/latent dumps, bf16 compute, the matmul conv and
+the (salopt…)/(closest…) dependency runs are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import time
+
+from pcgmix_tpu_torch import utils
+from pcgmix_tpu_torch.augment.methods import parse_method
+from pcgmix_tpu_torch.exp.dirs import experiment_already_done, experiment_dir
+from pcgmix_tpu_torch.exp.robust import SEED_DATA_GRIDS, hyperparameters_robust
+from pcgmix_tpu_torch.ops import launch_counts, reset_launch_counts
+from pcgmix_tpu_torch.train.loop import TrainConfig, resolve_device, train_model
+
+
+def _check_no_dependency(method: str) -> None:
+    """(salopt…) and (closestknn/closestbins) methods need a dependency run
+    (a pretrained checkpoint, a frozen latent model) that the port cannot
+    train or load yet."""
+    spec = parse_method(method)
+    if spec.salopt is not None or spec.pairing in ("closestknn", "closestbins"):
+        raise NotImplementedError(
+            f"method {method!r} depends on another run (salopt / latent "
+            "pairing); the dependency DAG waits for ROADMAP queue 1 item 10"
+        )
+
+
+def run_grid(
+    base_cfg: TrainConfig,
+    dataset: dict,
+    methods,
+    n_fractions,
+    seeds,
+    seed_datas=None,
+    robust: bool = True,
+    skip_done: bool = True,
+    progress: bool = True,
+) -> list[TrainConfig]:
+    """Run every grid point in order, skipping finished runs.  Returns the
+    configs that were executed."""
+    resolve_device(base_cfg.device)
+    for method in methods:
+        _check_no_dependency(method)
+    executed = []
+    for method in methods:
+        for n_frac in n_fractions:
+            if seed_datas is not None:
+                sds = seed_datas
+            elif n_frac in SEED_DATA_GRIDS:
+                sds = list(SEED_DATA_GRIDS[n_frac][0])
+            else:
+                sds = [base_cfg.seed_data]
+            for seed_data in sds:
+                for seed in seeds:
+                    cfg = copy.deepcopy(base_cfg)
+                    cfg.method = method
+                    cfg.n_fraction = n_frac
+                    cfg.seed_data = seed_data
+                    cfg.seed = seed
+                    if robust:
+                        cfg = hyperparameters_robust(cfg)
+                    if skip_done and experiment_already_done(cfg):
+                        if progress:
+                            print(f"skip (done): {experiment_dir(cfg)}")
+                        continue
+                    if progress:
+                        print(f"run: {experiment_dir(cfg)}", flush=True)
+                    reset_launch_counts()
+                    t0 = time.time()
+                    perf = train_model(cfg, dataset)
+                    wall = time.time() - t0
+                    executed.append(cfg)
+                    if progress:
+                        launches = {k: v for k, v in launch_counts().items() if v}
+                        print(f"done: {experiment_dir(cfg)} in {wall:.3f} s, "
+                              f"{perf['steps'][-1]} steps, launches "
+                              f"{json.dumps(launches)}", flush=True)
+    return executed
+
+
+def _refuse(args) -> None:
+    """Raise for the JAX runner's options that the port does not have yet,
+    naming the ROADMAP queue 1 item each waits for."""
+    refused = [
+        (args.gang or args.gang_devices is not None or args.gang_max_size is not None
+         or args.no_gang_fallback, "--gang*: gang training", 12),
+        (args.steps_per_dispatch != 1, "--steps-per-dispatch: multi-step dispatch", 11),
+        (args.checkpoint_every != 0, "--checkpoint-every: periodic checkpoints", 11),
+        (args.classical_space, "--classical-space: classical feature dumps", 13),
+        (args.latent_space, "--latent-space: latent-space dumps", 6),
+        (args.compute_dtype != "float32", "--compute-dtype bfloat16", 3),
+        (args.conv_impl != "xla", "--conv-impl matmul", 12),
+    ]
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="PCGmix experiment grid runner (PyTorch)")
+    p.add_argument("--dataset-file", required=True, help=".dat dataset dict")
+    p.add_argument("--dataset", default="PhysioNet")
+    p.add_argument("--model", default="resnet9")
+    p.add_argument("--methods", nargs="+", default=["base"])
+    p.add_argument("--n-fractions", nargs="+", type=float, default=[1.0])
+    p.add_argument("--seeds", nargs="+", type=int, default=[1])
+    p.add_argument("--seed-datas", nargs="+", type=int, default=None)
+    p.add_argument("--num-epochs", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--lr-max", type=float, default=0.01)
+    p.add_argument("--op", default="adam")
+    p.add_argument("--num-channels", type=int, default=4)
+    p.add_argument("--valid", action="store_true")
+    p.add_argument("--no-robust", action="store_true")
+    p.add_argument("--experiments-root", default="experiments")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on ('cpu' only when asked for)")
+    p.add_argument("--cvd-map-csv", default=None,
+                   help="cvds_map.csv (columns wav,diagnosis) for (sameCVD) methods")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel ranks (default: every visible card)")
+    p.add_argument("--eval-batch-size", type=int, default=1000)
+    p.add_argument("--true-seed", type=int, default=None,
+                   help="override the hardcoded train-balance sampling seed 18")
+    # the JAX runner's options that wait for later slices: they raise
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--classical-space", action="store_true")
+    p.add_argument("--latent-space", action="store_true")
+    p.add_argument("--gang", action="store_true")
+    p.add_argument("--gang-devices", type=int, default=None)
+    p.add_argument("--gang-max-size", type=int, default=None)
+    p.add_argument("--no-gang-fallback", action="store_true")
+    p.add_argument("--conv-impl", default="xla", choices=["xla", "matmul"])
+    args = p.parse_args(argv)
+    _refuse(args)
+    resolve_device(args.device)
+
+    dataset = utils.file2dict(args.dataset_file)
+    base_cfg = TrainConfig(
+        dataset=args.dataset,
+        model=args.model,
+        num_epochs=args.num_epochs,
+        batch_size=args.batch_size,
+        lr_max=args.lr_max,
+        op=args.op,
+        num_channels=args.num_channels,
+        valid=args.valid,
+        experiments_root=args.experiments_root,
+        cvd_map=args.cvd_map_csv,
+        n_devices=args.n_devices,
+        eval_batch_size=args.eval_batch_size,
+        true_seed=args.true_seed,
+        device=args.device,
+    )
+    run_grid(
+        base_cfg,
+        dataset,
+        args.methods,
+        args.n_fractions,
+        args.seeds,
+        seed_datas=args.seed_datas,
+        robust=not args.no_robust,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split
+from pcgmix_tpu_torch.data.datasets import load_cvd_map
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
 from pcgmix_tpu_torch.models import build_model
 from pcgmix_tpu_torch.parallel import DataParallel, spawn
@@ -68,6 +69,7 @@ class TrainConfig:
     seed: int = 1
     seed_fix: int = 4
     weight_decay: float = 1e-4
+    sample_rate: int = 1000  # Hz; the respiratory sinusoid's time axis
     num_classes: int = 2
     experiments_root: str = "experiments"
     loader_parity: str = "torch"  # epoch-order parity mode
@@ -75,6 +77,8 @@ class TrainConfig:
     eval_batch_size: int = 1000
     true_seed: Optional[int] = None  # train-balance sampling seed override
                                      # (None: 18, or N from 'trueseed=N')
+    cvd_map: Optional[object] = None  # dict wav→diagnosis, or a cvds_map.csv
+                                      # path, for (sameCVD) pairing
     device: str = "cuda"  # "cpu" only when asked for; no silent fallback
     n_devices: Optional[int] = None  # data-parallel ranks; None = every
                                      # visible CUDA device (1 on the CPU);
@@ -184,8 +188,12 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
     opt, sched = make_optimizer(
         model, cfg.op, cfg.lr_max, cfg.weight_decay, num_steps, cfg.use_sched
     )
+    cvd_map = cfg.cvd_map
+    if isinstance(cvd_map, str):
+        cvd_map = load_cvd_map(cvd_map)
     engine = AugmentEngine(AugmentConfig(
         method=cfg.method, batch_size=cfg.batch_size, num_channels=C, sig_len=T,
+        sample_rate=cfg.sample_rate, cvd_map=cvd_map,
     ))
     step = TrainStep(
         model, opt, sched,

@@ -2,7 +2,9 @@
 ``train/schedule.py``).
 
 One train step: gather the batch from the device-resident corpus → apply
-the augmentation plan (mix kernels) → forward → SELC / soft-target CE →
+the augmentation plan (``AugmentEngine.apply``: the mix kernels for the
+keep-duration blends, tensor code for the 1-D baselines) → forward → SELC /
+soft-target CE →
 backward → gradient value clipping → Adam with L2 weight decay → OneCycle
 (lr and cycled β₁).  The reference runs the same sequence
 (train_model.py:498-582); the only per-step host work is the plan.
@@ -16,7 +18,9 @@ global batch that does not divide over the ranks is replicated instead:
 every rank runs the single-device step on all of it (K1/K2), BatchNorm
 takes local statistics, and the gradients come out equal on every rank
 (the JAX package's unsharded fallback, ``pcgmix_tpu/augment/engine.py:
-914-916``, ``:943-944``).
+914-916``, ``:943-944``).  A batch split over the ranks takes the
+keep-duration blends only; the 1-D baselines raise there
+(``AugmentEngine.check_prepaired``).
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ class TrainStep:
         rows, data, target = self._rows(indices[self.dp.block(len(indices))])
         if plan_arrays is not None:
             block = self.dp.shard_arrays(plan_arrays, len(indices))
+            self.engine.check_prepaired()
             _, d2, t2 = self._rows(indices[block["mix"]])
             data, target = self.engine.apply_prepaired(data, d2, target, t2, block)
         return rows, data, target

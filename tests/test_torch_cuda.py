@@ -377,3 +377,48 @@ def test_k5_matches_plain_at_the_tiling_edges(dev, shape):
     torch.cuda.synchronize()
     assert launch_counts()["conv3_bn_stats"] == 2  # with and without stats
     assert errs["y_ok"] and errs["stats_ok"] and errs["no_stats_bit_equal"]
+
+
+# the 1-D baseline bases (plain tensor code) and the pairings on K1: the
+# card's apply equals the CPU's
+NEW_BASES = [
+    "mixup(same)", "mixup(mix)", "timemask(0.2)", "respiratoryscale(12,20)",
+    "durmixrespscale(12,20)", "magnitudewarp(0.2,4)", "timewarp(0.05,4)",
+    "cutout", "cutout(ch)", "s1s2mask", "(sameCVD)durratiomixup",
+    "(samePCG)durratiomixup", "(sameDataset)durratiomixup", "(mixAll)durratiomixup",
+]
+
+
+def _engine_and_plan(batch, method):
+    data, frames, labels = batch
+    wavs = [f"{'abc'[i % 3]}w{i // 2}" for i in range(B)]
+    cvd = {w: "NS"[i % 2] for i, w in enumerate(wavs)}
+    eng = AugmentEngine(AugmentConfig(method, B, C, T, cvd_map=cvd))
+    return eng, eng.plan(3, frames, labels, wavs).arrays
+
+
+@pytest.mark.parametrize("method", NEW_BASES)
+def test_new_bases_on_the_card_equal_the_cpu(batch, dev, method):
+    data, _, labels = batch
+    eng, arrays = _engine_and_plan(batch, method)
+    x, t = torch.from_numpy(data), torch.from_numpy(np.eye(2, dtype=np.float32)[labels])
+    cpu, t_cpu = eng.apply(x, t, arrays)
+    card, t_card = eng.apply(x.to(dev), t.to(dev), arrays)
+    assert card.device.type == "cuda"
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-6
+    assert (t_card.cpu() - t_cpu).abs().max().item() <= 1e-6
+
+
+def test_gaussian_noise_on_the_card(batch, dev):
+    data, _, labels = batch
+    eng, arrays = _engine_and_plan(batch, "gaussiannoise(25,40)")
+    x = torch.from_numpy(data).to(dev)
+    t = torch.zeros(B, 2, device=dev)
+    out = eng.apply(x, t, arrays)[0]
+    assert torch.equal(out, eng.apply(x, t, arrays)[0])  # one seed, one draw
+    out, x = out.cpu().numpy(), data
+    for i, end in enumerate(arrays["end"]):
+        assert not out[i, :, end:].any()
+        rms = np.sqrt(np.mean(np.square(x[i], dtype=np.float64)))
+        want = rms / 10 ** (arrays["snr"][i] / 20)
+        assert abs((out[i, :, :end] - x[i, :, :end]).std() / want - 1) < 0.05

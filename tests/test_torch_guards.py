@@ -45,7 +45,10 @@ def test_port_sources_exist():
                      "pcgmix_tpu_torch/bench/conv_bn_fused.py",
                      "pcgmix_tpu_torch/models/potes.py",
                      "pcgmix_tpu_torch/train/loop.py",
-                     "pcgmix_tpu_torch/parallel/dist.py"):
+                     "pcgmix_tpu_torch/parallel/dist.py",
+                     "pcgmix_tpu_torch/exp/runner.py", "pcgmix_tpu_torch/exp/replicate.py",
+                     "pcgmix_tpu_torch/exp/results.py", "pcgmix_tpu_torch/exp/paper.py",
+                     "pcgmix_tpu_torch/exp/robust.py", "pcgmix_tpu_torch/ops/masks.py"):
         assert required in names
     for source in ("mix_kernels.cu", "conv_bn_stats.cu"):
         assert (ROOT / "pcgmix_tpu_torch/ops/csrc" / source).exists()
@@ -87,3 +90,17 @@ def test_kernel_wrappers_refuse_other_devices():
         piecewise_mix_pairs(x, i, i, p, p, p, p, a)
     with pytest.raises(ValueError, match="unsupported device"):
         piecewise_mix_prepaired(x, x, p, p, p, p, a)
+
+
+@pytest.mark.parametrize("module", ["runner", "replicate"])
+def test_grid_entry_points_default_to_cuda_and_refuse_a_missing_card(module, tmp_path):
+    import importlib
+
+    mod = importlib.import_module(f"pcgmix_tpu_torch.exp.{module}")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal cannot be shown")
+    argv = {"runner": ["--dataset-file", str(tmp_path / "absent.dat")],
+            "replicate": ["--mini", "--experiments-root", str(tmp_path)]}[module]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())  # refused before any work
