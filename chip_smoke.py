@@ -37,6 +37,11 @@ Phases (any failure exits non-zero):
    counted over this run.  The kernels line pairs K5 without stats with
    cuDNN's conv (the function one PyTorch call computes), and K5 with
    stats with cuDNN's conv plus its statistics pass.
+   K1 and K3 also run at the spectrogram path's geometry: a batch of 64
+   mel spectrograms, 1 × 128 × 128, whose (64, 128, 128) view K1 blends
+   with 128 frequency rows as channels (plans from a spectrogram engine,
+   ``durratiomixup``), against their plain versions at the same
+   tolerances.
 3. The slice end to end: ``train_model`` with full-width ResNet9 and with
    full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
    PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
@@ -47,6 +52,13 @@ Phases (any failure exits non-zero):
    step's plan and dropout masks is printed.  Profiled PCGmix+ runs of
    ResNet9 and Potes print device time by kernel and the device's busy
    share.
+3b. The paper's two other paths: latentmixup (ManifoldMixup, the split
+   forward at a depth drawn per step) on full-width ResNet9 and Potes, 16
+   steps each, no kernel launched; and full-width ResNet9-2D on a
+   ``synthetic_spectrogram_dict`` corpus of 1 × 128 × 128 spectrograms
+   (264 train rows: 4 steps an epoch, 16 steps), batch 64, with PCGmix and
+   ``durmixtimemask(0.1)``, each launching K1 once per step.  Steps/s and
+   finite losses, as phase 3; a profiled 2-D PCGmix call beside phase 3's.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -55,7 +67,8 @@ Phases (any failure exits non-zero):
    1e-5, step 1 within 1e-3 relative); later steps are chaotic at full
    width, and the script prints how far the single-device route drifts from
    itself there.  Phase 3's profiled PCGmix+ call is repeated on this
-   route.
+   route.  The 2-D PCGmix run of phase 3b runs here too and must launch K3
+   once per step.
 4b. The experiment grid: a ``synthetic_effect_dict`` corpus (240 train
    recordings × 4 cycles, 40 test recordings, 4 × 2500, seed 7) with a
    ``cvds_map.csv`` for its recordings goes through
@@ -71,9 +84,17 @@ Phases (any failure exits non-zero):
    a second identical invocation must train nothing and print
    ``skip (done):`` for each run.  The port's ``exp/results.py`` then
    assembles the grid's table, printed with each run's wall time.
+4c. The 2-D table's grid: the same runner call and rerun on a
+   ``synthetic_spectrogram_dict`` .dat (240 train recordings × 4 cycles,
+   1 × 128 × 128) with ``--dataset "PhysioNet(spec128)"``: full-width
+   ResNet9-2D, the paper's seven 2-D methods (Vanilla, FreqMask, TimeMask,
+   Cutout, Mixup, ManifoldMixup, PCGmix, named as the robust schedules name
+   them), 3 epochs; PCGmix must launch K1 once per step, the other six
+   nothing.
 5. The profiler's kernel time of K1–K4 over 60 calls of phase 2's
-   closures, which has no launch floor, and each kernel's share of its
-   bound against it and against the bursts (last, since a profiler
+   closures, which has no launch floor (K1 and K3 at the spectrogram
+   geometry too), and each kernel's share of its bound against it and
+   against the bursts (last, since a profiler
    session leaves host overhead behind it).  Summary: a
    ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -161,22 +182,37 @@ GRID_METHODS = (
     "(samePCG)durmixmagwarp(0.2,4)", "(sameDataset)durmixmagwarp(0.2,4)",
     "(mixAll)durmixmagwarp(0.2,4)",
 )
+# the 2-D table's columns (BASELINE.md): Vanilla, FreqMask, TimeMask,
+# Cutout, Mixup, ManifoldMixup, PCGmix, named as exp/robust.py names them
+SPEC = "PhysioNet(spec128)"
+SPEC_SIZE = 128
+GRID_METHODS_2D = ("base", "freqmask(0.1)", "timemask(0.1)", "cutout(0.25,0.25)",
+                   "mixup(same)", "latentmixup", "durratiomixup")
 
 
 def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
-               n_train=240, n_test=40, segments=4, epochs=3):
-    """Phase 4b: the runner CLI over GRID_METHODS in a subprocess, twice;
-    returns {method: (wall s, steps, launches)} of the first invocation."""
+               n_train=240, n_test=40, segments=4, epochs=3, dataset="PhysioNet",
+               methods=GRID_METHODS):
+    """Phases 4b and 4c: the runner CLI over ``methods`` in a subprocess,
+    twice, on a generated corpus (1-D, or spectrograms of ``sig_len`` ×
+    ``sig_len`` for a spectrogram ``dataset``); returns {method: (wall s,
+    steps, launches)} of the first invocation."""
     from pcgmix_tpu_torch import utils
-    from pcgmix_tpu_torch.data import synthetic_effect_dict
+    from pcgmix_tpu_torch.data import synthetic_effect_dict, synthetic_spectrogram_dict
     from pcgmix_tpu_torch.exp.dirs import experiment_dir
     from pcgmix_tpu_torch.exp.results import results_table, to_string
     from pcgmix_tpu_torch.train import TrainConfig
 
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
-        corpus = synthetic_effect_dict(num_wavs_train=n_train, num_wavs_test=n_test,
-                                       segments_per_wav=segments, sig_len=sig_len, seed=7)
+        if dataset == SPEC:
+            corpus = synthetic_spectrogram_dict(num_wavs_train=n_train, num_wavs_test=n_test,
+                                                segments_per_wav=segments, size=sig_len,
+                                                seed=7)
+        else:
+            corpus = synthetic_effect_dict(num_wavs_train=n_train, num_wavs_test=n_test,
+                                           segments_per_wav=segments, sig_len=sig_len,
+                                           seed=7)
         dat, csv_path = os.path.join(tmp, "effect.dat"), os.path.join(tmp, "cvds_map.csv")
         utils.dict2file(corpus, dat)
         names = sorted({w for split in corpus.values() for w in split["wav"]})
@@ -189,7 +225,7 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
                "--device", device, "--model", model, "--batch-size", str(batch),
                "--n-fractions", "0.1", "--seed-datas", "1010001", "--no-robust",
                "--num-epochs", str(epochs), "--cvd-map-csv", csv_path,
-               "--experiments-root", root, "--methods", *GRID_METHODS]
+               "--dataset", dataset, "--experiments-root", root, "--methods", *methods]
         env = {**os.environ, "PYTHONPATH": os.pathsep.join(
             [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
 
@@ -203,10 +239,11 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
             return proc.stdout.splitlines(), time.time() - t0
 
         first, wall_first = invoke()
-        template = TrainConfig(model=model, num_epochs=epochs, batch_size=batch,
-                               n_fraction=0.1, seed_data=1010001, experiments_root=root)
+        template = TrainConfig(dataset=dataset, model=model, num_epochs=epochs,
+                               batch_size=batch, n_fraction=0.1, seed_data=1010001,
+                               experiments_root=root)
         runs, done = {}, [ln for ln in first if ln.startswith("done: ")]
-        for method in GRID_METHODS:
+        for method in methods:
             cfg = dataclasses.replace(template, method=method)
             run_dir = experiment_dir(cfg)
             line = [ln for ln in done if ln.startswith(f"done: {run_dir} in ")]
@@ -229,15 +266,17 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
             runs[method] = (wall, steps, launches)
         second, wall_second = invoke()
         skips = [ln for ln in second if ln.startswith("skip (done): ")]
-        if len(skips) != len(GRID_METHODS) or any(
+        if len(skips) != len(methods) or any(
                 ln.startswith(("run: ", "done: ")) for ln in second):
             raise AssertionError(f"grid rerun trained: {second}")
-        print(f"grid: {len(GRID_METHODS)} runs of {model} batch {batch} x 4x{sig_len}, "
+        shape = f"1x{sig_len}x{sig_len}" if dataset == SPEC else f"4x{sig_len}"
+        print(f"grid {dataset}: {len(methods)} runs of {model} batch {batch} x {shape}, "
               f"{epochs} epochs at n_frac 0.1: runner call {wall_first:.3f} s; the rerun "
               f"skipped all {len(skips)} in {wall_second:.3f} s, on {card}")
         for method, (wall, steps, launches) in runs.items():
-            print(f"grid {method}: {wall:.3f} s, {steps} steps, launches {launches}")
-        print(to_string(results_table(template, GRID_METHODS, [0.1], robust=False)))
+            print(f"grid {dataset} {method}: {wall:.3f} s, {steps} steps, "
+                  f"launches {launches}")
+        print(to_string(results_table(template, methods, [0.1], robust=False)))
     return runs
 
 
@@ -267,7 +306,11 @@ def main() -> int:
 
         from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
         from pcgmix_tpu_torch.bench import conv_bn_fused as k5
-        from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+        from pcgmix_tpu_torch.data import (
+            physionet_split,
+            synthetic_physionet_dict,
+            synthetic_spectrogram_dict,
+        )
         from pcgmix_tpu_torch.models import build_model
         from pcgmix_tpu_torch.models.potes import potes_features
         from pcgmix_tpu_torch.ops import mix_kernels as mk
@@ -336,55 +379,75 @@ def main() -> int:
         torch.cuda.synchronize()
         return (got.float() - ref.float()).abs().max().item(), got, ref
 
-    pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
-    x16 = x32.bfloat16()
-    report, profiled_closures = {}, {}
-    # name, wrapper, main-path plan, fp32 tolerance, bytes of row indices
-    # per output row, row buffers read (K3/K4 read the partner rows from a
-    # buffer of their own), warp
-    for name, make, a_main, tol, idx_bytes, row_reads, warp in (
-        ("piecewise_mix_pairs", k1, pcgmix, 1e-6, 4, 1, False),
-        ("pcgmix_plus_fused", k2, pcgmix_plus, 1e-5, 4, 1, True),
-        ("piecewise_mix_prepaired", k3, pcgmix, 1e-6, 0, 2, False),
-        ("pcgmix_plus_fused_prepaired", k4, pcgmix_plus, 1e-5, 0, 2, True),
-    ):
-        err_main, _, _ = max_err(make, x32, a_main)
-        err_k27, _, _ = max_err(make, x32, k27)
-        _, got16, ref16 = max_err(make, x16, a_main)
+    def measure(name, make, x, a, tol, idx_bytes, row_reads, warp, extra=None):
+        """Hold ``make``'s kernel against its plain version on rows ``x``
+        (fp32 with plan ``a`` and with ``extra`` if given; bf16 with ``a``),
+        time both with the bursts, and return the report with the bound.
+        ``idx_bytes``: bytes of row indices per output row; ``row_reads``:
+        row buffers read (K3/K4 read the partner rows from their own)."""
+        n, c, t = x.shape
+        errs = [max_err(make, x, p)[0] for p in (a, extra) if p is not None]
+        _, got16, ref16 = max_err(make, x.bfloat16(), a)
         n_diff16 = int((got16 != ref16).sum().item())
         if not warp:
             bf16_ok = n_diff16 == 0
         else:  # one bf16 ulp: 2^-7 relative to the larger magnitude
             ulp = torch.maximum(got16.float().abs(), ref16.float().abs()) * 2.0 ** -7
             bf16_ok = bool(((got16.float() - ref16.float()).abs() <= ulp).all())
-        print(f"{name}: max_abs_err main fp32 {err_main:.3e}, K=27 {err_k27:.3e} "
-              f"(tol {tol:g}); bf16 {'ok' if bf16_ok else 'MISMATCH'}, "
-              f"{n_diff16} of {got16.numel()} elements differ from the plain version")
-        if not (err_main <= tol and err_k27 <= tol and bf16_ok):
-            raise AssertionError(f"{name} disagrees with its plain version")
-        ms = device_time_ms(torch, make(x32, a_main))
-        profiled_closures[name] = make(x32, a_main)
-        plain_ms = device_time_ms(torch, make(x32, a_main, plain=True))
+        shape = "x".join(map(str, x.shape))
+        print(f"{name} {shape}: max_abs_err fp32 "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}); bf16 "
+              f"{'ok' if bf16_ok else 'MISMATCH'}, {n_diff16} of {got16.numel()} "
+              f"elements differ from the plain version")
+        if not (max(errs) <= tol and bf16_ok):
+            raise AssertionError(f"{name} {shape} disagrees with its plain version")
+        ms = device_time_ms(torch, make(x, a))
+        plain_ms = device_time_ms(torch, make(x, a, plain=True))
         # bytes the function must move: each row buffer read once, the
         # output written once, the row indices and the five piece arrays
         # (and the warp's knots and basis) read once
-        K = a_main["dst"].shape[1]
-        nbytes = (row_reads + 1) * x32.numel() * 4 + idx_bytes * B + B * K * 5 * 4
-        covered = int(a_main["len"].sum().item()) * C
-        nflops = 4 * covered
+        K = a["dst"].shape[1]
+        nbytes = (row_reads + 1) * x.numel() * 4 + idx_bytes * n + n * K * 5 * 4
+        nflops = 4 * int(a["len"].sum().item()) * c
         if warp:
-            k2n = a_main["knots"].shape[1]
-            nbytes += a_main["knots"].numel() * 4 + T * k2n * 4
-            nflops += (2 * k2n + 1) * x32.numel()
+            k2n = a["knots"].shape[1]
+            nbytes += a["knots"].numel() * 4 + t * k2n * 4
+            nflops += (2 * k2n + 1) * x.numel()
         bound_ms = max(nbytes / bw, nflops / flops) * 1e3
-        report[name] = {
-            "max_abs_err": max(err_main, err_k27), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if nbytes / bw >= nflops / flops else "operations",
-        }
-        print(f"{name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+        print(f"{name} {shape}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
               f"{bound_ms:.6f} ms ({nbytes} B, {100 * bound_ms / ms:.1f} % of it "
               f"reached) on {card}")
+        return {"shape": shape, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes" if nbytes / bw >= nflops / flops else "operations",
+                "library_ms": None}
+
+    pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
+    # the spectrogram path's geometry: 64 × (1, 128, 128), the 128
+    # frequency rows as channels of K1's (B, C, T) view
+    spec_ds = synthetic_spectrogram_dict(num_wavs_train=24, num_wavs_test=8,
+                                         segments_per_wav=11, size=SPEC_SIZE, seed=11)
+    spec_split = physionet_split(spec_ds, "train", spectrogram=True)
+    xs = torch.from_numpy(spec_split.data[:B]).to(dev).reshape(B, SPEC_SIZE, SPEC_SIZE)
+    spec_eng = AugmentEngine(AugmentConfig("durratiomixup", B, 1, SPEC_SIZE,
+                                           spectrogram=True, spec_freq=SPEC_SIZE))
+    pcgmix_2d = AugmentEngine.device_arrays(
+        spec_eng.plan(7, spec_split.frames[:B], spec_split.label[:B]).arrays, dev)
+    # (name, geometry) -> report, and the closure phase 5 profiles
+    report, profiled_closures = {}, {}
+    # name, wrapper, geometry, rows, plan, fp32 tolerance, idx_bytes,
+    # row_reads, warp, a second fp32 plan
+    for name, make, geometry, x, a, tol, idx_bytes, row_reads, warp, extra in (
+        ("piecewise_mix_pairs", k1, "main", x32, pcgmix, 1e-6, 4, 1, False, k27),
+        ("pcgmix_plus_fused", k2, "main", x32, pcgmix_plus, 1e-5, 4, 1, True, k27),
+        ("piecewise_mix_prepaired", k3, "main", x32, pcgmix, 1e-6, 0, 2, False, k27),
+        ("pcgmix_plus_fused_prepaired", k4, "main", x32, pcgmix_plus, 1e-5, 0, 2, True, k27),
+        ("piecewise_mix_pairs", k1, "spec2d", xs, pcgmix_2d, 1e-6, 4, 1, False, None),
+        ("piecewise_mix_prepaired", k3, "spec2d", xs, pcgmix_2d, 1e-6, 0, 2, False, None),
+    ):
+        report[name, geometry] = measure(name, make, x, a, tol, idx_bytes, row_reads,
+                                         warp, extra)
+        profiled_closures[name, geometry] = make(x, a)
 
     one, copy = torch.zeros(1, device=dev), torch.empty_like(x32)
     floor_ms = device_time_ms(torch, one.zero_)
@@ -430,21 +493,24 @@ def main() -> int:
                 raise AssertionError(f"{model} {method}: card and CPU loss traces "
                                      "disagree")
 
-    def drive(method, kernel, route, model="resnet9", **overrides):
-        """One 16-step main-path run; the counts are set to 0 just before
-        it and read just after.  Returns (launches of ``kernel``, losses)."""
+    def drive(method, kernel, route, model="resnet9", data=ds, **overrides):
+        """One 16-step main-path run (on the spectrogram corpus ``spec_ds``
+        with ``dataset=SPEC``); the counts are set to 0 just before it and
+        read just after.  ``kernel`` must launch once per step, no other
+        kernel at all (``kernel`` None: nothing).  Returns (launches of
+        ``kernel``, losses)."""
         cfg = TrainConfig(model=model, method=method, num_epochs=4, batch_size=B,
                           num_channels=C, save_artifacts=False, **overrides)
         torch.cuda.synchronize()
         mk.reset_launch_counts()
         t0 = time.time()
-        perf = train_model(cfg, ds)
+        perf = train_model(cfg, data)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = mk.launch_counts()
         steps = perf["steps"][-1]
-        other = [k for k in counts if k != kernel]
-        if steps != MAIN_STEPS or counts[kernel] != steps or any(counts[k] for k in other):
+        if steps != MAIN_STEPS or any(n != (steps if k == kernel else 0)
+                                      for k, n in counts.items()):
             raise AssertionError(f"{route} {method}: {steps} steps but launches {counts}")
         if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
             raise AssertionError(f"{route} {method}: non-finite loss or no eval")
@@ -452,20 +518,29 @@ def main() -> int:
         # in epoch 1); `times` is cumulative and synced at plot epochs
         d_steps = perf["steps"][-1] - perf["steps"][0]
         d_time = perf["times"][-1] - perf["times"][0]
-        print(f"{route} {method}: {model} batch {B} x {C}x{T}, {steps} steps, "
+        shape = f"1x{SPEC_SIZE}x{SPEC_SIZE}" if cfg.spectrogram else f"{C}x{T}"
+        print(f"{route} {method}: {model} batch {B} x {shape}, {steps} steps, "
               f"launches {counts}, losses {perf['train_loss']}, "
               f"test_accuracy {perf['test_accuracy'][-1]}")
         print(f"{route} {method}: {d_steps / d_time:.3f} steps/s, "
               f"{B * d_steps / d_time:.1f} samples/s (epochs 2-4), "
               f"{steps / wall:.3f} steps/s over the whole call incl. eval "
               f"({wall:.3f} s) on {card}")
-        return counts[kernel], perf["train_loss"]
+        return counts.get(kernel, 0), perf["train_loss"]
 
     launches, single_losses = {}, {}
     for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
                            ("durratiomixup", "piecewise_mix_pairs")):
         launches[kernel], single_losses[method] = drive(method, kernel, "train")
         drive(method, kernel, "train", model="Potes")
+
+    # ---- 3b. latentmixup (the split forward) and the 2-D path ------------
+    for model in ("resnet9", "Potes"):
+        drive("latentmixup", None, "latent", model=model)
+    launches_2d = {}
+    for method in ("durratiomixup", "durmixtimemask(0.1)"):
+        n, _ = drive(method, "piecewise_mix_pairs", "spec2d", data=spec_ds, dataset=SPEC)
+        launches_2d.setdefault("piecewise_mix_pairs", n)
 
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
@@ -493,6 +568,10 @@ def main() -> int:
     profile_breakdown(
         torch, lambda: train_model(dataclasses.replace(profiled, model="Potes"), ds),
         card, label="profile Potes")
+    profile_breakdown(
+        torch, lambda: train_model(dataclasses.replace(
+            profiled, dataset=SPEC, method="durratiomixup"), spec_ds),
+        card, label="profile spec2d")
 
     # ---- 4. the data-parallel route (1-rank NCCL group) -------------------
     # Full-width training at lr 0.01 is chaotic on this data: the single-
@@ -540,6 +619,10 @@ def main() -> int:
                 if not (d_frozen < 1e-5 and d0 < 1e-5 and r1 < 1e-3):
                     raise AssertionError(f"data-parallel {method}: loss differs from "
                                          "the single-device route")
+            # the spectrogram path's PCGmix splits its batch too: K3
+            launches_2d["piecewise_mix_prepaired"], _ = drive(
+                "durratiomixup", "piecewise_mix_prepaired", "data-parallel spec2d",
+                data=spec_ds, dataset=SPEC)
             # the same profiled PCGmix+ call as phase 3, on this route
             profile_breakdown(torch, lambda: train_model(profiled, ds), card,
                               label="profile data-parallel")
@@ -548,17 +631,19 @@ def main() -> int:
 
     # ---- 4b. the experiment grid: the runner CLI on the card ----------------
     grid_phase(np, card)
+    # ---- 4c. the 2-D table's grid ------------------------------------------
+    grid_phase(np, card, sig_len=SPEC_SIZE, dataset=SPEC, methods=GRID_METHODS_2D)
 
     # ---- 5. the profiler's kernel time of K1–K4, then the summary ----------
     # taken last: the profiler's sessions leave host overhead behind them,
     # which the host-bound runs of phases 3–4 would read
-    for name, fn in profiled_closures.items():
-        r = report[name]
+    for (name, geometry), fn in profiled_closures.items():
+        r = report[name, geometry]
         r["kernel_us"] = sum(k5.kernel_times(fn, 60).values()) * 1e3
         share = (f"{100 * r['bound_ms'] * 1e3 / r['kernel_us']:.1f} %" if r["kernel_us"]
                  else "not measured")
-        print(f"{name}: {r['kernel_us']:.3f} us by the profiler over 60 calls, "
-              f"{r['ms']:.6f} ms by the bursts; bound {r['bound_ms']:.6f} ms: "
+        print(f"{name} {r['shape']}: {r['kernel_us']:.3f} us by the profiler over 60 "
+              f"calls, {r['ms']:.6f} ms by the bursts; bound {r['bound_ms']:.6f} ms: "
               f"{share} of it reached by the profiler's time, "
               f"{100 * r['bound_ms'] / r['ms']:.1f} % by the bursts', on {card}")
     replaces = {"piecewise_mix_pairs": "pcgmix_tpu/ops/pallas_mix.py:74",
@@ -573,8 +658,14 @@ def main() -> int:
          "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
          "floor_ms": floor_ms}
-        for name, r in report.items()
+        for (name, geometry), r in report.items() if geometry == "main"
     ]
+    # K1 and K3 on the spectrogram path in a field of their own: their
+    # launches in its 16-step runs (single-device, data-parallel)
+    for k in kernels:
+        if (k["name"], "spec2d") in report:
+            k["spec2d"] = {**report[k["name"], "spec2d"],
+                           "launches": launches_2d[k["name"]]}
     # K5 at res2a, conv3 in a field of its own: ms is K5 without stats and
     # library_ms cuDNN's conv, the same function; the fused kernel stands
     # beside cuDNN's conv plus its statistics pass

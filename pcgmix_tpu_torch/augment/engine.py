@@ -6,26 +6,39 @@
   It returns a :class:`Plan` whose ``arrays`` are a few KB of numpy —
   partner indices, per-segment piece windows, λ, spline knots, mask
   bounds, SNRs — equal to the JAX engine's, or None when the ``+p`` gate
-  leaves the batch alone.
+  leaves the batch alone.  A latent method's plan carries ``latent_depth``,
+  the depth of the split forward its apply runs at.
 - ``apply(data, target_ohe, arrays)`` uploads the plan and rewrites the
   device batch: the keep-duration blends through the mix kernels, K1
-  (``piecewise_mix_batch``, K1 without a row index) for PCGmix and
-  ``durmixrespscale``, K2 (``pcgmix_plus_fused``) for PCGmix+; the other
-  bases in plain tensor code, as the JAX package computes them in XLA
-  outside any Pallas kernel (whole-signal mixup, masks, warps, the
-  respiratory sinusoid, Gaussian noise).
+  (``piecewise_mix_batch``, K1 without a row index) for PCGmix,
+  ``durmixrespscale`` and the spectrogram ``durmix*mask`` blends, K2
+  (``pcgmix_plus_fused``) for PCGmix+; the other bases in plain tensor
+  code, as the JAX package computes them in XLA outside any Pallas kernel
+  (whole-signal and latent mixup, masks, warps, the respiratory sinusoid,
+  Gaussian noise).  For latentmixup and the manifold methods the trainer
+  calls it on the latent of the split forward (``train/steps.py``).
 - ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
   counterpart for the keep-duration blends (JAX ``engine.py:877-953``): a
   rank passes its block of the batch, its partners' rows gathered
   beforehand and its block of the plan, and the rows go through K3
   (``piecewise_mix_prepaired``) or K4 (``pcgmix_plus_fused_prepaired``).
 
+Spectrograms (``AugmentConfig.spectrogram``; batches (B, 1, F, T)) parse
+methods with the 2-D ladder.  Their keep-duration blends run on the
+(B, F, T) view, the frequency rows taking the place of channels (JAX
+``engine.py:963-970``), with no random displacements; the masks are a
+time window per sample, a frequency band shared by the batch, or their
+box (``_mask_arrays_2d``).
+
 Ported 1-D bases: ``durratiomixup``, ``durmixmagwarp``, ``durmixrespscale``,
-``mixup``, ``timemask``, ``respiratoryscale``, ``magnitudewarp``,
-``timewarp``, ``gaussiannoise``, ``cutout`` (with ``(ch)``) and
-``s1s2mask``, with the ``(sameCVD)``, ``(samePCG)``, ``(sameDataset)`` and
-``(mixAll)`` pairings and the ``(rand)``, ``(alpha=…)`` and ``+p``
-modifiers; other bases and pairings raise.
+``mixup``, ``latentmixup``, ``timemask``, ``respiratoryscale``,
+``magnitudewarp``, ``timewarp``, ``gaussiannoise``, ``cutout`` (with
+``(ch)`` and ``manifold-``) and ``s1s2mask``; 2-D bases: ``durratiomixup``,
+``durmixfreqmask``, ``durmixtimemask``, ``durmixcutout``, ``cutout``,
+``timemask``, ``freqmask``, ``mixup`` and ``latentmixup``; with the
+``(sameCVD)``, ``(samePCG)``, ``(sameDataset)`` and ``(mixAll)`` pairings
+and the ``(rand)``, ``(alpha=…)`` and ``+p`` modifiers.  Other bases and
+pairings raise, naming the ROADMAP item they wait for.
 
 One deviation from the JAX engine: ``gaussiannoise`` draws its noise
 tensor from ``jax.random`` there, which torch cannot reproduce (as with
@@ -53,15 +66,27 @@ from pcgmix_tpu_torch.ops.mix_kernels import (
     piecewise_mix_batch,
     piecewise_mix_prepaired,
 )
-from pcgmix_tpu_torch.ops.masks import time_mask, zero_after
+from pcgmix_tpu_torch.models.registry import max_latent_depth
+from pcgmix_tpu_torch.ops.masks import box_mask, freq_mask, time_mask, zero_after
 from pcgmix_tpu_torch.ops.piecewise import segment_blend_pieces
 from pcgmix_tpu_torch.ops.spline import magnitude_warp, time_warp
 
-KEEPDUR_BASES = ("durratiomixup", "durmixmagwarp", "durmixrespscale")
+MASKED_BLEND_BASES = ("durmixfreqmask", "durmixtimemask", "durmixcutout")  # 2-D
+KEEPDUR_BASES = ("durratiomixup", "durmixmagwarp", "durmixrespscale") + MASKED_BLEND_BASES
 PORTED_BASES = KEEPDUR_BASES + (
-    "mixup", "timemask", "respiratoryscale", "magnitudewarp", "timewarp",
-    "gaussiannoise", "cutout", "s1s2mask",
+    "mixup", "latentmixup", "timemask", "freqmask", "respiratoryscale",
+    "magnitudewarp", "timewarp", "gaussiannoise", "cutout", "s1s2mask",
 )
+# base → the ROADMAP queue 1 item that it waits for
+_WAITING_BASES = {
+    **dict.fromkeys(("cutmix", "durratiocutmix", "(UMC-subset)durratiocutmix",
+                     "wav-durratiocutmix", "labelcutmix", "lengthcutmix",
+                     "datasetcutmix", "wavcutmix", "swapsysdia", "cont-cutmix"), 5),
+    **dict.fromkeys(("lc-nointrusion", "saliency-cutmix"), 10),
+}
+# plan arrays that are not batch-leading: a data-parallel rank takes them
+# whole (the frequency band is shared by the batch, the sinusoid by its rows)
+SHARED_ARRAYS = ("fbb", "sinusoid")
 SEED_FIX = 4  # the reference's seed_fix: the mirror stream's seed
 NOISE_SEED_BASE = SEED_FIX << 32  # gaussiannoise's generator: + step
 
@@ -74,11 +99,15 @@ class AugmentConfig:
     sig_len: int
     sample_rate: int = 1000
     cvd_map: Optional[dict] = None  # wav → diagnosis, for (sameCVD) pairing
+    spectrogram: bool = False  # (B, 1, F, T) batches, the 2-D method ladder
+    spec_freq: int = 0  # F, the frequency axis of a spectrogram
+    model: str = "resnet9"  # the model name, for latentmixup's depth draw
 
 
 @dataclasses.dataclass
 class Plan:
     arrays: dict
+    latent_depth: Optional[int] = None  # latent methods: the split depth
 
 
 def _sanitize_padded_pieces(pieces: dict) -> None:
@@ -118,6 +147,26 @@ def _mask_bb(data, bb):
     return time_mask(data, bb[..., 0], bb[..., 1])
 
 
+def _as_rows(x):
+    """The (B, C, T) rows the mix kernels take: a spectrogram (B, 1, F, T)
+    as its (B, F, T) view, the frequency rows as channels."""
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def _mask_2d(data, a):
+    """Spectrogram masks (JAX ``engine.py:1056-1076``): the time window
+    ``bb`` per sample, the frequency band ``fbb`` shared by the batch, or
+    with both their box."""
+    bb, fbb = a.get("bb"), a.get("fbb")
+    if bb is not None and fbb is not None:
+        return box_mask(data, bb[:, 0], bb[:, 1], fbb[0], fbb[1])
+    if bb is not None:
+        return _mask_bb(data, bb)
+    if fbb is not None:
+        return freq_mask(data, fbb[0], fbb[1])
+    return data
+
+
 def _gaussian_noise(data, snr, end, seed: int):
     """data + N(0, 1)·rms/10^(snr/20) per row, zero at/after ``end``
     (augmentations.py:1060-1076); the noise from a generator on the batch's
@@ -142,18 +191,23 @@ class AugmentEngine:
 
     def __init__(self, cfg: AugmentConfig):
         self.cfg = cfg
-        self.spec: MethodSpec = parse_method(cfg.method)
+        self.spec: MethodSpec = parse_method(cfg.method, spectrogram=cfg.spectrogram)
         spec = self.spec
+        if spec.enabled and spec.base in _WAITING_BASES:
+            raise NotImplementedError(
+                f"method {cfg.method!r} is not ported yet (ROADMAP queue 1 item "
+                f"{_WAITING_BASES[spec.base]})"
+            )
         if spec.enabled and (
             spec.base not in PORTED_BASES
             or spec.pairing not in pairing_mod.PORTED_PAIRINGS
             or spec.salopt is not None
-            or spec.manifold
+            or (spec.manifold and spec.base != "cutout")
         ):
             raise NotImplementedError(
                 f"method {cfg.method!r} is not ported yet; the port covers the "
-                f"bases {', '.join(PORTED_BASES)} with the pairings "
-                f"{', '.join(pairing_mod.PORTED_PAIRINGS)}"
+                f"bases {', '.join(PORTED_BASES)} (and manifold-cutout) with the "
+                f"pairings {', '.join(pairing_mod.PORTED_PAIRINGS)}"
             )
         # Mirror of the reference's ambient NumPy stream, seeded once per run
         # with seed_fix (train_model.py:222): magnitudewarp, timewarp and
@@ -199,6 +253,13 @@ class AugmentEngine:
             mix = pair()
             return Plan(arrays={"mix": mix,
                                 "lam": np.float32(prng.np_beta_lambda(1.0, step))})
+        if base == "latentmixup":
+            mix = pairing_mod.same_label(labels, step)
+            return Plan(arrays={"mix": mix,
+                                "lam": np.float32(prng.np_beta_lambda(1.0, step))},
+                        latent_depth=self._latent_depth(step))
+        if cfg.spectrogram and base in ("cutout", "timemask", "freqmask"):
+            return Plan(arrays=self._mask_arrays_2d(step, frames))
         if base == "timemask":
             f1, f2 = prng.py_masked_region(step, spec.params[0])
             end = frames_end(frames)
@@ -242,7 +303,7 @@ class AugmentEngine:
             lam = prng.np_beta_lambda(alpha, step)
         nseg = frames.shape[1] - 1  # 4 (zero-pad variant) or 27 (multi-cycle)
         disp = np.zeros((len(labels), nseg), np.int64)
-        if spec.rand:
+        if spec.rand and not cfg.spectrogram:
             disp = self._rand_displacements(step, frames, mix, segs=range(nseg))
         lam_seg = np.full((len(labels), nseg), lam, np.float32)
         pieces = segment_blend_pieces(frames, frames[mix], disp, lam_seg)
@@ -262,13 +323,17 @@ class AugmentEngine:
         if spec.base == "durmixrespscale":
             rmin, rmax = spec.params
             arrays.update(self._resp_arrays(prng.py_uniform(step), rmin, rmax))
+        if spec.base in MASKED_BLEND_BASES:
+            arrays.update(self._mask_arrays_2d(step, frames))
         return Plan(arrays=arrays)
 
     def _plan_cutout_1d(self, step, frames):
         """1-D cutout bounds: one window per row, or with ``(ch)`` one per
-        (row, channel) from per-channel seeds (JAX ``engine.py:705-728``)."""
+        (row, channel) from per-channel seeds (JAX ``engine.py:705-728``);
+        ``manifold-cutout`` draws the depth it applies at."""
         B = frames.shape[0]
         end = frames_end(frames)
+        depth = prng.py_randint(step, 0, 3) if self.spec.manifold else None
         if self.spec.per_channel:
             C = self.cfg.num_channels
             bb = np.zeros((B, C, 2), np.int64)
@@ -278,10 +343,45 @@ class AugmentEngine:
                 )
                 bb[:, c, 0] = (draws[0] * end).astype(np.int64)
                 bb[:, c, 1] = (draws[1] * end).astype(np.int64)
-            return Plan(arrays={"bb": bb})
+            return Plan(arrays={"bb": bb}, latent_depth=depth)
         lo, hi = prng.py_masked_region(step, self.spec.params[0])
         bb = np.stack([(lo * end).astype(np.int64), (hi * end).astype(np.int64)], axis=1)
-        return Plan(arrays={"bb": bb})
+        return Plan(arrays={"bb": bb}, latent_depth=depth)
+
+    def _mask_arrays_2d(self, step, frames):
+        """Spectrogram mask bounds (JAX ``engine.py:730-753``; reference
+        augmentations2d.py:309-325, :449-458, :474-507): a time window per
+        sample within the frames' end (``bb``) and a frequency band shared
+        by the batch (``fbb``), from two draws seeded off the step."""
+        spec, F = self.spec, self.cfg.spec_freq
+        u_gap = prng.py_uniform(step + 131071)
+        u_pos = prng.py_uniform(step + 13119)
+        arrays = {}
+        base = spec.base
+        if base in ("timemask", "durmixtimemask", "cutout", "durmixcutout"):
+            gap = u_gap * spec.params[0]
+            t1 = u_pos * (1 - gap)
+            t2 = t1 + gap
+            end = frames_end(frames)
+            arrays["bb"] = np.stack([(t1 * end).astype(np.int64),
+                                     (t2 * end).astype(np.int64)], axis=1)
+        if base in ("freqmask", "durmixfreqmask", "cutout", "durmixcutout"):
+            fmax = spec.params[1] if base in ("cutout", "durmixcutout") else spec.params[0]
+            gap = u_gap * fmax
+            h1 = int(F * (u_pos * (1 - gap)))
+            h2 = min(F, h1 + int(gap * F))
+            arrays["fbb"] = np.array([h1, h2], np.int64)
+        return arrays
+
+    def _latent_depth(self, step):
+        """latentmixup's depth draw (reference augmentations.py:1483-1494):
+        fixed for FCN (4) and ResCNN (5), randint(1, max) otherwise."""
+        name = self.cfg.model
+        if name == "FCN":
+            return 4
+        if name == "ResCNN":
+            return 5
+        return prng.py_randint(step, 1, max_latent_depth(name))
 
     def _resp_arrays(self, u, rmin, rmax):
         """Respiratory sinusoid (augmentations.py:765-773): rate and phase
@@ -355,7 +455,7 @@ class AugmentEngine:
         for k in ("knots", "sinusoid"):
             if k in out:
                 out[k] = np.ones_like(out[k])
-        for k in ("bb", "bb1", "bb2"):
+        for k in ("bb", "bb1", "bb2", "fbb"):
             if k in out:
                 out[k] = np.zeros_like(out[k])
         if "snr" in out:
@@ -385,27 +485,32 @@ class AugmentEngine:
 
     def _keepdur_apply(self, data, a):
         return piecewise_mix_batch(
-            data, a["mix"], a["dst"], a["src"], a["len"], a["sel"], a["alpha"],
-            base_is_d1=True,
-        )
+            _as_rows(data), a["mix"], a["dst"], a["src"], a["len"], a["sel"],
+            a["alpha"], base_is_d1=True,
+        ).view(data.shape)
 
     def apply(self, data: torch.Tensor, target_ohe: torch.Tensor, arrays: dict):
-        """Apply a plan to the device batch; returns (data, target_ohe)."""
+        """Apply a plan to the device batch, or for a latent method to the
+        latent at the plan's depth; returns (data, target_ohe)."""
         base = self.spec.base
         a = self.device_arrays(arrays, data.device)
-        if base in KEEPDUR_BASES or base == "mixup":
+        if self.cfg.spectrogram and base in ("cutout", "timemask", "freqmask"):
+            return _mask_2d(data, a), target_ohe
+        if base in KEEPDUR_BASES or base in ("mixup", "latentmixup"):
             if base == "durmixmagwarp":
                 # one kernel: partner fetch + segment blend + spline warp
                 out = pcgmix_plus_fused(
                     data, a["mix"], a["dst"], a["src"], a["len"], a["sel"],
                     a["alpha"], a["knots"],
                 )
-            elif base == "mixup":
+            elif base in ("mixup", "latentmixup"):
                 out = _blend(data, a["mix"], a["lam"])
             else:
                 out = self._keepdur_apply(data, a)
             if base == "durmixrespscale":
                 out = out * a["sinusoid"]
+            if base in MASKED_BLEND_BASES:
+                out = _mask_2d(out, a)
             if self.spec.mix_all_targets:
                 target_ohe = _blend_targets(target_ohe, a["mix"], a["lam"])
             return out, target_ohe
@@ -425,7 +530,8 @@ class AugmentEngine:
     def check_prepaired(self) -> None:
         """Raise unless :meth:`apply_prepaired` takes this method: the
         data-parallel route splits a batch over the ranks only for the
-        keep-duration blends."""
+        keep-duration blends (the latent methods, the masks and the other
+        baselines run on a replicated batch, or on one device)."""
         if self.spec.base not in KEEPDUR_BASES:
             raise NotImplementedError(
                 f"{self.spec.base!r} on a data-parallel batch split over the "
@@ -446,9 +552,12 @@ class AugmentEngine:
         if self.spec.base == "durmixmagwarp":
             out = pcgmix_plus_fused_prepaired(d1, d2, *pieces, a["knots"])
         else:
-            out = piecewise_mix_prepaired(d1, d2, *pieces, base_is_d1=True)
+            out = piecewise_mix_prepaired(_as_rows(d1), _as_rows(d2), *pieces,
+                                          base_is_d1=True).view(d1.shape)
         if self.spec.base == "durmixrespscale":
             out = out * a["sinusoid"]
+        if self.spec.base in MASKED_BLEND_BASES:
+            out = _mask_2d(out, a)
         if self.spec.mix_all_targets:
             target1 = _lerp_targets(target1, target2, a["lam"])
         return out, target1

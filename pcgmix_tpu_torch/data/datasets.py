@@ -2,7 +2,8 @@
 
 Data contract: reference dataset dicts map ``{'data': {band: [N × T]},
 'label': [N], 'frames': [N × 5], 'wav': [N], 'sig_qual': [N]}`` with a
-'train'/'test' level for PhysioNet.  Splits stay numpy on the host; the
+'train'/'test' level for PhysioNet; a spectrogram dict's ``'data'`` is one
+(N, F, T) array of mel spectrograms, its frames in spectrogram columns.  Splits stay numpy on the host; the
 training loop uploads the train split to the device once.
 """
 
@@ -58,7 +59,7 @@ def bands_to_channels(data_dict: dict, num_channels: int) -> np.ndarray:
 class ArrayDataset:
     """One split, fully materialized."""
 
-    data: np.ndarray  # (N, C, T) float32
+    data: np.ndarray  # (N, C, T) float32, or (N, 1, F, T) for spectrograms
     label: np.ndarray  # (N,) int64
     frames: np.ndarray  # (N, 5) int64
     wav: np.ndarray  # (N,) object (recording names)
@@ -78,9 +79,16 @@ class ArrayDataset:
         )
 
     @classmethod
-    def from_dict(cls, d: dict, num_channels: int) -> "ArrayDataset":
+    def from_dict(cls, d: dict, num_channels: int,
+                  spectrogram: bool = False) -> "ArrayDataset":
+        """A split of a dataset dict: the bands stacked as channels, or a
+        spectrogram dict's (N, F, T) data as one channel."""
+        if spectrogram:
+            data = np.asarray(d["data"], np.float32)[:, None, :, :]
+        else:
+            data = bands_to_channels(d["data"], num_channels)
         return cls(
-            data=bands_to_channels(d["data"], num_channels),
+            data=data,
             label=np.asarray(d["label"], np.int64),
             frames=np.asarray(d["frames"], np.int64),
             wav=np.asarray(d["wav"], object),

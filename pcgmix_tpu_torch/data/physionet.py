@@ -49,17 +49,19 @@ def physionet_split(
     train_balance: bool = True,
     valid: bool = False,
     tbal_seed: int = 18,
+    spectrogram: bool = False,
 ) -> ArrayDataset:
     """Materialize one split of a PhysioNet dataset dict.
 
     mode='test' returns the held-out test set untouched; mode='train'/'valid'
     runs the selection pipeline and returns the train remainder / the
-    validation fold.
+    validation fold.  ``spectrogram`` reads a spectrogram dict (the 2-D
+    loader, reference dataloader_physionet2d.py, runs the same steps).
     """
     if mode == "test":
-        return ArrayDataset.from_dict(dataset["test"], num_channels)
+        return ArrayDataset.from_dict(dataset["test"], num_channels, spectrogram)
 
-    ds = ArrayDataset.from_dict(dataset["train"], num_channels)
+    ds = ArrayDataset.from_dict(dataset["train"], num_channels, spectrogram)
     ds = ds.take(np.nonzero(ds.sig_qual)[0])
 
     buckets = _bucket_wavs(ds)

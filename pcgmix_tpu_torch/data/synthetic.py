@@ -1,6 +1,6 @@
 """Synthetic PhysioNet-shaped datasets (counterpart:
-``pcgmix_tpu/data/synthetic.py::synthetic_physionet_dict`` and
-``synthetic_effect_dict``).
+``pcgmix_tpu/data/synthetic.py::synthetic_physionet_dict``,
+``synthetic_effect_dict`` and ``synthetic_spectrogram_dict``).
 
 Dataset dicts with the exact reference contract — per-band signal arrays,
 binary labels, [0, e1, e2, e3, e4] frames, wav names with subset letters,
@@ -210,6 +210,51 @@ def synthetic_effect_dict(
             "frames": (
                 np.stack(frames) if frames else np.zeros((0, 5), np.int64)
             ),
+            "wav": np.array(wavs, object),
+            "sig_qual": np.array(sq, np.int64),
+        }
+
+    return {
+        "train": make_split(num_wavs_train, "tr"),
+        "test": make_split(num_wavs_test, "te"),
+    }
+
+
+def synthetic_spectrogram_dict(
+    num_wavs_train: int = 24,
+    num_wavs_test: int = 8,
+    segments_per_wav: int = 3,
+    size: int = 64,
+    seed: int = 0,
+) -> dict:
+    """Spectrogram-shaped dict: data (N, F, T) = (N, size, size) mel-dB-like,
+    frames rescaled into spectrogram columns (reference databuilder.ipynb
+    cell 6).  Class 1 carries energy in the low bands over systole."""
+    rng = np.random.default_rng(seed)
+
+    def make_split(num_wavs, prefix):
+        data, labels, frames, wavs, sq = [], [], [], [], []
+        for w in range(num_wavs):
+            label = int(w % 2)
+            name = f"{'abcdef'[(w // 2) % 6]}{prefix}{w:04d}"
+            for _ in range(segments_per_wav):
+                lens = rng.integers([4, 8, 3, 12], [8, 16, 6, 24])
+                f = np.concatenate([[0], np.cumsum(lens)])
+                f = np.minimum(f, size)
+                spec = rng.standard_normal((size, size)).astype(np.float32) * 0.1
+                spec[: size // 3, f[1] : f[2]] += 1.0 * label
+                spec[size // 2 :, f[0] : f[1]] += 0.8
+                data.append(spec)
+                labels.append(label)
+                frames.append(f)
+                wavs.append(name)
+                sq.append(1)
+        return {
+            "data": (
+                np.stack(data) if data else np.zeros((0, size, size), np.float32)
+            ),
+            "label": np.array(labels, np.int64),
+            "frames": np.stack(frames) if frames else np.zeros((0, 5), np.int64),
             "wav": np.array(wavs, object),
             "sig_qual": np.array(sq, np.int64),
         }

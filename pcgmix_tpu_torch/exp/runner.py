@@ -11,6 +11,9 @@ the CLI equivalent; it trains on the card unless ``--device cpu`` is given:
       --methods base durratiomixup "durmixmagwarp(0.2,4)" \\
       --n-fractions 0.1 1.0 --seeds 1 2 3
 
+A spectrogram .dat trains the 2-D ResNet9 with the 2-D method ladder and
+the spectrogram seed grids: ``--dataset "PhysioNet(spec128)"``.
+
 It prints ``run: <dir>`` before each run it trains, ``skip (done): <dir>``
 for each finished one, and after each run ``done: <dir>`` with its wall
 time, steps and kernel launches.  Gang training, multi-step dispatch,
@@ -33,11 +36,11 @@ from pcgmix_tpu_torch.ops import launch_counts, reset_launch_counts
 from pcgmix_tpu_torch.train.loop import TrainConfig, resolve_device, train_model
 
 
-def _check_no_dependency(method: str) -> None:
+def _check_no_dependency(method: str, spectrogram: bool = False) -> None:
     """(salopt…) and (closestknn/closestbins) methods need a dependency run
     (a pretrained checkpoint, a frozen latent model) that the port cannot
     train or load yet."""
-    spec = parse_method(method)
+    spec = parse_method(method, spectrogram=spectrogram)
     if spec.salopt is not None or spec.pairing in ("closestknn", "closestbins"):
         raise NotImplementedError(
             f"method {method!r} depends on another run (salopt / latent "
@@ -60,14 +63,15 @@ def run_grid(
     configs that were executed."""
     resolve_device(base_cfg.device)
     for method in methods:
-        _check_no_dependency(method)
+        _check_no_dependency(method, base_cfg.spectrogram)
     executed = []
     for method in methods:
         for n_frac in n_fractions:
             if seed_datas is not None:
                 sds = seed_datas
             elif n_frac in SEED_DATA_GRIDS:
-                sds = list(SEED_DATA_GRIDS[n_frac][0])
+                grid_1d, grid_2d = SEED_DATA_GRIDS[n_frac]
+                sds = list(grid_2d if base_cfg.spectrogram else grid_1d)
             else:
                 sds = [base_cfg.seed_data]
             for seed_data in sds:

@@ -27,11 +27,12 @@ single-device one.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from pcgmix_tpu_torch.models.resnet9 import SPLIT_PARTS
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
 
 HIDDEN = 20  # dimreduc's width (models.py:379)
@@ -73,12 +74,29 @@ class Potes(nn.Module):
         keep = u.to(h.device, non_blocking=True) >= p
         return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The 20-d hidden features after the head's dropout: depth 1 of
+        the split forward."""
         B, C, T = x.shape
         h = self.cnn1(x.reshape(B * C, 1, T))
         h = self._drop(h.reshape(B, C, *h.shape[1:]), self.dropout)
         h = torch.relu(self.dimreduc(h.reshape(B, -1)))
-        return self.linear(self._drop(h, HEAD_DROPOUT))
+        return self._drop(h, HEAD_DROPOUT)
+
+    def forward(self, x: torch.Tensor, depth: int = 0,
+                part: Optional[str] = None) -> torch.Tensor:
+        """Logits, or with ``part`` the split forward of latentmixup
+        (``pcgmix_tpu/models/potes.py:71-85``): ``"first"`` returns the
+        input at depth 0 and the features at depth 1, ``"second"`` runs
+        the rest from there, ``"latent_space"`` returns the features."""
+        if part not in SPLIT_PARTS:
+            raise ValueError(f"part must be one of {SPLIT_PARTS}, got {part!r}")
+        if part == "first":
+            return x if depth == 0 else self.features(x)
+        if part == "second":
+            return self.linear(self.features(x) if depth <= 0 else x)
+        h = self.features(x)
+        return h if part == "latent_space" else self.linear(h)
 
 
 # Width presets (reference models.py:339-356).

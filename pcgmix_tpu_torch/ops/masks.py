@@ -1,8 +1,11 @@
-"""Mask-style augmentation ops (counterpart: ``pcgmix_tpu/ops/masks.py``).
+"""Mask-style augmentation ops (counterpart: ``pcgmix_tpu/ops/masks.py``
+and the spectrogram masks of ``pcgmix_tpu/augment/engine.py::
+_apply_mask_2d``).
 
 The reference zeroes slices per sample in Python loops
 (augmentations.py:823-827 timemask, :1595-1614 cutout, :1628-1632
-s1s2mask); here each is one ``where`` over the time axis.  These are plain
+s1s2mask; augmentations2d.py:322-325, :455-458 on spectrograms); here each
+is one ``where`` over the time axis, the frequency axis, or their box.  These are plain
 tensor functions: the JAX package computes them in XLA outside any Pallas
 kernel.
 """
@@ -56,3 +59,28 @@ def zero_after(data: torch.Tensor, end) -> torch.Tensor:
     t = torch.arange(data.shape[-1], dtype=torch.int64, device=data.device)
     keep = _per_sample(t[None, :] < end[:, None], data.ndim)
     return torch.where(keep, data, torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def _band(data: torch.Tensor, start, stop) -> torch.Tensor:
+    """(F,) mask of the frequency rows [start, stop) of a (..., F, T) batch."""
+    f = torch.arange(data.shape[-2], dtype=torch.int64, device=data.device)
+    start = torch.as_tensor(start, device=data.device)
+    stop = torch.as_tensor(stop, device=data.device)
+    return (f >= start) & (f < stop)
+
+
+def freq_mask(data: torch.Tensor, start, stop) -> torch.Tensor:
+    """Zero the frequency rows [start, stop), one band for the whole batch;
+    data (B, C, F, T), start/stop scalars."""
+    band = _band(data, start, stop)[:, None]
+    return torch.where(band, torch.zeros((), dtype=data.dtype, device=data.device), data)
+
+
+def box_mask(data: torch.Tensor, t_start, t_stop, f_start, f_stop) -> torch.Tensor:
+    """Zero the box of the time window [t_start, t_stop) per sample and the
+    frequency band [f_start, f_stop) shared by the batch (2-D cutout);
+    data (B, C, F, T), t_start/t_stop (B,), f_start/f_stop scalars."""
+    window = _per_sample(interval_mask(data.shape[-1], t_start, t_stop, data.device),
+                         data.ndim)
+    box = window & _band(data, f_start, f_stop)[:, None]
+    return torch.where(box, torch.zeros((), dtype=data.dtype, device=data.device), data)

@@ -137,12 +137,14 @@ class DataParallel:
         per = n // self.world
         return slice(self.rank * per, (self.rank + 1) * per)
 
-    def shard_arrays(self, arrays: dict, n: int) -> dict:
+    def shard_arrays(self, arrays: dict, n: int, shared=()) -> dict:
         """This rank's block of every batch-leading array of a plan; scalars
-        pass through (the counterpart of ``mesh.shard_batch``)."""
+        and the ``shared`` arrays pass through (the counterpart of
+        ``mesh.shard_batch``)."""
         sl = self.block(n)
         return {
-            k: v[sl] if isinstance(v, np.ndarray) and v.ndim and len(v) == n else v
+            k: v[sl] if (k not in shared and isinstance(v, np.ndarray) and v.ndim
+                         and len(v) == n) else v
             for k, v in arrays.items()
         }
 

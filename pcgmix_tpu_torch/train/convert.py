@@ -1,11 +1,15 @@
 """Weight carry-over between the two packages (inverses of
 ``pcgmix_tpu/train/convert.py::torch_resnet9_to_flax`` and
-``torch_potes_to_flax``) and the reference's seeded initialization.
+``torch_potes_to_flax``, and the 2-D ResNet9's flax tree to torch) and the
+reference's seeded initialization.
 
-Layouts: flax Conv kernel (k, Ci, Co) ↔ torch Conv1d weight (Co, Ci, k);
-flax Dense kernel (Ci, Co) ↔ torch Linear weight (Co, Ci); flax BatchNorm
-scale/bias and batch_stats mean/var ↔ BatchNorm1d weight/bias and
-running_mean/running_var.
+Layouts: flax Conv kernel (k, Ci, Co) ↔ torch Conv1d weight (Co, Ci, k),
+(kh, kw, Ci, Co) ↔ Conv2d weight (Co, Ci, kh, kw); flax Dense kernel
+(Ci, Co) ↔ torch Linear weight (Co, Ci); flax BatchNorm scale/bias and
+batch_stats mean/var ↔ BatchNorm weight/bias and running_mean/running_var.
+The 2-D ResNet9's classifier needs no reordering: the JAX model flattens
+its (B, H, W, C) features in torch's C, H, W order
+(``pcgmix_tpu/models/layers.py::flatten_torch_2d``).
 """
 
 from __future__ import annotations
@@ -36,12 +40,21 @@ def _t(a) -> torch.Tensor:
 
 def jax_resnet9_to_torch(params: Mapping, batch_stats: Mapping) -> dict:
     """ResNet9 flax trees (numpy leaves) → a ``ResNet9_1D`` state_dict."""
+    return _resnet9_to_torch(params, batch_stats, "Conv1d_0", (2, 1, 0))
+
+
+def jax_resnet9_2d_to_torch(params: Mapping, batch_stats: Mapping) -> dict:
+    """2-D ResNet9 flax trees (numpy leaves) → a ``ResNet9_2D`` state_dict."""
+    return _resnet9_to_torch(params, batch_stats, "Conv2d_0", (3, 2, 0, 1))
+
+
+def _resnet9_to_torch(params, batch_stats, conv_name: str, perm) -> dict:
     sd = {}
     for tname, fname in RESNET9_BLOCKS.items():
-        conv = params[fname]["Conv1d_0"]["Conv_0"]
+        conv = params[fname][conv_name]["Conv_0"]
         bn = params[fname]["BatchNorm_0"]["BatchNorm_0"]
         stats = batch_stats[fname]["BatchNorm_0"]["BatchNorm_0"]
-        sd[f"{tname}.0.weight"] = _t(np.transpose(conv["kernel"], (2, 1, 0)))
+        sd[f"{tname}.0.weight"] = _t(np.transpose(conv["kernel"], perm))
         sd[f"{tname}.0.bias"] = _t(conv["bias"])
         sd[f"{tname}.1.weight"] = _t(bn["scale"])
         sd[f"{tname}.1.bias"] = _t(bn["bias"])
@@ -69,7 +82,7 @@ def jax_potes_to_torch(params: Mapping) -> dict:
 
 
 def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
-    """Re-draw the model's Conv1d/Linear parameters as a fresh reference
+    """Re-draw the model's Conv1d/Conv2d/Linear parameters as a fresh reference
     model built under ``torch.manual_seed(seed)`` would hold them
     (reference train_model.py:293), without touching the global RNG.
 
@@ -85,7 +98,7 @@ def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if not isinstance(m, (nn.Conv1d, nn.Linear)):
+            if not isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 continue
             w = torch.empty(m.weight.shape)
             nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)

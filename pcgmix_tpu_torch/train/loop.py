@@ -17,6 +17,11 @@ group.  Every rank plans the global batch and steps on its block of it, or
 on all of it when it does not divide over the ranks (``train/steps.py``);
 the numbers are the single-device run's.  Rank 0 writes the run
 directory; the caller gets the performance dict.
+
+Latent methods dispatch on the plan's ``latent_depth``: the JAX loop builds
+one jitted step per depth (``loop.py:596-608``), the port's one step takes
+the depth.  The spectrogram dataset ``PhysioNet(spec128)`` trains the 2-D
+ResNet9 on (N, 1, F, T) mel spectrograms with the 2-D method ladder.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split
 from pcgmix_tpu_torch.data.datasets import load_cvd_map
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
-from pcgmix_tpu_torch.models import build_model
+from pcgmix_tpu_torch.models import SPECTROGRAM_DATASETS, build_model
 from pcgmix_tpu_torch.parallel import DataParallel, spawn
 from pcgmix_tpu_torch.train.convert import seeded_init
 from pcgmix_tpu_torch.train.losses import init_selc_table
@@ -85,6 +90,10 @@ class TrainConfig:
                                      # the reference wraps every run in
                                      # nn.DataParallel, train_model.py:385
 
+    @property
+    def spectrogram(self) -> bool:
+        return self.dataset in SPECTROGRAM_DATASETS
+
 
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
@@ -98,10 +107,12 @@ def resolve_device(name: str) -> torch.device:
 
 def build_splits(cfg: TrainConfig, dataset: dict):
     """Train/test(/valid) splits (reference train_model.py:228-256)."""
-    if cfg.dataset != "PhysioNet":
+    if cfg.dataset.startswith("UMC"):
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet; only 'PhysioNet' is"
+            f"dataset {cfg.dataset!r} is not ported yet (ROADMAP queue 1 item 8)"
         )
+    if cfg.dataset not in ("PhysioNet", "PhysioNet(spec128)"):
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
     tbal_seed = cfg.true_seed
     if tbal_seed is None:
         m = re.search(r"trueseed=(\d+)", cfg.method)
@@ -110,6 +121,7 @@ def build_splits(cfg: TrainConfig, dataset: dict):
         num_channels=cfg.num_channels, seed_data=cfg.seed_data, seed=cfg.seed,
         valid=cfg.valid, n_fraction=cfg.n_fraction,
         train_balance=cfg.train_balance, tbal_seed=tbal_seed,
+        spectrogram=cfg.spectrogram,
     )
     train = physionet_split(dataset, "train", **common)
     test = physionet_split(dataset, "valid" if cfg.valid else "test", **common)
@@ -178,9 +190,11 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
     if num_steps == 0:
         raise ValueError("train split smaller than one batch")
     C, T = train_ds.data.shape[1], train_ds.data.shape[-1]
+    F = train_ds.data.shape[-2] if cfg.spectrogram else 0
 
     model = seeded_init(
-        build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed), cfg.seed_fix
+        build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed,
+                    dataset=cfg.dataset, freq=F or None), cfg.seed_fix
     )
     model.to(device)
     if dp is not None:
@@ -193,7 +207,8 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
         cvd_map = load_cvd_map(cvd_map)
     engine = AugmentEngine(AugmentConfig(
         method=cfg.method, batch_size=cfg.batch_size, num_channels=C, sig_len=T,
-        sample_rate=cfg.sample_rate, cvd_map=cvd_map,
+        sample_rate=cfg.sample_rate, cvd_map=cvd_map, spectrogram=cfg.spectrogram,
+        spec_freq=F, model=cfg.model,
     ))
     step = TrainStep(
         model, opt, sched,
@@ -225,7 +240,8 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
             lr_per_step.append(
                 float(sched.get_last_lr()[0]) if sched is not None else cfg.lr_max
             )
-            out = step(batch["indices"], plan.arrays if plan else None, epoch)
+            out = step(batch["indices"], plan.arrays if plan else None, epoch,
+                       plan.latent_depth if plan else None)
             losses.append(out["loss"])
             preds.append(out["preds"])
             targets.append(out["target"])

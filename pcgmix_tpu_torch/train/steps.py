@@ -21,16 +21,30 @@ takes local statistics, and the gradients come out equal on every rank
 914-916``, ``:943-944``).  A batch split over the ranks takes the
 keep-duration blends only; the 1-D baselines raise there
 (``AugmentEngine.check_prepaired``).
+
+Latent methods (latentmixup, ``manifold-cutout``) split the forward at the
+plan's depth (JAX ``train/steps.py:192-224``): the model's first part gives
+the latent, the engine's apply mixes or masks it, the second part runs
+from there in train mode.  latentmixup's first pass is differentiable and
+in train mode, so its BatchNorm layers update their running statistics; a
+manifold method's first pass runs in eval mode under ``torch.no_grad()``
+(the JAX ``stop_gradient``), its BatchNorm reading the running statistics
+and updating nothing; its parameters get zero gradients, not none, so Adam
+moves them by weight decay and momentum as optax does.  The two parts share no BatchNorm layer at any
+depth, so the in-place updates of the first pass are the flax ``bs1`` that
+the second pass starts from.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcgmix_tpu_torch.augment.engine import SHARED_ARRAYS
 from pcgmix_tpu_torch.parallel import DataParallel, batch_rows
 from pcgmix_tpu_torch.train.losses import selc_share_rows, selc_update
 
@@ -50,6 +64,19 @@ def make_optimizer(model: nn.Module, op: str, lr_max: float, weight_decay: float
     return opt, sched
 
 
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """Within: ``module`` and its submodules in eval mode; on leaving, each
+    gets back its own training flag."""
+    flags = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, training in flags:
+            m.training = training
+
+
 class TrainStep:
     """A train step over a corpus held on the device.
 
@@ -57,7 +84,8 @@ class TrainStep:
     device; a step receives the global batch's row ``indices`` and an
     optional augmentation plan, and returns device tensors (loss, preds,
     target) of the global batch.  With ``dp`` the step is this rank's share
-    of a data-parallel step."""
+    of a data-parallel step.  ``latent_depth`` (a latent method's plan)
+    splits the forward there."""
 
     def __init__(self, model: nn.Module, opt, sched, train_data: torch.Tensor,
                  train_labels: torch.Tensor, soft_labels: torch.Tensor, *,
@@ -94,23 +122,48 @@ class TrainStep:
             return rows, data, target
         rows, data, target = self._rows(indices[self.dp.block(len(indices))])
         if plan_arrays is not None:
-            block = self.dp.shard_arrays(plan_arrays, len(indices))
+            block = self.dp.shard_arrays(plan_arrays, len(indices), SHARED_ARRAYS)
             self.engine.check_prepaired()
             _, d2, t2 = self._rows(indices[block["mix"]])
             data, target = self.engine.apply_prepaired(data, d2, target, t2, block)
         return rows, data, target
 
-    def __call__(self, indices, plan_arrays: Optional[dict], epoch: int) -> dict:
+    def _split_forward(self, data, target, plan_arrays: dict, depth: int):
+        """First part → the engine's apply on the latent → second part."""
+        if self.engine.spec.manifold:
+            with torch.no_grad(), eval_mode(self.model):
+                latent = self.model(data, depth=depth, part="first")
+        else:
+            latent = self.model(data, depth=depth, part="first")
+        latent, target = self.engine.apply(latent, target, plan_arrays)
+        return self.model(latent, depth=depth, part="second"), target
+
+    def __call__(self, indices, plan_arrays: Optional[dict], epoch: int,
+                 latent_depth: Optional[int] = None) -> dict:
         n = len(indices)
         sharded = self.dp is not None and self.dp.divides(n)
-        rows, data, target = self._inputs(indices, plan_arrays, sharded)
+        latent = plan_arrays is not None and latent_depth is not None
+        if latent and sharded:
+            self.engine.check_prepaired()  # raises: latent methods are row-global
+        rows, data, target = self._inputs(indices, None if latent else plan_arrays,
+                                          sharded)
         self.model.train()
         rows_held = self.dp.block(n) if sharded else slice(0, n)
         with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):
-            out = self.model(data)
+            if latent:
+                out, target = self._split_forward(data, target, plan_arrays, latent_depth)
+            else:
+                out = self.model(data)
         loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if latent and self.engine.spec.manifold:
+            # the JAX stop_gradient gives the first part zero gradients, and
+            # Adam still moves those parameters by weight decay and momentum;
+            # torch's Adam would skip a parameter whose grad is None
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if self.dp is not None:
             # replicated: the gradients are equal already, and averaging
             # them keeps the replicas equal where a kernel is not

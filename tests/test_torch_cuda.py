@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
-from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+from pcgmix_tpu_torch.data import (
+    physionet_split,
+    synthetic_physionet_dict,
+    synthetic_spectrogram_dict,
+)
 from pcgmix_tpu_torch.ops import mix_kernels
 from pcgmix_tpu_torch.ops.mix_kernels import (
     launch_counts,
@@ -422,3 +426,57 @@ def test_gaussian_noise_on_the_card(batch, dev):
         rms = np.sqrt(np.mean(np.square(x[i], dtype=np.float64)))
         want = rms / 10 ** (arrays["snr"][i] / 20)
         assert abs((out[i, :, :end] - x[i, :, :end]).std() / want - 1) < 0.05
+
+
+# the spectrogram path: K1/K3 on the (B, F, T) view of (B, 1, F, T) mel
+# spectrograms, the frequency rows as channels
+SPEC_GEOMETRIES = [(C2, T2) for C2 in (1, 64, 128) for T2 in (64, 128, 127)]
+
+
+def _spec_batch(n, F, T, method, dev, step=5):
+    """A spectrogram batch (n, 1, F, T) on the card and a spectrogram
+    engine's plan for it; the frames end within the row (at most 50
+    columns), so the pieces cover it only in part."""
+    ds = synthetic_spectrogram_dict(num_wavs_train=8, num_wavs_test=0,
+                                    segments_per_wav=n // 8, size=T, seed=F + T)
+    split = physionet_split(ds, "train", train_balance=False, spectrogram=True)
+    eng = AugmentEngine(AugmentConfig(method, n, 1, T, spectrogram=True, spec_freq=F))
+    plan = eng.plan(step, split.frames[:n], split.label[:n], _force=True)
+    x = np.random.default_rng(F * T).normal(size=(n, 1, F, T)).astype(np.float32)
+    return eng, plan, torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T", SPEC_GEOMETRIES)
+def test_k1_k3_match_plain_at_spectrogram_geometries(dev, C, T, dtype):
+    n = 16
+    _, plan, x = _spec_batch(n, C, T, "durratiomixup", dev)
+    a = AugmentEngine.device_arrays(plan.arrays, dev)
+    assert a["dst"].shape[1] == 4 and (a["dst"] + a["len"]).max().item() < T
+    rows = x.reshape(n, C, T).to(dtype)
+    d2 = rows.index_select(0, a["mix"].long())
+    reset_launch_counts()
+    k1 = piecewise_mix_batch(rows, a["mix"], *_args(a))
+    k3 = piecewise_mix_prepaired(rows, d2, *_args(a))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["piecewise_mix_pairs"] == counts["piecewise_mix_prepaired"] == 1
+    assert torch.equal(k1, piecewise_mix_batch_plain(rows, a["mix"], *_args(a)))
+    assert torch.equal(k3, piecewise_mix_prepaired_plain(rows, d2, *_args(a)))
+    assert torch.equal(k3, k1)
+
+
+@pytest.mark.parametrize("method", ["durratiomixup", "durmixcutout(0.25,0.25)",
+                                    "durmixfreqmask(0.1)", "cutout(0.25,0.25)",
+                                    "latentmixup"])
+def test_spectrogram_applies_on_the_card_equal_the_cpu(dev, method):
+    """The engine's spectrogram apply at the 2-D table's geometry: K1 and
+    the masks on the card equal the plain versions on the CPU, bit for bit."""
+    eng, plan, x = _spec_batch(16, 128, 128, method, dev)
+    t = torch.eye(2, device=dev)[torch.arange(16, device=dev) % 2]
+    reset_launch_counts()
+    out, tgt = eng.apply(x, t, plan.arrays)
+    torch.cuda.synchronize()
+    ref, ref_t = eng.apply(x.cpu(), t.cpu(), plan.arrays)
+    assert launch_counts()["piecewise_mix_pairs"] == int(method.startswith("dur"))
+    assert torch.equal(out.cpu(), ref) and torch.equal(tgt.cpu(), ref_t)

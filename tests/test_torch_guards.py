@@ -48,7 +48,8 @@ def test_port_sources_exist():
                      "pcgmix_tpu_torch/parallel/dist.py",
                      "pcgmix_tpu_torch/exp/runner.py", "pcgmix_tpu_torch/exp/replicate.py",
                      "pcgmix_tpu_torch/exp/results.py", "pcgmix_tpu_torch/exp/paper.py",
-                     "pcgmix_tpu_torch/exp/robust.py", "pcgmix_tpu_torch/ops/masks.py"):
+                     "pcgmix_tpu_torch/exp/robust.py", "pcgmix_tpu_torch/ops/masks.py",
+                     "pcgmix_tpu_torch/models/resnet9_2d.py"):
         assert required in names
     for source in ("mix_kernels.cu", "conv_bn_stats.cu"):
         assert (ROOT / "pcgmix_tpu_torch/ops/csrc" / source).exists()
@@ -104,3 +105,37 @@ def test_grid_entry_points_default_to_cuda_and_refuse_a_missing_card(module, tmp
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)
     assert not any(tmp_path.iterdir())  # refused before any work
+
+
+@pytest.mark.parametrize("dataset,method", [("PhysioNet", "latentmixup"),
+                                            ("PhysioNet(spec128)", "durratiomixup")])
+def test_latent_and_spectrogram_paths_refuse_a_missing_card(dataset, method):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal cannot be shown")
+    from pcgmix_tpu_torch.data import synthetic_spectrogram_dict
+
+    ds = (synthetic_spectrogram_dict(4, 2, 2, size=32, seed=1) if dataset != "PhysioNet"
+          else synthetic_physionet_dict(4, 2, 2, sig_len=256, seed=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_model(TrainConfig(dataset=dataset, method=method, batch_size=4,
+                                num_epochs=1, save_artifacts=False), ds)
+
+
+def test_spectrogram_blends_go_through_the_kernel_wrappers():
+    """A spectrogram batch's keep-duration blend reaches K1's and K3's
+    wrappers (here on a device that has neither kernel nor plain version,
+    so they raise): no route around the kernels."""
+    import numpy as np
+
+    from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+
+    eng = AugmentEngine(AugmentConfig("durmixtimemask(0.1)", 4, 1, 16, spectrogram=True,
+                                      spec_freq=16))
+    frames = np.tile(np.array([0, 2, 5, 7, 12]), (4, 1))
+    plan = eng.plan(0, frames, np.array([0, 1, 0, 1]))
+    x = torch.zeros(4, 1, 16, 16, device="meta")
+    t = torch.zeros(4, 2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        eng.apply(x, t, plan.arrays)
+    with pytest.raises(ValueError, match="unsupported device"):
+        eng.apply_prepaired(x, x, t, t, plan.arrays)

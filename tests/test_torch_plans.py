@@ -100,7 +100,7 @@ def test_method_parser_equals_reference(method):
 
 
 @pytest.mark.parametrize("method", [
-    "cutmix", "latentmixup", "manifold-cutout", "(closestknn=8)durratiomixup",
+    "cutmix", "lengthcutmix", "manifold-cutmix", "(closestknn=8)durratiomixup",
     "(saloptenv)durratiomixup", "durratiocutmix",
 ])
 def test_unported_methods_raise(method):
