@@ -41,7 +41,16 @@ Phases (any failure exits non-zero):
    mel spectrograms, 1 × 128 × 128, whose (64, 128, 128) view K1 blends
    with 128 frequency rows as channels (plans from a spectrogram engine,
    ``durratiomixup``), against their plain versions at the same
-   tolerances.
+   tolerances.  And at the concat family's: K1 with an explicit row index
+   ``idx1`` and a zero base, on the main path's batch in fp32 and bf16,
+   with the engine's ``cutmix`` (K = 2), ``cont-cutmix`` (K = 3) and
+   ``swapsysdia`` (K = 4) plans; K3 with a zero base on rows gathered by
+   ``idx1``/``idx2`` (``cutmix``); and K1 on a full-width ResNet9 latent
+   (depth 2, 64 × 512 × 312) with a ``manifold-cutmix`` plan reckoned for
+   T = 2500, whose pieces run past the latent's end (the source index
+   clamps).  Each bit-equal to its plain version in bf16 and within 1e-6
+   in fp32; their byte bounds count the source steps the pieces read (no
+   base row is read) and the whole output.
 3. The slice end to end: ``train_model`` with full-width ResNet9 and with
    full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
    PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
@@ -59,6 +68,16 @@ Phases (any failure exits non-zero):
    (264 train rows: 4 steps an epoch, 16 steps), batch 64, with PCGmix and
    ``durmixtimemask(0.1)``, each launching K1 once per step.  Steps/s and
    finite losses, as phase 3; a profiled 2-D PCGmix call beside phase 3's.
+3c. The rest of the augmentation engine and UMC: full-width ResNet9,
+   batch 64, 4 × 2500, 16 steps each with ``cutmix``, ``durratiocutmix``
+   (the keep-duration cut), ``(smooth)labelcutmix``, ``swapsysdia``,
+   ``cont-cutmix`` and ``manifold-cutmix`` (the split step; K1 on the
+   latent), each launching K1 once per step and nothing else; then UMC
+   (``synthetic_umc_dict``, 4 × 2000, train fold 1 of the ten: 264 rows)
+   with ``(UMC-subset)durratiocutmix`` and PCGmix, and the multi-cycle
+   variant (``synthetic_physionet_full_dict``, 4 × 2500, frames padded to
+   28, 27 pieces a row) with PCGmix (K1) and PCGmix+ (K2).  Steps/s and
+   finite losses, as phase 3.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -68,16 +87,20 @@ Phases (any failure exits non-zero):
    width, and the script prints how far the single-device route drifts from
    itself there.  Phase 3's profiled PCGmix+ call is repeated on this
    route.  The 2-D PCGmix run of phase 3b runs here too and must launch K3
-   once per step.
+   once per step.  So do ``cutmix`` (K3 with a zero base on the rows
+   ``idx1`` and ``idx2`` name) and ``durratiocutmix`` (K3, base d1): K3
+   once per step, K1 never, and with the weights frozen every plot epoch's
+   loss within 1e-5 of the single-device route's.
 4b. The experiment grid: a ``synthetic_effect_dict`` corpus (240 train
    recordings × 4 cycles, 40 test recordings, 4 × 2500, seed 7) with a
    ``cvds_map.csv`` for its recordings goes through
    ``python -m pcgmix_tpu_torch.exp.runner`` in a subprocess on the card:
    full-width ResNet9, batch 64, n_fraction 0.1 (96 rows: one step an
    epoch), one seed_data, no '+cp' schedules, 3 epochs (cut from 50; the
-   width is not cut), 13 methods: base, PCGmix and PCGmix+, the 1-D
+   width is not cut), 15 methods: base, PCGmix and PCGmix+, the 1-D
    baselines (mixup, the warps, respiratory scale, time mask, Gaussian
-   noise) and the four pairings.  Every run dir must hold
+   noise), the four pairings, and the CutMix baselines ``cutmix`` and
+   ``durratiocutmix``.  Every run dir must hold
    ``performance.pkl`` and ``model.pth`` with finite losses; every K1 or
    K2 method must launch its kernel once per step and no other (the
    runner's ``done:`` lines report each run's launches), the others none;
@@ -89,11 +112,15 @@ Phases (any failure exits non-zero):
    1 × 128 × 128) with ``--dataset "PhysioNet(spec128)"``: full-width
    ResNet9-2D, the paper's seven 2-D methods (Vanilla, FreqMask, TimeMask,
    Cutout, Mixup, ManifoldMixup, PCGmix, named as the robust schedules name
-   them), 3 epochs; PCGmix must launch K1 once per step, the other six
-   nothing.
+   them) and 2-D ``cutmix`` and ``durratiocutmix``, 3 epochs; PCGmix and
+   the two cuts must launch K1 once per step, the other six nothing.
+   Then a UMC grid through the runner: ``--dataset UMC --seed-datas 1`` on
+   a ``synthetic_umc_dict`` .dat (4 × 2000, 66 train rows of fold 1: one
+   step an epoch), ``base`` and ``(UMC-subset)durratiocutmix``, 3 epochs,
+   and its rerun, which must train nothing.
 5. The profiler's kernel time of K1–K4 over 60 calls of phase 2's
-   closures, which has no launch floor (K1 and K3 at the spectrogram
-   geometry too), and each kernel's share of its bound against it and
+   closures, which has no launch floor (K1 and K3 at the spectrogram and
+   concat geometries too), and each kernel's share of its bound against it and
    against the bursts (last, since a profiler
    session leaves host overhead behind it).  Summary: a
    ``{"kernels": [...]}`` line, then the result line
@@ -180,51 +207,75 @@ GRID_METHODS = (
     "magnitudewarp(0.2,4)", "timewarp(0.05,4)", "respiratoryscale(12,20)",
     "timemask(0.2)", "gaussiannoise(25,40)", "(sameCVD)durratiomixup",
     "(samePCG)durmixmagwarp(0.2,4)", "(sameDataset)durmixmagwarp(0.2,4)",
-    "(mixAll)durmixmagwarp(0.2,4)",
+    "(mixAll)durmixmagwarp(0.2,4)", "cutmix", "durratiocutmix",
 )
 # the 2-D table's columns (BASELINE.md): Vanilla, FreqMask, TimeMask,
-# Cutout, Mixup, ManifoldMixup, PCGmix, named as exp/robust.py names them
+# Cutout, Mixup, ManifoldMixup, PCGmix, named as exp/robust.py names them;
+# and the 2-D CutMix baselines
 SPEC = "PhysioNet(spec128)"
 SPEC_SIZE = 128
 GRID_METHODS_2D = ("base", "freqmask(0.1)", "timemask(0.1)", "cutout(0.25,0.25)",
-                   "mixup(same)", "latentmixup", "durratiomixup")
+                   "mixup(same)", "latentmixup", "durratiomixup", "cutmix", "durratiocutmix")
+# UMC: the cycle length of its recordings, the methods of its grid
+UMC_LEN = 2000
+GRID_METHODS_UMC = ("base", "(UMC-subset)durratiocutmix")
+
+
+def grid_kernel(method):
+    """The kernel a grid method launches once per step (None: none)."""
+    if "durmixmagwarp" in method:
+        return "pcgmix_plus_fused"
+    if any(b in method for b in ("durratiomixup", "cutmix")):
+        return "piecewise_mix_pairs"  # PCGmix, the cuts, the concat joins
+    return None
 
 
 def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
                n_train=240, n_test=40, segments=4, epochs=3, dataset="PhysioNet",
-               methods=GRID_METHODS):
+               methods=GRID_METHODS, seed_data=1010001):
     """Phases 4b and 4c: the runner CLI over ``methods`` in a subprocess,
-    twice, on a generated corpus (1-D, or spectrograms of ``sig_len`` ×
-    ``sig_len`` for a spectrogram ``dataset``); returns {method: (wall s,
-    steps, launches)} of the first invocation."""
+    twice, on a generated corpus (1-D, spectrograms of ``sig_len`` ×
+    ``sig_len`` for a spectrogram ``dataset``, or a UMC dict of
+    ``segments`` rows a patient); returns {method: (wall s, steps,
+    launches)} of the first invocation."""
     from pcgmix_tpu_torch import utils
-    from pcgmix_tpu_torch.data import synthetic_effect_dict, synthetic_spectrogram_dict
+    from pcgmix_tpu_torch.data import (
+        synthetic_effect_dict,
+        synthetic_spectrogram_dict,
+        synthetic_umc_dict,
+    )
     from pcgmix_tpu_torch.exp.dirs import experiment_dir
     from pcgmix_tpu_torch.exp.results import results_table, to_string
     from pcgmix_tpu_torch.train import TrainConfig
 
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
+        extra = []
         if dataset == SPEC:
             corpus = synthetic_spectrogram_dict(num_wavs_train=n_train, num_wavs_test=n_test,
                                                 segments_per_wav=segments, size=sig_len,
                                                 seed=7)
+        elif dataset == "UMC":
+            corpus = synthetic_umc_dict(segments_per_patient=segments, sig_len=sig_len,
+                                        seed=7)
         else:
             corpus = synthetic_effect_dict(num_wavs_train=n_train, num_wavs_test=n_test,
                                            segments_per_wav=segments, sig_len=sig_len,
                                            seed=7)
-        dat, csv_path = os.path.join(tmp, "effect.dat"), os.path.join(tmp, "cvds_map.csv")
+            csv_path = os.path.join(tmp, "cvds_map.csv")
+            names = sorted({w for split in corpus.values() for w in split["wav"]})
+            with open(csv_path, "w") as f:  # normal recordings N, abnormal a valve disease
+                f.write("wav,diagnosis\n" + "".join(
+                    f"{w},{'N' if int(w[-4:]) % 2 == 0 else ('AS', 'MR', 'MVP')[int(w[-4:]) % 3]}\n"
+                    for w in names))
+            extra = ["--cvd-map-csv", csv_path]
+        dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(corpus, dat)
-        names = sorted({w for split in corpus.values() for w in split["wav"]})
-        with open(csv_path, "w") as f:  # normal recordings N, abnormal a valve disease
-            f.write("wav,diagnosis\n" + "".join(
-                f"{w},{'N' if int(w[-4:]) % 2 == 0 else ('AS', 'MR', 'MVP')[int(w[-4:]) % 3]}\n"
-                for w in names))
         root = os.path.join(tmp, "experiments")
         cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
                "--device", device, "--model", model, "--batch-size", str(batch),
-               "--n-fractions", "0.1", "--seed-datas", "1010001", "--no-robust",
-               "--num-epochs", str(epochs), "--cvd-map-csv", csv_path,
+               "--n-fractions", "0.1", "--seed-datas", str(seed_data), "--no-robust",
+               "--num-epochs", str(epochs), *extra,
                "--dataset", dataset, "--experiments-root", root, "--methods", *methods]
         env = {**os.environ, "PYTHONPATH": os.pathsep.join(
             [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
@@ -240,7 +291,7 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
 
         first, wall_first = invoke()
         template = TrainConfig(dataset=dataset, model=model, num_epochs=epochs,
-                               batch_size=batch, n_fraction=0.1, seed_data=1010001,
+                               batch_size=batch, n_fraction=0.1, seed_data=seed_data,
                                experiments_root=root)
         runs, done = {}, [ln for ln in first if ln.startswith("done: ")]
         for method in methods:
@@ -252,8 +303,7 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
             rest = line[0][len(f"done: {run_dir} in "):]
             wall, steps = float(rest.split(" s, ")[0]), int(rest.split(", ")[1].split()[0])
             launches = json.loads(rest.split(" launches ", 1)[1])
-            kernel = ("pcgmix_plus_fused" if "durmixmagwarp" in method
-                      else "piecewise_mix_pairs" if "durratiomixup" in method else None)
+            kernel = grid_kernel(method)
             on_card = device.startswith("cuda")  # the CPU runs the plain versions
             if launches != ({kernel: steps} if kernel and on_card else {}):
                 raise AssertionError(f"grid {method}: {steps} steps but launches {launches}")
@@ -269,14 +319,15 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
         if len(skips) != len(methods) or any(
                 ln.startswith(("run: ", "done: ")) for ln in second):
             raise AssertionError(f"grid rerun trained: {second}")
-        shape = f"1x{sig_len}x{sig_len}" if dataset == SPEC else f"4x{sig_len}"
+        shape = f"1x{sig_len}x{sig_len}" if dataset == SPEC else f"{C}x{sig_len}"
         print(f"grid {dataset}: {len(methods)} runs of {model} batch {batch} x {shape}, "
               f"{epochs} epochs at n_frac 0.1: runner call {wall_first:.3f} s; the rerun "
               f"skipped all {len(skips)} in {wall_second:.3f} s, on {card}")
         for method, (wall, steps, launches) in runs.items():
             print(f"grid {dataset} {method}: {wall:.3f} s, {steps} steps, "
                   f"launches {launches}")
-        print(to_string(results_table(template, methods, [0.1], robust=False)))
+        if dataset != "UMC":  # the reader's seed grids are PhysioNet's
+            print(to_string(results_table(template, methods, [0.1], robust=False)))
     return runs
 
 
@@ -295,6 +346,25 @@ def k27_geometry(np, rng, n, sig_len, k=27):
             "lam": 1.0}
 
 
+def source_steps(np, a, t, prepaired):
+    """Distinct source steps that a zero-base plan ``a`` (device arrays)
+    reads: of one batch's rows (K1: a row may be read as d1 and as d2), or
+    of the d1 and d2 buffers apart (K3).  Output steps past ``t`` read
+    nothing; a source index past the row clamps to its end."""
+    dst, src, ln, sel, i1, i2 = (a[k].cpu().numpy()
+                                 for k in ("dst", "src", "len", "sel", "idx1", "idx2"))
+    rows = len(i1) if prepaired else int(max(i1.max(), i2.max())) + 1
+    need = np.zeros((2, rows, t), bool)
+    for i, k in zip(*np.nonzero(ln > 0)):
+        out = np.arange(max(dst[i, k], 0), min(dst[i, k] + ln[i, k], t))
+        pos = np.clip(out + src[i, k] - dst[i, k], 0, t - 1)
+        if prepaired:
+            need[int(sel[i, k] != 0), i, pos] = True
+        else:
+            need[0, (i2 if sel[i, k] else i1)[i], pos] = True
+    return int(need.sum())
+
+
 def main() -> int:
     import torch
 
@@ -309,7 +379,9 @@ def main() -> int:
         from pcgmix_tpu_torch.data import (
             physionet_split,
             synthetic_physionet_dict,
+            synthetic_physionet_full_dict,
             synthetic_spectrogram_dict,
+            synthetic_umc_dict,
         )
         from pcgmix_tpu_torch.models import build_model
         from pcgmix_tpu_torch.models.potes import potes_features
@@ -374,17 +446,30 @@ def main() -> int:
         d2 = x.index_select(0, a["mix"].long())
         return lambda: fn(x, d2, *pieces(a), a["knots"])
 
+    def k1z(x, a, plain=False):  # the concat family's: explicit rows, base 0
+        fn = mk.piecewise_mix_pairs_plain if plain else mk.piecewise_mix_pairs
+        return lambda: fn(x, a["idx1"], a["idx2"], *pieces(a), base_is_d1=False)
+
+    def k3z(x, a, plain=False):  # on rows gathered by idx1 and idx2, base 0
+        fn = mk.piecewise_mix_prepaired_plain if plain else mk.piecewise_mix_prepaired
+        d1, d2 = (x.index_select(0, a[k].long()) for k in ("idx1", "idx2"))
+        return lambda: fn(d1, d2, *pieces(a), base_is_d1=False)
+
+
     def max_err(make, x, a):
         got, ref = make(x, a)(), make(x, a, plain=True)()
         torch.cuda.synchronize()
         return (got.float() - ref.float()).abs().max().item(), got, ref
 
-    def measure(name, make, x, a, tol, idx_bytes, row_reads, warp, extra=None):
+    def measure(name, geometry, make, x, a, tol, idx_bytes, row_reads, warp, extra=None,
+                zero_base=False):
         """Hold ``make``'s kernel against its plain version on rows ``x``
         (fp32 with plan ``a`` and with ``extra`` if given; bf16 with ``a``),
         time both with the bursts, and return the report with the bound.
         ``idx_bytes``: bytes of row indices per output row; ``row_reads``:
-        row buffers read (K3/K4 read the partner rows from their own)."""
+        row buffers read (K3/K4 read the partner rows from their own); with
+        ``zero_base`` no base row is read, only the source steps of the
+        pieces."""
         n, c, t = x.shape
         errs = [max_err(make, x, p)[0] for p in (a, extra) if p is not None]
         _, got16, ref16 = max_err(make, x.bfloat16(), a)
@@ -395,26 +480,30 @@ def main() -> int:
             ulp = torch.maximum(got16.float().abs(), ref16.float().abs()) * 2.0 ** -7
             bf16_ok = bool(((got16.float() - ref16.float()).abs() <= ulp).all())
         shape = "x".join(map(str, x.shape))
-        print(f"{name} {shape}: max_abs_err fp32 "
+        label = f"{name} {geometry} {shape}"
+        print(f"{label}: max_abs_err fp32 "
               f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}); bf16 "
               f"{'ok' if bf16_ok else 'MISMATCH'}, {n_diff16} of {got16.numel()} "
               f"elements differ from the plain version")
         if not (max(errs) <= tol and bf16_ok):
-            raise AssertionError(f"{name} {shape} disagrees with its plain version")
+            raise AssertionError(f"{label} disagrees with its plain version")
         ms = device_time_ms(torch, make(x, a))
         plain_ms = device_time_ms(torch, make(x, a, plain=True))
-        # bytes the function must move: each row buffer read once, the
-        # output written once, the row indices and the five piece arrays
-        # (and the warp's knots and basis) read once
+        # bytes the function must move: each row buffer read once (with a
+        # zero base only the steps the pieces read), the output written
+        # once, the row indices and the five piece arrays (and the warp's
+        # knots and basis) read once
         K = a["dst"].shape[1]
-        nbytes = (row_reads + 1) * x.numel() * 4 + idx_bytes * n + n * K * 5 * 4
+        reads = (source_steps(np, a, t, row_reads == 2) * c * 4 if zero_base
+                 else row_reads * x.numel() * 4)
+        nbytes = reads + x.numel() * 4 + idx_bytes * n + n * K * 5 * 4
         nflops = 4 * int(a["len"].sum().item()) * c
         if warp:
             k2n = a["knots"].shape[1]
             nbytes += a["knots"].numel() * 4 + t * k2n * 4
             nflops += (2 * k2n + 1) * x.numel()
         bound_ms = max(nbytes / bw, nflops / flops) * 1e3
-        print(f"{name} {shape}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+        print(f"{label}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
               f"{bound_ms:.6f} ms ({nbytes} B, {100 * bound_ms / ms:.1f} % of it "
               f"reached) on {card}")
         return {"shape": shape, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
@@ -433,20 +522,40 @@ def main() -> int:
                                            spectrogram=True, spec_freq=SPEC_SIZE))
     pcgmix_2d = AugmentEngine.device_arrays(
         spec_eng.plan(7, spec_split.frames[:B], spec_split.label[:B]).arrays, dev)
+    # the concat family's plans, and a full-width ResNet9 latent at depth 2
+    # (64 × 512 × 312) under a manifold-cutmix plan reckoned for T = 2500
+    concat = {m: plan(m) for m in ("cutmix", "cont-cutmix", "swapsysdia")}
+    manifold = plan("manifold-cutmix")
+    with torch.no_grad():
+        latent = build_model("resnet9", 2, C, T).to(dev).eval()(x32, depth=2, part="first")
+    past = int(((manifold["dst"] + manifold["len"] > latent.shape[-1])
+                & (manifold["len"] > 0)).sum())
+    print(f"manifold-cutmix on a latent {tuple(latent.shape)}: {past} of "
+          f"{manifold['len'].numel()} pieces run past its end")
+    if not past:
+        raise AssertionError("the manifold-cutmix geometry has no piece past the latent")
     # (name, geometry) -> report, and the closure phase 5 profiles
     report, profiled_closures = {}, {}
     # name, wrapper, geometry, rows, plan, fp32 tolerance, idx_bytes,
-    # row_reads, warp, a second fp32 plan
-    for name, make, geometry, x, a, tol, idx_bytes, row_reads, warp, extra in (
-        ("piecewise_mix_pairs", k1, "main", x32, pcgmix, 1e-6, 4, 1, False, k27),
-        ("pcgmix_plus_fused", k2, "main", x32, pcgmix_plus, 1e-5, 4, 1, True, k27),
-        ("piecewise_mix_prepaired", k3, "main", x32, pcgmix, 1e-6, 0, 2, False, k27),
-        ("pcgmix_plus_fused_prepaired", k4, "main", x32, pcgmix_plus, 1e-5, 0, 2, True, k27),
-        ("piecewise_mix_pairs", k1, "spec2d", xs, pcgmix_2d, 1e-6, 4, 1, False, None),
-        ("piecewise_mix_prepaired", k3, "spec2d", xs, pcgmix_2d, 1e-6, 0, 2, False, None),
+    # row_reads, warp, a second fp32 plan, zero base
+    for name, make, geometry, x, a, tol, idx_bytes, row_reads, warp, extra, zero in (
+        ("piecewise_mix_pairs", k1, "main", x32, pcgmix, 1e-6, 4, 1, False, k27, False),
+        ("pcgmix_plus_fused", k2, "main", x32, pcgmix_plus, 1e-5, 4, 1, True, k27, False),
+        ("piecewise_mix_prepaired", k3, "main", x32, pcgmix, 1e-6, 0, 2, False, k27, False),
+        ("pcgmix_plus_fused_prepaired", k4, "main", x32, pcgmix_plus, 1e-5, 0, 2, True, k27,
+         False),
+        ("piecewise_mix_pairs", k1, "spec2d", xs, pcgmix_2d, 1e-6, 4, 1, False, None, False),
+        ("piecewise_mix_prepaired", k3, "spec2d", xs, pcgmix_2d, 1e-6, 0, 2, False, None,
+         False),
+        *[("piecewise_mix_pairs", k1z, m, x32, concat[m], 1e-6, 8, 1, False, None, True)
+          for m in concat],
+        ("piecewise_mix_prepaired", k3z, "cutmix", x32, concat["cutmix"], 1e-6, 0, 2, False,
+         None, True),
+        ("piecewise_mix_pairs", k1z, "manifold-cutmix", latent, manifold, 1e-6, 8, 1, False,
+         None, True),
     ):
-        report[name, geometry] = measure(name, make, x, a, tol, idx_bytes, row_reads,
-                                         warp, extra)
+        report[name, geometry] = measure(name, geometry, make, x, a, tol, idx_bytes,
+                                         row_reads, warp, extra, zero)
         profiled_closures[name, geometry] = make(x, a)
 
     one, copy = torch.zeros(1, device=dev), torch.empty_like(x32)
@@ -493,12 +602,12 @@ def main() -> int:
                 raise AssertionError(f"{model} {method}: card and CPU loss traces "
                                      "disagree")
 
-    def drive(method, kernel, route, model="resnet9", data=ds, **overrides):
+    def drive(method, kernel, route, model="resnet9", data=ds, sig_len=T, **overrides):
         """One 16-step main-path run (on the spectrogram corpus ``spec_ds``
-        with ``dataset=SPEC``); the counts are set to 0 just before it and
-        read just after.  ``kernel`` must launch once per step, no other
-        kernel at all (``kernel`` None: nothing).  Returns (launches of
-        ``kernel``, losses)."""
+        with ``dataset=SPEC``, on a UMC dict with ``dataset="UMC"``); the
+        counts are set to 0 just before it and read just after.  ``kernel``
+        must launch once per step, no other kernel at all (``kernel`` None:
+        nothing).  Returns (launches of ``kernel``, losses)."""
         cfg = TrainConfig(model=model, method=method, num_epochs=4, batch_size=B,
                           num_channels=C, save_artifacts=False, **overrides)
         torch.cuda.synchronize()
@@ -518,7 +627,7 @@ def main() -> int:
         # in epoch 1); `times` is cumulative and synced at plot epochs
         d_steps = perf["steps"][-1] - perf["steps"][0]
         d_time = perf["times"][-1] - perf["times"][0]
-        shape = f"1x{SPEC_SIZE}x{SPEC_SIZE}" if cfg.spectrogram else f"{C}x{T}"
+        shape = f"1x{SPEC_SIZE}x{SPEC_SIZE}" if cfg.spectrogram else f"{C}x{sig_len}"
         print(f"{route} {method}: {model} batch {B} x {shape}, {steps} steps, "
               f"launches {counts}, losses {perf['train_loss']}, "
               f"test_accuracy {perf['test_accuracy'][-1]}")
@@ -541,6 +650,22 @@ def main() -> int:
     for method in ("durratiomixup", "durmixtimemask(0.1)"):
         n, _ = drive(method, "piecewise_mix_pairs", "spec2d", data=spec_ds, dataset=SPEC)
         launches_2d.setdefault("piecewise_mix_pairs", n)
+
+    # ---- 3c. the cut, the concat family, manifold-cutmix; UMC; multi-cycle --
+    launches_concat = {}
+    for method in ("cutmix", "durratiocutmix", "(smooth)labelcutmix", "swapsysdia",
+                   "cont-cutmix", "manifold-cutmix"):
+        n, _ = drive(method, "piecewise_mix_pairs", "concat")
+        launches_concat["piecewise_mix_pairs", method] = n
+    umc_ds = synthetic_umc_dict(segments_per_patient=4, sig_len=UMC_LEN, seed=11)
+    for method in ("(UMC-subset)durratiocutmix", "durratiomixup"):
+        drive(method, "piecewise_mix_pairs", "umc", data=umc_ds, sig_len=UMC_LEN,
+              dataset="UMC", seed_data=1)
+    full_ds = synthetic_physionet_full_dict(num_wavs_train=66, num_wavs_test=12,
+                                            windows_per_wav=4, sig_len=T, seed=11)
+    for method, kernel in (("durratiomixup", "piecewise_mix_pairs"),
+                           ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused")):
+        drive(method, kernel, "multi-cycle", data=full_ds)
 
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
@@ -599,6 +724,11 @@ def main() -> int:
     for method, kernel, _ in pairs:
         _, ref[method, "frozen"] = drive(method, kernel, "frozen", lr_max=0.0)
         ref[method, "steps"], ref[method, "again"] = first_steps(method), first_steps(method)
+    # the keep-duration cut (base d1) and a concat join (base 0): K3 on the
+    # rows a rank's block names, held with the weights frozen
+    cuts = ("cutmix", "durratiocutmix")
+    for method in cuts:
+        _, ref[method, "frozen"] = drive(method, "piecewise_mix_pairs", "frozen", lr_max=0.0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         init_group("nccl", 0, 1, os.path.join(tmp, "store"))
         try:
@@ -619,6 +749,17 @@ def main() -> int:
                 if not (d_frozen < 1e-5 and d0 < 1e-5 and r1 < 1e-3):
                     raise AssertionError(f"data-parallel {method}: loss differs from "
                                          "the single-device route")
+            for method in cuts:
+                n, _ = drive(method, "piecewise_mix_prepaired", "data-parallel")
+                launches_concat["piecewise_mix_prepaired", method] = n
+                _, frozen = drive(method, "piecewise_mix_prepaired", "data-parallel frozen",
+                                  lr_max=0.0)
+                d_frozen = float(np.max(np.abs(np.subtract(frozen, ref[method, "frozen"]))))
+                print(f"data-parallel {method}: frozen weights max |diff| {d_frozen:.3e} "
+                      f"over {len(frozen)} plot epochs")
+                if not d_frozen < 1e-5:
+                    raise AssertionError(f"data-parallel {method}: loss differs from the "
+                                         "single-device route")
             # the spectrogram path's PCGmix splits its batch too: K3
             launches_2d["piecewise_mix_prepaired"], _ = drive(
                 "durratiomixup", "piecewise_mix_prepaired", "data-parallel spec2d",
@@ -631,8 +772,10 @@ def main() -> int:
 
     # ---- 4b. the experiment grid: the runner CLI on the card ----------------
     grid_phase(np, card)
-    # ---- 4c. the 2-D table's grid ------------------------------------------
+    # ---- 4c. the 2-D table's grid, then a UMC grid -------------------------
     grid_phase(np, card, sig_len=SPEC_SIZE, dataset=SPEC, methods=GRID_METHODS_2D)
+    grid_phase(np, card, sig_len=UMC_LEN, dataset="UMC", methods=GRID_METHODS_UMC,
+               segments=1, seed_data=1)
 
     # ---- 5. the profiler's kernel time of K1–K4, then the summary ----------
     # taken last: the profiler's sessions leave host overhead behind them,
@@ -642,7 +785,7 @@ def main() -> int:
         r["kernel_us"] = sum(k5.kernel_times(fn, 60).values()) * 1e3
         share = (f"{100 * r['bound_ms'] * 1e3 / r['kernel_us']:.1f} %" if r["kernel_us"]
                  else "not measured")
-        print(f"{name} {r['shape']}: {r['kernel_us']:.3f} us by the profiler over 60 "
+        print(f"{name} {geometry} {r['shape']}: {r['kernel_us']:.3f} us by the profiler over 60 "
               f"calls, {r['ms']:.6f} ms by the bursts; bound {r['bound_ms']:.6f} ms: "
               f"{share} of it reached by the profiler's time, "
               f"{100 * r['bound_ms'] / r['ms']:.1f} % by the bursts', on {card}")
@@ -660,12 +803,16 @@ def main() -> int:
          "floor_ms": floor_ms}
         for (name, geometry), r in report.items() if geometry == "main"
     ]
-    # K1 and K3 on the spectrogram path in a field of their own: their
-    # launches in its 16-step runs (single-device, data-parallel)
+    # K1 and K3 on the spectrogram path and at the concat family's
+    # geometries, each in a field of its own: their launches in the 16-step
+    # runs of those paths (single-device, data-parallel)
     for k in kernels:
-        if (k["name"], "spec2d") in report:
-            k["spec2d"] = {**report[k["name"], "spec2d"],
-                           "launches": launches_2d[k["name"]]}
+        for (name, geometry), r in report.items():
+            if name != k["name"] or geometry == "main":
+                continue
+            n = (launches_2d[name] if geometry == "spec2d"
+                 else launches_concat.get((name, geometry), 0))
+            k[geometry] = {**r, "launches": n}
     # K5 at res2a, conv3 in a field of its own: ms is K5 without stats and
     # library_ms cuDNN's conv, the same function; the fused kernel stands
     # beside cuDNN's conv plus its statistics pass

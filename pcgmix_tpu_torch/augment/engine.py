@@ -9,36 +9,46 @@
   leaves the batch alone.  A latent method's plan carries ``latent_depth``,
   the depth of the split forward its apply runs at.
 - ``apply(data, target_ohe, arrays)`` uploads the plan and rewrites the
-  device batch: the keep-duration blends through the mix kernels, K1
-  (``piecewise_mix_batch``, K1 without a row index) for PCGmix,
-  ``durmixrespscale`` and the spectrogram ``durmix*mask`` blends, K2
-  (``pcgmix_plus_fused``) for PCGmix+; the other bases in plain tensor
-  code, as the JAX package computes them in XLA outside any Pallas kernel
-  (whole-signal and latent mixup, masks, warps, the respiratory sinusoid,
-  Gaussian noise).  For latentmixup and the manifold methods the trainer
-  calls it on the latent of the split forward (``train/steps.py``).
+  device batch through the mix kernels wherever the JAX package has a
+  Pallas kernel: K1 without a row index (``piecewise_mix_batch``, base
+  d1) for PCGmix, the keep-duration cut, ``durmixrespscale`` and the
+  spectrogram ``durmix*mask`` blends; K1 with explicit rows and a zero
+  base (``piecewise_mix_pairs``) for the concat family (the CutMix
+  variants, ``swapsysdia``, ``cont-cutmix``, ``manifold-cutmix``); K2
+  (``pcgmix_plus_fused``) for PCGmix+.  The other bases run in plain
+  tensor code, as the JAX package computes them in XLA outside any Pallas
+  kernel (whole-signal and latent mixup, masks, warps, the respiratory
+  sinusoid, Gaussian noise, the ``(smooth)`` crossfade of a concat join).
+  For latentmixup and the manifold methods the trainer calls it on the
+  latent of the split forward (``train/steps.py``).
 - ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
-  counterpart for the keep-duration blends (JAX ``engine.py:877-953``): a
-  rank passes its block of the batch, its partners' rows gathered
-  beforehand and its block of the plan, and the rows go through K3
-  (``piecewise_mix_prepaired``) or K4 (``pcgmix_plus_fused_prepaired``).
+  counterpart for the per-row bases (JAX ``engine.py:877-953``): a rank
+  passes its block of the batch (or, for the concat family, the rows
+  ``idx1`` names), its partners' rows gathered beforehand and its block of
+  the plan, and the rows go through K3 (``piecewise_mix_prepaired``, base
+  d1 or zero) or K4 (``pcgmix_plus_fused_prepaired``).  ``cutmix(ch)``
+  takes K3 on both routes, on the (B·C, 1, T) view of its rows.
 
 Spectrograms (``AugmentConfig.spectrogram``; batches (B, 1, F, T)) parse
-methods with the 2-D ladder.  Their keep-duration blends run on the
-(B, F, T) view, the frequency rows taking the place of channels (JAX
+methods with the 2-D ladder.  Their blends, cuts and concat joins run on
+the (B, F, T) view, the frequency rows taking the place of channels (JAX
 ``engine.py:963-970``), with no random displacements; the masks are a
 time window per sample, a frequency band shared by the batch, or their
 box (``_mask_arrays_2d``).
 
 Ported 1-D bases: ``durratiomixup``, ``durmixmagwarp``, ``durmixrespscale``,
-``mixup``, ``latentmixup``, ``timemask``, ``respiratoryscale``,
-``magnitudewarp``, ``timewarp``, ``gaussiannoise``, ``cutout`` (with
-``(ch)`` and ``manifold-``) and ``s1s2mask``; 2-D bases: ``durratiomixup``,
-``durmixfreqmask``, ``durmixtimemask``, ``durmixcutout``, ``cutout``,
-``timemask``, ``freqmask``, ``mixup`` and ``latentmixup``; with the
-``(sameCVD)``, ``(samePCG)``, ``(sameDataset)`` and ``(mixAll)`` pairings
-and the ``(rand)``, ``(alpha=…)`` and ``+p`` modifiers.  Other bases and
-pairings raise, naming the ROADMAP item they wait for.
+the keep-duration cut (``durratiocutmix``, ``wav-durratiocutmix``,
+``(UMC-subset)durratiocutmix``), the concat family (``cutmix`` with
+``(ch)``, ``labelcutmix``, ``lengthcutmix``, ``datasetcutmix``,
+``wavcutmix``, ``swapsysdia``, ``cont-cutmix``; ``(rand)``, ``(smooth)``
+and ``+cutout``), ``mixup``, ``latentmixup``, ``timemask``,
+``respiratoryscale``, ``magnitudewarp``, ``timewarp``, ``gaussiannoise``,
+``cutout`` (with ``(ch)``), ``s1s2mask``, and ``manifold-cutout`` and
+``manifold-cutmix``; every 2-D base; every pairing but the latent-distance
+ones, and the ``(rand)``, ``(alpha=…)`` and ``+p`` modifiers.  The
+model-in-the-loop bases and pairings (``lc-nointrusion``,
+``saliency-cutmix``, ``(closestknn=…)``, ``(closestbins=…)``,
+``(salopt…)``) raise, naming the ROADMAP item they wait for.
 
 One deviation from the JAX engine: ``gaussiannoise`` draws its noise
 tensor from ``jax.random`` there, which torch cannot reproduce (as with
@@ -64,6 +74,7 @@ from pcgmix_tpu_torch.ops.mix_kernels import (
     pcgmix_plus_fused,
     pcgmix_plus_fused_prepaired,
     piecewise_mix_batch,
+    piecewise_mix_pairs,
     piecewise_mix_prepaired,
 )
 from pcgmix_tpu_torch.models.registry import max_latent_depth
@@ -73,17 +84,21 @@ from pcgmix_tpu_torch.ops.spline import magnitude_warp, time_warp
 
 MASKED_BLEND_BASES = ("durmixfreqmask", "durmixtimemask", "durmixcutout")  # 2-D
 KEEPDUR_BASES = ("durratiomixup", "durmixmagwarp", "durmixrespscale") + MASKED_BLEND_BASES
-PORTED_BASES = KEEPDUR_BASES + (
+# the keep-duration cut: systole and diastole copied from the partner
+KEEPDUR_CUT_BASES = ("durratiocutmix", "(UMC-subset)durratiocutmix", "wav-durratiocutmix")
+# the concat family: pieces of two rows re-joined on a zero base
+CONCAT_BASES = ("cutmix", "labelcutmix", "lengthcutmix", "datasetcutmix", "wavcutmix",
+                "swapsysdia", "cont-cutmix")
+PORTED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES + (
     "mixup", "latentmixup", "timemask", "freqmask", "respiratoryscale",
     "magnitudewarp", "timewarp", "gaussiannoise", "cutout", "s1s2mask",
 )
-# base → the ROADMAP queue 1 item that it waits for
-_WAITING_BASES = {
-    **dict.fromkeys(("cutmix", "durratiocutmix", "(UMC-subset)durratiocutmix",
-                     "wav-durratiocutmix", "labelcutmix", "lengthcutmix",
-                     "datasetcutmix", "wavcutmix", "swapsysdia", "cont-cutmix"), 5),
-    **dict.fromkeys(("lc-nointrusion", "saliency-cutmix"), 10),
-}
+# the bases a data-parallel rank mixes on its block (every row's pieces
+# read only its own row and one partner)
+PREPAIRED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES
+# base → the ROADMAP queue 1 item that it waits for (the model in the loop)
+_WAITING_BASES = dict.fromkeys(("lc-nointrusion", "saliency-cutmix"), 10)
+SALOPT_ITEM = 10
 # plan arrays that are not batch-leading: a data-parallel rank takes them
 # whole (the frequency band is shared by the batch, the sinusoid by its rows)
 SHARED_ARRAYS = ("fbb", "sinusoid")
@@ -108,6 +123,7 @@ class AugmentConfig:
 class Plan:
     arrays: dict
     latent_depth: Optional[int] = None  # latent methods: the split depth
+    frames_new: Optional[np.ndarray] = None  # concat joins: the new rows' frames
 
 
 def _sanitize_padded_pieces(pieces: dict) -> None:
@@ -140,6 +156,40 @@ def _blend(data, mix_idx, lam):
     mixed = data.index_select(0, mix_idx.long())
     lam = torch.tensor(lam, dtype=data.dtype, device=data.device)
     return data * lam + mixed * (1.0 - lam)
+
+
+def _smooth_join(out, x1, x2, a):
+    """The ``(smooth)`` crossfade at a concat join (JAX ``engine.py:136-151``;
+    reference augmentations.py:41-51): on [c1−ov, c1+ov) the output is
+    x1·(1−w) + x2[clamp(t−c1+c2)]·w, w a logistic ramp over [−8, 8] forced
+    to 0 at the window's first step and 1 at its last.  Rows (N, C, T)."""
+    T = out.shape[-1]
+    t = torch.arange(T, dtype=torch.int64, device=out.device)
+    c1, c2, ov = (a[k].long()[:, None] for k in ("c1", "c2", "ov"))
+    j = (t - (c1 - ov)).float()
+    w2 = torch.sigmoid(-8.0 + 16.0 * j / torch.clamp(2 * ov - 1, min=1).float())
+    w2 = torch.where(j <= 0, 0.0, w2)
+    w2 = torch.where(j >= 2 * ov - 1, 1.0, w2)[:, None, :]
+    inwin = ((t >= c1 - ov) & (t < c1 + ov) & (ov > 0))[:, None, :]
+    idx = (t - c1 + c2).clamp(0, T - 1)[:, None, :].expand_as(x2)
+    blended = x1 * (1.0 - w2) + torch.gather(x2, 2, idx) * w2
+    return torch.where(inwin, blended, out)
+
+
+def _cutmix_per_channel(d1, d2, a):
+    """cutmix(ch) on rows and their partners (JAX ``engine.py:531-548``):
+    channel c of row i keeps d1 before its cut ``ch_c1``, takes d2 from
+    ``ch_c2`` on up to ``ch_last`` and is zero after: K3 with base d1 and
+    one piece on the (N·C, 1, T) view, then the zero tail."""
+    N, C, T = d1.shape
+    c1, c2 = a["ch_c1"].reshape(-1, 1), a["ch_c2"].reshape(-1, 1)
+    last = a["ch_last"].reshape(-1, 1)
+    out = piecewise_mix_prepaired(
+        d1.reshape(N * C, 1, T), d2.reshape(N * C, 1, T), c1, c2, last - c1,
+        torch.ones_like(c1), torch.zeros(c1.shape, dtype=torch.float32, device=d1.device),
+        base_is_d1=True,
+    )
+    return zero_after(out, last.reshape(-1)).view(N, C, T)
 
 
 def _mask_bb(data, bb):
@@ -193,21 +243,23 @@ class AugmentEngine:
         self.cfg = cfg
         self.spec: MethodSpec = parse_method(cfg.method, spectrogram=cfg.spectrogram)
         spec = self.spec
-        if spec.enabled and spec.base in _WAITING_BASES:
+        item = spec.enabled and (
+            _WAITING_BASES.get(spec.base) or pairing_mod.WAITING.get(spec.pairing)
+            or (SALOPT_ITEM if spec.salopt is not None else None))
+        if item:
             raise NotImplementedError(
-                f"method {cfg.method!r} is not ported yet (ROADMAP queue 1 item "
-                f"{_WAITING_BASES[spec.base]})"
+                f"method {cfg.method!r} is not ported yet (ROADMAP queue 1 item {item})"
             )
         if spec.enabled and (
             spec.base not in PORTED_BASES
             or spec.pairing not in pairing_mod.PORTED_PAIRINGS
-            or spec.salopt is not None
-            or (spec.manifold and spec.base != "cutout")
+            or (spec.manifold and spec.base not in ("cutout", "cutmix"))
         ):
             raise NotImplementedError(
                 f"method {cfg.method!r} is not ported yet; the port covers the "
-                f"bases {', '.join(PORTED_BASES)} (and manifold-cutout) with the "
-                f"pairings {', '.join(pairing_mod.PORTED_PAIRINGS)}"
+                f"bases {', '.join(PORTED_BASES)} (and manifold-cutout, "
+                f"manifold-cutmix) with the pairings "
+                f"{', '.join(pairing_mod.PORTED_PAIRINGS)}"
             )
         # Mirror of the reference's ambient NumPy stream, seeded once per run
         # with seed_fix (train_model.py:222): magnitudewarp, timewarp and
@@ -241,6 +293,14 @@ class AugmentEngine:
         frames = np.asarray(frames, np.int64)
         labels = np.asarray(labels)
         B = len(labels)
+        if frames.shape[1] != 5 and base in CONCAT_BASES:
+            # a concat join rewrites the frames vector, which −1-padded
+            # multi-cycle frames leave undefined (the reference too)
+            raise NotImplementedError(
+                f"{base!r} supports single-cycle (5-entry) frames only; "
+                "the full multi-cycle variant supports the keep-duration "
+                "families, masks, warps, and whole-signal mixes"
+            )
 
         def pair():
             return pairing_mod.build_pairing(
@@ -249,6 +309,20 @@ class AugmentEngine:
 
         if base in KEEPDUR_BASES:
             return self._plan_keepdur_blend(step, frames, labels, pair())
+        if base in KEEPDUR_CUT_BASES:
+            return self._plan_keepdur_cut(step, frames, pair())
+        if base in ("cutmix", "labelcutmix", "lengthcutmix", "datasetcutmix", "wavcutmix"):
+            if base == "cutmix" and spec.per_channel:
+                p = self._plan_concat_per_channel(step, frames, pair())
+            else:
+                p = self._plan_concat(step, frames, pair())
+            if spec.manifold:
+                p.latent_depth = prng.py_randint(step, 0, 3)  # augmentations.py:1527-1530
+            return p
+        if base == "swapsysdia":
+            return self._plan_swapsysdia(step, frames)
+        if base == "cont-cutmix":
+            return self._plan_cont_cutmix(step, frames)
         if base == "mixup":
             mix = pair()
             return Plan(arrays={"mix": mix,
@@ -326,6 +400,152 @@ class AugmentEngine:
         if spec.base in MASKED_BLEND_BASES:
             arrays.update(self._mask_arrays_2d(step, frames))
         return Plan(arrays=arrays)
+
+    def _plan_keepdur_cut(self, step, frames, mix):
+        """The keep-duration cut (JAX ``engine.py:386-414``; reference
+        augmentations.py:340-366): systole and diastole (segments ≡ 1, 3
+        mod 4, per cycle in the multi-cycle variant) copied from the
+        partner with alpha 0, S1 and S2 left as they are; ``(rand)``
+        displaces the longer side in 1-D only."""
+        B, nseg = frames.shape[0], frames.shape[1] - 1
+        swap_segs = tuple(k for k in range(nseg) if k % 4 in (1, 3))
+        disp = np.zeros((B, nseg), np.int64)
+        if self.spec.rand and not self.cfg.spectrogram:
+            disp = self._rand_displacements(step, frames, mix, segs=swap_segs)
+        pieces = segment_blend_pieces(frames, frames[mix], disp,
+                                      np.zeros((B, nseg), np.float32))
+        if nseg > 4:
+            _sanitize_padded_pieces(pieces)
+        length = np.asarray(pieces["length"]).copy()
+        length[:, [k for k in range(nseg) if k % 4 in (0, 2)]] = 0
+        return Plan(arrays={
+            "mix": mix,
+            "dst": pieces["dst_start"],
+            "src": pieces["src_start"],
+            "len": length,
+            "sel": pieces["src_sel"],
+            "alpha": pieces["alpha"],
+        })
+
+    def _cut_choice(self, step):
+        """The segment boundary a concat join cuts at; the seed differs per
+        handler (JAX ``engine.py:436-453``): the 1-D plain cutmix always
+        draws Random(step·131071).randint(1, 3) (augmentations.py:1549);
+        labelcutmix and 2-D cutmix draw that under ``(rand)``
+        (:1304, augmentations2d.py:588-590); length/dataset/wav-cutmix draw
+        Random(step) under ``(rand)`` (:1139, :1170, :1201); else 2."""
+        spec = self.spec
+        if spec.base == "cutmix" and not self.cfg.spectrogram:
+            return prng.py_randint(step * 131071, 1, 3)
+        if not spec.rand:
+            return 2
+        if spec.base == "labelcutmix" or (self.cfg.spectrogram and spec.base == "cutmix"):
+            return prng.py_randint(step * 131071, 1, 3)
+        return prng.py_randint(step, 1, 3)
+
+    def _concat_piece_arrays(self, frames, mix, cut):
+        """Two pieces on a zero base (reference cutmix_multidim_tensors,
+        augmentations.py:30-58): d1 up to its boundary ``cut`` (c1), then
+        d2 from its own (c2) on, clipped at T; and the joined row's frames."""
+        T = self.cfg.sig_len
+        f1, f2 = frames, frames[mix]
+        N = f1.shape[0]
+        c1, c2 = f1[:, cut], f2[:, cut]
+        last = np.minimum(c1 + f2[:, -1] - c2, T)
+        zeros = np.zeros(N, np.int64)
+        arrays = {
+            "dst": np.stack([zeros, c1], axis=1),
+            "src": np.stack([zeros, c2], axis=1),
+            "len": np.stack([c1, last - c1], axis=1),
+            "sel": np.stack([zeros, np.ones(N, np.int64)], axis=1),
+            "alpha": np.zeros((N, 2), np.float32),
+            "last": last, "c1": c1, "c2": c2,
+        }
+        f_new = np.concatenate(
+            [f1[:, : cut + 1], f2[:, cut + 1 :] - c2[:, None] + c1[:, None]], axis=1
+        )
+        f_new[:, -1] = np.minimum(f_new[:, -1], last)
+        return arrays, f_new
+
+    def _plan_concat(self, step, frames, mix):
+        """The CutMix variants (JAX ``engine.py:478-509``): the join at
+        ``_cut_choice``, with ``ov`` for ``(smooth)``, a cutout window ``bb``
+        on the joined row for ``+cutout``, and 1-D cutmix's per-row target
+        weight f1[cut]/last (augmentations.py:1560-1565)."""
+        spec = self.spec
+        cut = self._cut_choice(step)
+        arrays, f_new = self._concat_piece_arrays(frames, mix, cut)
+        arrays["idx1"] = np.arange(len(mix), dtype=np.int64)
+        arrays["idx2"] = mix
+        f2 = frames[mix]
+        if spec.smooth:
+            arrays["ov"] = np.minimum.reduce([
+                np.full_like(frames[:, cut], 10), frames[:, cut],
+                f2[:, -1] - f2[:, cut], frames[:, -1] - frames[:, cut], f2[:, cut],
+            ])
+        if "cutout" in spec.raw:
+            lo, hi = prng.py_sorted_uniform_pair(step)
+            arrays["bb"] = np.stack([(lo * f_new[:, -1]).astype(np.int64),
+                                     (hi * f_new[:, -1]).astype(np.int64)], axis=1)
+        if spec.base == "cutmix" and not self.cfg.spectrogram:
+            arrays["lam_t"] = (frames[:, cut] / np.maximum(arrays["last"], 1)
+                               ).astype(np.float32)
+        return Plan(arrays=arrays, frames_new=f_new)
+
+    def _plan_concat_per_channel(self, step, frames, mix):
+        """cutmix(ch) (JAX ``engine.py:511-529``): a cut per channel from
+        Random(step·131071 + c·524287) (augmentations.py:1536-1547); the
+        target weight is the mean of the channels' f1[cut]/last."""
+        T, C = self.cfg.sig_len, self.cfg.num_channels
+        cuts = [prng.py_randint(step * 131071 + c * 524287, 1, 3) for c in range(C)]
+        f2 = frames[mix]
+        c1, c2 = frames[:, cuts], f2[:, cuts]  # (B, C)
+        last = np.minimum(c1 + f2[:, -1:] - c2, T)
+        lam_t = (c1 / np.maximum(last, 1)).mean(axis=1).astype(np.float32)
+        return Plan(arrays={"idx2": mix, "ch_c1": c1, "ch_c2": c2, "ch_last": last,
+                            "lam_t": lam_t})
+
+    def _plan_swapsysdia(self, step, frames):
+        """S1(d1) + systole(d2) + S2(d1) + diastole(d2), re-joined from 0
+        (JAX ``engine.py:609-628``; augmentations.py:1335-1353); the target
+        weight is d1's share, (s1 + s2)/total."""
+        B = frames.shape[0]
+        mix = pairing_mod.mix_all(B, step)
+        f1, f2 = frames, frames[mix]
+        s1, s2 = f1[:, 1] - f1[:, 0], f1[:, 3] - f1[:, 2]
+        sys2, dia2 = f2[:, 2] - f2[:, 1], f2[:, 4] - f2[:, 3]
+        d0 = np.zeros(B, np.int64)
+        return Plan(arrays={
+            "idx1": np.arange(B, dtype=np.int64), "idx2": mix,
+            "dst": np.stack([d0, s1, s1 + sys2, s1 + sys2 + s2], axis=1),
+            "src": np.stack([f1[:, 0], f2[:, 1], f1[:, 2], f2[:, 3]], axis=1),
+            "len": np.stack([s1, sys2, s2, dia2], axis=1),
+            "sel": np.tile(np.array([0, 1, 0, 1], np.int64), (B, 1)),
+            "alpha": np.zeros((B, 4), np.float32),
+            "lam_t": ((s1 + s2) / np.maximum(s1 + sys2 + s2 + dia2, 1)).astype(np.float32),
+        })
+
+    def _plan_cont_cutmix(self, step, frames):
+        """A window of d2 spliced into d1 at the same relative position
+        (JAX ``engine.py:630-651``; augmentations.py:1356-1394); one target
+        weight for the batch, 1 − (hi − lo)."""
+        B = frames.shape[0]
+        mix = pairing_mod.mix_all(B, step)
+        lo, hi = prng.py_sorted_uniform_pair(step)
+        d1_len, d2_len = frames_end(frames), frames_end(frames[mix])
+        bb1 = np.stack([(lo * d1_len).astype(np.int64), (hi * d1_len).astype(np.int64)], 1)
+        bb2 = np.stack([(lo * d2_len).astype(np.int64), (hi * d2_len).astype(np.int64)], 1)
+        seg2 = bb2[:, 1] - bb2[:, 0]
+        z = np.zeros(B, np.int64)
+        return Plan(arrays={
+            "idx1": np.arange(B, dtype=np.int64), "idx2": mix,
+            "dst": np.stack([z, bb1[:, 0], bb1[:, 0] + seg2], axis=1),
+            "src": np.stack([z, bb2[:, 0], bb1[:, 1]], axis=1),
+            "len": np.stack([bb1[:, 0], seg2, d1_len - bb1[:, 1]], axis=1),
+            "sel": np.tile(np.array([0, 1, 0], np.int64), (B, 1)),
+            "alpha": np.zeros((B, 3), np.float32),
+            "lam_t": np.full(B, np.float32(1.0 - (hi - lo)), np.float32),
+        })
 
     def _plan_cutout_1d(self, step, frames):
         """1-D cutout bounds: one window per row, or with ``(ch)`` one per
@@ -446,22 +666,29 @@ class AugmentEngine:
             k: np.array(v, copy=True) if isinstance(v, np.ndarray) else v
             for k, v in arrays.items()
         }
-        if "mix" in out:
-            out["mix"] = np.arange(batch, dtype=np.int64)
+        for k in ("mix", "idx1", "idx2"):
+            if k in out:
+                out[k] = np.arange(batch, dtype=np.int64)
         if "len" in out:
             out["len"][:] = 0
+            if self.spec.base in CONCAT_BASES:
+                # a concat join starts from zeros: piece 0 copies d1 whole
+                for k in ("dst", "src", "sel", "alpha"):
+                    out[k][:] = 0
+                out["len"][:, 0] = T
         if "lam" in out:
             out["lam"] = np.float32(1.0)
-        for k in ("knots", "sinusoid"):
+        for k in ("knots", "sinusoid", "lam_t"):
             if k in out:
                 out[k] = np.ones_like(out[k])
-        for k in ("bb", "bb1", "bb2", "fbb"):
+        for k in ("bb", "bb1", "bb2", "fbb", "ov"):
             if k in out:
                 out[k] = np.zeros_like(out[k])
         if "snr" in out:
             out["snr"] = np.full_like(out["snr"], 300.0)
-        if "end" in out:
-            out["end"] = np.full_like(out["end"], T)
+        for k in ("end", "ch_c1", "ch_c2", "ch_last"):
+            if k in out:
+                out[k] = np.full_like(out[k], T)
         return out
 
     # ------------------------------------------------------------------ #
@@ -489,6 +716,16 @@ class AugmentEngine:
             a["alpha"], base_is_d1=True,
         ).view(data.shape)
 
+    def _concat_finish(self, out, x1, x2, a):
+        """A concat join's mixed rows (N, C, T) after the kernel: the
+        ``(smooth)`` crossfade of d1 rows ``x1()`` into d2 rows ``x2()``,
+        then the ``+cutout`` window (JAX ``engine.py:1031-1040``)."""
+        if self.spec.smooth:
+            out = _smooth_join(out, x1(), x2(), a)
+        if "bb" in a:
+            out = _mask_bb(out, a["bb"])
+        return out
+
     def apply(self, data: torch.Tensor, target_ohe: torch.Tensor, arrays: dict):
         """Apply a plan to the device batch, or for a latent method to the
         latent at the plan's depth; returns (data, target_ohe)."""
@@ -496,6 +733,24 @@ class AugmentEngine:
         a = self.device_arrays(arrays, data.device)
         if self.cfg.spectrogram and base in ("cutout", "timemask", "freqmask"):
             return _mask_2d(data, a), target_ohe
+        if base in KEEPDUR_CUT_BASES:
+            return self._keepdur_apply(data, a), target_ohe
+        if base in CONCAT_BASES:
+            if self.spec.per_channel:
+                out = _cutmix_per_channel(data, data.index_select(0, a["idx2"].long()), a)
+            else:
+                rows = _as_rows(data)
+                out = piecewise_mix_pairs(
+                    rows, a["idx1"], a["idx2"], a["dst"], a["src"], a["len"], a["sel"],
+                    a["alpha"], base_is_d1=False,
+                )
+                out = self._concat_finish(
+                    out, lambda: rows.index_select(0, a["idx1"].long()),
+                    lambda: rows.index_select(0, a["idx2"].long()), a,
+                ).view(data.shape)
+            if "lam_t" in a:
+                target_ohe = _blend_targets(target_ohe, a["idx2"], a["lam_t"])
+            return out, target_ohe
         if base in KEEPDUR_BASES or base in ("mixup", "latentmixup"):
             if base == "durmixmagwarp":
                 # one kernel: partner fetch + segment blend + spline warp
@@ -529,10 +784,11 @@ class AugmentEngine:
 
     def check_prepaired(self) -> None:
         """Raise unless :meth:`apply_prepaired` takes this method: the
-        data-parallel route splits a batch over the ranks only for the
-        keep-duration blends (the latent methods, the masks and the other
-        baselines run on a replicated batch, or on one device)."""
-        if self.spec.base not in KEEPDUR_BASES:
+        data-parallel route splits a batch over the ranks for the
+        keep-duration blends and cut and the concat family (the latent
+        methods, the masks and the other baselines run on a replicated
+        batch, or on one device)."""
+        if self.spec.base not in PREPAIRED_BASES or self.spec.latent:
             raise NotImplementedError(
                 f"{self.spec.base!r} on a data-parallel batch split over the "
                 "ranks is not ported yet; run it on one device"
@@ -542,22 +798,36 @@ class AugmentEngine:
                         target1: torch.Tensor, target2: torch.Tensor,
                         arrays: dict):
         """Apply a block of a plan to rows whose partners were gathered
-        beforehand: row i of ``d1`` mixes with row i of ``d2``, and its
-        one-hot target with row i of ``target2``.  ``arrays`` holds the
-        block's rows of every batch-leading plan array.  Returns
-        (data, target_ohe)."""
+        beforehand: row i of ``d1`` (its base row: ``idx1``'s for the concat
+        family) mixes with row i of ``d2``, and its one-hot target with row
+        i of ``target2``.  ``arrays`` holds the block's rows of every
+        batch-leading plan array.  Returns (data, target_ohe)."""
         self.check_prepaired()
+        base = self.spec.base
         a = self.device_arrays(arrays, d1.device)
+        if base in CONCAT_BASES:
+            if self.spec.per_channel:
+                out = _cutmix_per_channel(d1, d2, a)
+            else:
+                r1, r2 = _as_rows(d1), _as_rows(d2)
+                out = piecewise_mix_prepaired(
+                    r1, r2, a["dst"], a["src"], a["len"], a["sel"], a["alpha"],
+                    base_is_d1=False,
+                )
+                out = self._concat_finish(out, lambda: r1, lambda: r2, a).view(d1.shape)
+            if "lam_t" in a:
+                target1 = _lerp_targets(target1, target2, a["lam_t"])
+            return out, target1
         pieces = (a["dst"], a["src"], a["len"], a["sel"], a["alpha"])
-        if self.spec.base == "durmixmagwarp":
+        if base == "durmixmagwarp":
             out = pcgmix_plus_fused_prepaired(d1, d2, *pieces, a["knots"])
         else:
             out = piecewise_mix_prepaired(_as_rows(d1), _as_rows(d2), *pieces,
                                           base_is_d1=True).view(d1.shape)
-        if self.spec.base == "durmixrespscale":
+        if base == "durmixrespscale":
             out = out * a["sinusoid"]
-        if self.spec.base in MASKED_BLEND_BASES:
+        if base in MASKED_BLEND_BASES:
             out = _mask_2d(out, a)
-        if self.spec.mix_all_targets:
+        if self.spec.mix_all_targets and base in KEEPDUR_BASES:
             target1 = _lerp_targets(target1, target2, a["lam"])
         return out, target1

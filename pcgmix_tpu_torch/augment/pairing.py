@@ -3,9 +3,10 @@
 Builds, on the host, the within-batch partner permutation of the mixing
 methods with the reference's ``random.Random(step)`` protocol: the
 same-label shuffle of PCGmix and PCGmix+, the constrained shuffles
-(same diagnosis, recording, dataset, or length bin) and the unconstrained
-one.  The latent-distance pairings (closestknn/closestbins) and the UMC
-subset pairing come with the slices that need them and raise here.
+(same diagnosis, recording, dataset, UMC subset, or length bin) and the
+unconstrained one.  The latent-distance pairings (closestknn/closestbins)
+need a model in the loop; they come with the slice that ports it and
+raise here.
 """
 
 from __future__ import annotations
@@ -17,9 +18,9 @@ import numpy as np
 from pcgmix_tpu_torch import rng as prng
 
 PORTED_PAIRINGS = ("same_label", "same_cvd", "same_wav", "same_dataset",
-                   "same_length", "mix_all")
+                   "same_umc_subset", "same_length", "mix_all")
 # pairing → the ROADMAP queue 1 item that it waits for
-_WAITING = {"closestknn": 10, "closestbins": 10, "same_umc_subset": 8}
+WAITING = {"closestknn": 10, "closestbins": 10}
 
 
 def same_label(labels: np.ndarray, seed: int) -> np.ndarray:
@@ -44,6 +45,16 @@ def same_dataset(labels: np.ndarray, wavs: Sequence[str], seed: int) -> np.ndarr
     """Shuffle within (PhysioNet subset letter, label) groups
     (augmentations.py:542-556)."""
     keys = [f"{w[0]}_{int(t)}" for w, t in zip(wavs, labels)]
+    return prng.grouped_shuffle(keys, seed)
+
+
+def same_umc_subset(labels: np.ndarray, wavs: Sequence[str], seed: int) -> np.ndarray:
+    """Shuffle within (UMC old/new subset, label) groups
+    (augmentations.py:632-653): 3-digit patient ids are 'new'."""
+    keys = [
+        f"{'new' if len(w.split('_')[0]) == 3 else 'old'}_{int(t)}"
+        for w, t in zip(wavs, labels)
+    ]
     return prng.grouped_shuffle(keys, seed)
 
 
@@ -90,13 +101,15 @@ def build_pairing(
         return same_wav(wavs, step)
     if spec.pairing == "same_dataset":
         return same_dataset(labels, wavs, step)
+    if spec.pairing == "same_umc_subset":
+        return same_umc_subset(labels, wavs, step)
     if spec.pairing == "same_length":
         return same_length(labels, frames, step, batch_size, spec.pairing_param)
     if spec.pairing == "mix_all":
         return mix_all(len(labels), step)
-    if spec.pairing in _WAITING:
+    if spec.pairing in WAITING:
         raise NotImplementedError(
             f"pairing {spec.pairing!r} is not ported yet "
-            f"(ROADMAP queue 1 item {_WAITING[spec.pairing]})"
+            f"(ROADMAP queue 1 item {WAITING[spec.pairing]})"
         )
     raise ValueError(f"unknown pairing {spec.pairing!r}")

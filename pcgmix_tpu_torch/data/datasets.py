@@ -2,14 +2,18 @@
 
 Data contract: reference dataset dicts map ``{'data': {band: [N × T]},
 'label': [N], 'frames': [N × 5], 'wav': [N], 'sig_qual': [N]}`` with a
-'train'/'test' level for PhysioNet; a spectrogram dict's ``'data'`` is one
-(N, F, T) array of mel spectrograms, its frames in spectrogram columns.  Splits stay numpy on the host; the
-training loop uploads the train split to the device once.
+'train'/'test' level for PhysioNet; a UMC dict is one level and adds the
+patient ``'id'`` and ``'excluded'``; a spectrogram dict's ``'data'`` is
+one (N, F, T) array of mel spectrograms, its frames in spectrogram
+columns.  The multi-cycle variant's frames are (N, 28), padded with −1.
+Splits stay numpy on the host; the training loop uploads the train split
+to the device once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -64,6 +68,7 @@ class ArrayDataset:
     frames: np.ndarray  # (N, 5) int64
     wav: np.ndarray  # (N,) object (recording names)
     sig_qual: np.ndarray  # (N,) int64
+    ids: Optional[np.ndarray] = None  # (N,) object: UMC patient ids
 
     def __len__(self) -> int:
         return len(self.label)
@@ -76,6 +81,7 @@ class ArrayDataset:
             frames=self.frames[indices],
             wav=self.wav[indices],
             sig_qual=self.sig_qual[indices],
+            ids=None if self.ids is None else self.ids[indices],
         )
 
     @classmethod
@@ -93,4 +99,5 @@ class ArrayDataset:
             frames=np.asarray(d["frames"], np.int64),
             wav=np.asarray(d["wav"], object),
             sig_qual=np.asarray(d["sig_qual"], np.int64),
+            ids=np.asarray(d["id"], object) if "id" in d else None,
         )

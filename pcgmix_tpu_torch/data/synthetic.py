@@ -1,6 +1,7 @@
-"""Synthetic PhysioNet-shaped datasets (counterpart:
+"""Synthetic PhysioNet- and UMC-shaped datasets (counterpart:
 ``pcgmix_tpu/data/synthetic.py::synthetic_physionet_dict``,
-``synthetic_effect_dict`` and ``synthetic_spectrogram_dict``).
+``synthetic_effect_dict``, ``synthetic_physionet_full_dict``,
+``synthetic_umc_dict`` and ``synthetic_spectrogram_dict``).
 
 Dataset dicts with the exact reference contract — per-band signal arrays,
 binary labels, [0, e1, e2, e3, e4] frames, wav names with subset letters,
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from pcgmix_tpu_torch.data.datasets import MODEL_BANDS, WIDE_BAND
+from pcgmix_tpu_torch.data.umc import ALL_PATIENTS
 
 
 def synthetic_physionet_dict(
@@ -218,6 +220,97 @@ def synthetic_effect_dict(
         "train": make_split(num_wavs_train, "tr"),
         "test": make_split(num_wavs_test, "te"),
     }
+
+
+def synthetic_physionet_full_dict(
+    num_wavs_train: int = 16,
+    num_wavs_test: int = 6,
+    windows_per_wav: int = 2,
+    sig_len: int = 2500,
+    max_frames: int = 28,
+    seed: int = 0,
+) -> dict:
+    """The PhysioNet "full" multi-cycle variant (databuilder.ipynb cell 23):
+    each row is a whole sig_len window starting at an S1, with no zero
+    tail, and ``frames`` lists every segment boundary inside the window,
+    padded to ``max_frames`` with −1.  Cycle states run S1 → systole → S2 →
+    diastole, so segment k has state k mod 4."""
+    rng = np.random.default_rng(seed)
+    bands = list(MODEL_BANDS) + [WIDE_BAND]
+
+    def make_split(num_wavs, prefix):
+        data = {b: [] for b in bands}
+        labels, frames, wavs, sq = [], [], [], []
+        for w in range(num_wavs):
+            label = int(w % 2)
+            name = f"{'abcdef'[(w // 2) % 6]}{prefix}{w:04d}"
+            for _ in range(windows_per_wav):
+                scale = sig_len / 2500.0
+                lo = np.maximum((np.array([80, 150, 60, 300]) * scale), 4).astype(int)
+                hi = np.maximum((np.array([140, 350, 120, 700]) * scale), 8).astype(int)
+                # draw cycles until the window is over-full, keep the
+                # boundaries at offsets <= sig_len (cell 23's last_i scan)
+                bounds = [0]
+                while bounds[-1] <= sig_len and len(bounds) < max_frames + 8:
+                    bounds.extend(bounds[-1] + np.cumsum(rng.integers(lo, hi)))
+                f_valid = np.array([b for b in bounds if b <= sig_len][:max_frames],
+                                   np.int64)
+                if len(f_valid) < 5:
+                    raise ValueError("a window must hold one full cycle")
+                f = np.pad(f_valid, (0, max_frames - len(f_valid)), constant_values=-1)
+                for b_i, b in enumerate(bands):
+                    freq = 30.0 + 40.0 * b_i
+                    sig = 0.1 * rng.standard_normal(sig_len).astype(np.float32)
+                    for k in range(len(f_valid) - 1):
+                        s, e = f_valid[k], f_valid[k + 1]
+                        seg = np.arange(e - s)
+                        if k % 4 == 0:  # S1
+                            sig[s:e] += 2.0 * np.sin(2 * np.pi * freq * seg / 1000.0)
+                        elif k % 4 == 2:  # S2
+                            sig[s:e] += 1.5 * np.sin(2 * np.pi * freq * 1.3 * seg / 1000.0)
+                        elif k % 4 == 1 and label == 1:  # systolic murmur
+                            sig[s:e] += 0.8 * rng.standard_normal(e - s)
+                    data[b].append(sig)
+                labels.append(label)
+                frames.append(f)
+                wavs.append(name)
+                sq.append(1)
+        return {
+            "data": {
+                b: (np.stack(v) if v else np.zeros((0, sig_len), np.float32))
+                for b, v in data.items()
+            },
+            "label": np.array(labels, np.int64),
+            "frames": (np.stack(frames) if frames
+                       else np.zeros((0, max_frames), np.int64)),
+            "wav": np.array(wavs, object),
+            "sig_qual": np.array(sq, np.int64),
+        }
+
+    return {
+        "train": make_split(num_wavs_train, "tr"),
+        "test": make_split(num_wavs_test, "te"),
+    }
+
+
+def synthetic_umc_dict(
+    segments_per_patient: int = 4, sig_len: int = 2000, seed: int = 0
+) -> dict:
+    """A UMC-shaped dict over the real patient-id universe (so the
+    hardcoded folds apply), one level with 'id' and 'excluded'
+    (dataloader_umc.py:46-47); every row kept and of good quality."""
+    base = synthetic_physionet_dict(
+        num_wavs_train=len(ALL_PATIENTS) * 2, num_wavs_test=0,
+        segments_per_wav=segments_per_patient, sig_len=sig_len, seed=seed,
+    )["train"]
+    n = len(base["label"])
+    per_patient = 2 * segments_per_patient
+    base["id"] = np.array(
+        [ALL_PATIENTS[(i // per_patient) % len(ALL_PATIENTS)] for i in range(n)], object
+    )
+    base["excluded"] = np.ones(n, np.int64)
+    base["sig_qual"] = np.ones(n, np.int64)
+    return base
 
 
 def synthetic_spectrogram_dict(

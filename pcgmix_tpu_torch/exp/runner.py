@@ -12,7 +12,10 @@ the CLI equivalent; it trains on the card unless ``--device cpu`` is given:
       --n-fractions 0.1 1.0 --seeds 1 2 3
 
 A spectrogram .dat trains the 2-D ResNet9 with the 2-D method ladder and
-the spectrogram seed grids: ``--dataset "PhysioNet(spec128)"``.
+the spectrogram seed grids: ``--dataset "PhysioNet(spec128)"``.  A UMC
+.dat takes its patient folds as the data seeds:
+``--dataset UMC --seed-datas 1 2 3 4 5 6 7 8 9 10`` (also ``UMC(spec128)``,
+``UMC(spec64)``).
 
 It prints ``run: <dir>`` before each run it trains, ``skip (done): <dir>``
 for each finished one, and after each run ``done: <dir>`` with its wall
@@ -30,6 +33,7 @@ import time
 
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.methods import parse_method
+from pcgmix_tpu_torch.data.umc import FOLDS
 from pcgmix_tpu_torch.exp.dirs import experiment_already_done, experiment_dir
 from pcgmix_tpu_torch.exp.robust import SEED_DATA_GRIDS, hyperparameters_robust
 from pcgmix_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -64,6 +68,10 @@ def run_grid(
     resolve_device(base_cfg.device)
     for method in methods:
         _check_no_dependency(method, base_cfg.spectrogram)
+    if base_cfg.dataset.startswith("UMC") and not (
+            seed_datas and all(s in FOLDS for s in seed_datas)):
+        raise ValueError("a UMC grid takes its train folds as data seeds: "
+                         "--seed-datas with values in 1..10")
     executed = []
     for method in methods:
         for n_frac in n_fractions:

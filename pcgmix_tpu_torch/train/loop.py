@@ -20,8 +20,10 @@ directory; the caller gets the performance dict.
 
 Latent methods dispatch on the plan's ``latent_depth``: the JAX loop builds
 one jitted step per depth (``loop.py:596-608``), the port's one step takes
-the depth.  The spectrogram dataset ``PhysioNet(spec128)`` trains the 2-D
-ResNet9 on (N, 1, F, T) mel spectrograms with the 2-D method ladder.
+the depth.  The spectrogram datasets (``PhysioNet(spec128)``,
+``UMC(spec128)``, ``UMC(spec64)``) train the 2-D ResNet9 on (N, 1, F, T)
+mel spectrograms with the 2-D method ladder; the UMC datasets split by
+patient folds (``data/umc.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch.distributed as dist
 
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
-from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split
+from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split, umc_split
 from pcgmix_tpu_torch.data.datasets import load_cvd_map
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
 from pcgmix_tpu_torch.models import SPECTROGRAM_DATASETS, build_model
@@ -106,11 +108,14 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_splits(cfg: TrainConfig, dataset: dict):
-    """Train/test(/valid) splits (reference train_model.py:228-256)."""
+    """Train/test(/valid) splits (reference train_model.py:228-256): the
+    PhysioNet pipeline, or for a UMC dataset its patient folds
+    (``seed_data`` 1–10; ``seed`` 1–3 picks the inner validation fold)."""
     if cfg.dataset.startswith("UMC"):
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (ROADMAP queue 1 item 8)"
-        )
+        common = dict(num_channels=cfg.num_channels, seed_data=cfg.seed_data,
+                      seed=cfg.seed, valid=cfg.valid, spectrogram=cfg.spectrogram)
+        return (umc_split(dataset, "train", **common),
+                umc_split(dataset, "valid" if cfg.valid else "test", **common))
     if cfg.dataset not in ("PhysioNet", "PhysioNet(spec128)"):
         raise ValueError(f"unknown dataset {cfg.dataset!r}")
     tbal_seed = cfg.true_seed

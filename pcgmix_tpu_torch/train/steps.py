@@ -3,26 +3,29 @@
 
 One train step: gather the batch from the device-resident corpus → apply
 the augmentation plan (``AugmentEngine.apply``: the mix kernels for the
-keep-duration blends, tensor code for the 1-D baselines) → forward → SELC /
+keep-duration blends and cut and the concat family, tensor code for the
+1-D baselines) → forward → SELC /
 soft-target CE →
 backward → gradient value clipping → Adam with L2 weight decay → OneCycle
 (lr and cycled β₁).  The reference runs the same sequence
 (train_model.py:498-582); the only per-step host work is the plan.
 
 Under data parallelism (the JAX package's mesh step) a rank runs the same
-step on its block of the global batch: it gathers its rows and its
-partners' rows from the corpus it holds, mixes them through K3/K4, and
-averages the gradients over the ranks before clipping, so the update is
+step on its block of the global batch: it gathers its rows (for the concat
+family: the base rows its block of the plan names) and its partners'
+rows from the corpus it holds, mixes them through K3/K4, and averages the
+gradients over the ranks before clipping, so the update is
 the global batch's.  Loss, predictions and targets come back global.  A
 global batch that does not divide over the ranks is replicated instead:
 every rank runs the single-device step on all of it (K1/K2), BatchNorm
 takes local statistics, and the gradients come out equal on every rank
 (the JAX package's unsharded fallback, ``pcgmix_tpu/augment/engine.py:
 914-916``, ``:943-944``).  A batch split over the ranks takes the
-keep-duration blends only; the 1-D baselines raise there
+per-row bases (the keep-duration blends and cut, the concat family); the
+1-D baselines and the latent methods raise there
 (``AugmentEngine.check_prepaired``).
 
-Latent methods (latentmixup, ``manifold-cutout``) split the forward at the
+Latent methods (latentmixup, ``manifold-cutout``, ``manifold-cutmix``) split the forward at the
 plan's depth (JAX ``train/steps.py:192-224``): the model's first part gives
 the latent, the engine's apply mixes or masks it, the second part runs
 from there in train mode.  latentmixup's first pass is differentiable and
@@ -124,7 +127,11 @@ class TrainStep:
         if plan_arrays is not None:
             block = self.dp.shard_arrays(plan_arrays, len(indices), SHARED_ARRAYS)
             self.engine.check_prepaired()
-            _, d2, t2 = self._rows(indices[block["mix"]])
+            # the concat family names its base rows (idx1) and partners
+            # (idx2); the blends and the cut mix a row with block["mix"]
+            if "idx1" in block:
+                _, data, target = self._rows(indices[block["idx1"]])
+            _, d2, t2 = self._rows(indices[block["idx2" if "idx2" in block else "mix"]])
             data, target = self.engine.apply_prepaired(data, d2, target, t2, block)
         return rows, data, target
 

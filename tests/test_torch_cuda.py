@@ -480,3 +480,80 @@ def test_spectrogram_applies_on_the_card_equal_the_cpu(dev, method):
     ref, ref_t = eng.apply(x.cpu(), t.cpu(), plan.arrays)
     assert launch_counts()["piecewise_mix_pairs"] == int(method.startswith("dur"))
     assert torch.equal(out.cpu(), ref) and torch.equal(tgt.cpu(), ref_t)
+
+
+# the keep-duration cut and the concat family: K1 (base d1 without a row
+# index; base 0 with idx1 and idx2), K3 on a rank's block; the (smooth)
+# crossfade and the +cutout window in tensor code
+CONCAT_METHODS = [
+    "durratiocutmix", "(rand)wav-durratiocutmix", "cutmix", "cutmix(ch)", "labelcutmix",
+    "(smooth)labelcutmix", "labelcutmix+cutout+1.0", "lengthcutmix(5bins)",
+    "datasetcutmix", "wavcutmix", "swapsysdia", "cont-cutmix",
+]
+
+
+@pytest.mark.parametrize("method", CONCAT_METHODS)
+def test_cuts_and_concat_joins_on_the_card_equal_the_cpu(batch, dev, method):
+    data, _, labels = batch
+    eng, arrays = _engine_and_plan(batch, method)
+    x, t = torch.from_numpy(data), torch.from_numpy(np.eye(2, dtype=np.float32)[labels])
+    cpu, t_cpu = eng.apply(x, t, arrays)
+    reset_launch_counts()
+    card, t_card = eng.apply(x.to(dev), t.to(dev), arrays)
+    torch.cuda.synchronize()
+    kernel = "piecewise_mix_prepaired" if "(ch)" in method else "piecewise_mix_pairs"
+    assert {k: v for k, v in launch_counts().items() if v} == {kernel: 1}
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-6
+    assert (t_card.cpu() - t_cpu).abs().max().item() <= 1e-6
+    # a rank's block: base rows by idx1 (or its own), partners by idx2 or mix
+    sl = slice(B // 2, B)
+    block = {k: v[sl] if isinstance(v, np.ndarray) and v.ndim and len(v) == B else v
+             for k, v in arrays.items()}
+    base = block.get("idx1", np.arange(B)[sl])
+    partner = block["idx2" if "idx2" in block else "mix"]
+    xd, td = x.to(dev), t.to(dev)
+    reset_launch_counts()
+    out, out_t = eng.apply_prepaired(xd[base], xd[partner], td[base], td[partner], block)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {"piecewise_mix_prepaired": 1}
+    assert (out.cpu() - cpu[sl]).abs().max().item() <= 1e-6
+    assert (out_t.cpu() - t_cpu[sl]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_manifold_cutmix_on_a_latent_on_the_card(batch, dev, depth):
+    """K1 with a zero base on a ResNet9 latent whose length is under the
+    plan's T, bit-equal to the plain version: at depth 2 (T / 8 steps)
+    pieces run past its end and clamp their source."""
+    data, frames, labels = batch
+    eng = AugmentEngine(AugmentConfig("manifold-cutmix", B, C, T))
+    arrays = eng.plan(3, frames, labels).arrays
+    from pcgmix_tpu_torch.models import build_model
+
+    model = build_model("resnet9-5k", 2, C, T).to(dev).eval()
+    with torch.no_grad():
+        latent = model(torch.from_numpy(data).to(dev), depth=depth, part="first")
+    past = (arrays["dst"] + arrays["len"] > latent.shape[-1]) & (arrays["len"] > 0)
+    assert past.any() or depth != 2
+    t = torch.eye(2, device=dev)[torch.from_numpy(labels).to(dev)]
+    reset_launch_counts()
+    out, tgt = eng.apply(latent, t, arrays)
+    torch.cuda.synchronize()
+    assert launch_counts()["piecewise_mix_pairs"] == 1
+    ref, ref_t = eng.apply(latent.cpu(), t.cpu(), arrays)
+    assert torch.equal(out.cpu(), ref) and torch.equal(tgt.cpu(), ref_t)
+
+
+@pytest.mark.parametrize("method", ["cutmix", "(smooth)cutmix", "durratiocutmix"])
+def test_spectrogram_cuts_on_the_card_equal_the_cpu(dev, method):
+    """2-D cutmix (K1, base 0) and durratiocutmix (K1, base d1) on the
+    (B, F, T) view at the 2-D table's geometry, against the CPU."""
+    eng, plan, x = _spec_batch(16, 128, 128, method, dev)
+    t = torch.eye(2, device=dev)[torch.arange(16, device=dev) % 2]
+    reset_launch_counts()
+    out, tgt = eng.apply(x, t, plan.arrays)
+    torch.cuda.synchronize()
+    ref, ref_t = eng.apply(x.cpu(), t.cpu(), plan.arrays)
+    assert launch_counts()["piecewise_mix_pairs"] == 1
+    assert (out.cpu() - ref).abs().max().item() <= 1e-6
+    assert torch.equal(tgt.cpu(), ref_t)

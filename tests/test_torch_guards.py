@@ -49,7 +49,8 @@ def test_port_sources_exist():
                      "pcgmix_tpu_torch/exp/runner.py", "pcgmix_tpu_torch/exp/replicate.py",
                      "pcgmix_tpu_torch/exp/results.py", "pcgmix_tpu_torch/exp/paper.py",
                      "pcgmix_tpu_torch/exp/robust.py", "pcgmix_tpu_torch/ops/masks.py",
-                     "pcgmix_tpu_torch/models/resnet9_2d.py"):
+                     "pcgmix_tpu_torch/models/resnet9_2d.py",
+                     "pcgmix_tpu_torch/data/umc.py"):
         assert required in names
     for source in ("mix_kernels.cu", "conv_bn_stats.cu"):
         assert (ROOT / "pcgmix_tpu_torch/ops/csrc" / source).exists()
@@ -108,14 +109,17 @@ def test_grid_entry_points_default_to_cuda_and_refuse_a_missing_card(module, tmp
 
 
 @pytest.mark.parametrize("dataset,method", [("PhysioNet", "latentmixup"),
-                                            ("PhysioNet(spec128)", "durratiomixup")])
+                                            ("PhysioNet(spec128)", "durratiomixup"),
+                                            ("UMC", "(UMC-subset)durratiocutmix"),
+                                            ("PhysioNet", "manifold-cutmix")])
 def test_latent_and_spectrogram_paths_refuse_a_missing_card(dataset, method):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal cannot be shown")
-    from pcgmix_tpu_torch.data import synthetic_spectrogram_dict
+    from pcgmix_tpu_torch.data import synthetic_spectrogram_dict, synthetic_umc_dict
 
-    ds = (synthetic_spectrogram_dict(4, 2, 2, size=32, seed=1) if dataset != "PhysioNet"
-          else synthetic_physionet_dict(4, 2, 2, sig_len=256, seed=1))
+    ds = {"PhysioNet": lambda: synthetic_physionet_dict(4, 2, 2, sig_len=256, seed=1),
+          "PhysioNet(spec128)": lambda: synthetic_spectrogram_dict(4, 2, 2, size=32, seed=1),
+          "UMC": lambda: synthetic_umc_dict(1, sig_len=256, seed=1)}[dataset]()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_model(TrainConfig(dataset=dataset, method=method, batch_size=4,
                                 num_epochs=1, save_artifacts=False), ds)
@@ -134,6 +138,27 @@ def test_spectrogram_blends_go_through_the_kernel_wrappers():
     frames = np.tile(np.array([0, 2, 5, 7, 12]), (4, 1))
     plan = eng.plan(0, frames, np.array([0, 1, 0, 1]))
     x = torch.zeros(4, 1, 16, 16, device="meta")
+    t = torch.zeros(4, 2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        eng.apply(x, t, plan.arrays)
+    with pytest.raises(ValueError, match="unsupported device"):
+        eng.apply_prepaired(x, x, t, t, plan.arrays)
+
+
+@pytest.mark.parametrize("method", ["cutmix", "(smooth)labelcutmix", "cutmix(ch)",
+                                    "durratiocutmix"])
+def test_cuts_and_concat_joins_go_through_the_kernel_wrappers(method):
+    """The keep-duration cut and the concat family reach K1's wrapper on
+    one device and K3's on a rank's block (here on a device that has
+    neither kernel nor plain version, so they raise)."""
+    import numpy as np
+
+    from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+
+    eng = AugmentEngine(AugmentConfig(method, 4, 4, 16))
+    frames = np.tile(np.array([0, 2, 5, 7, 12]), (4, 1))
+    plan = eng.plan(0, frames, np.array([0, 1, 0, 1]), ["a", "b", "c", "d"])
+    x = torch.zeros(4, 4, 16, device="meta")
     t = torch.zeros(4, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         eng.apply(x, t, plan.arrays)

@@ -228,10 +228,6 @@ def test_unported_pairings_name_their_queue_item(method, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         pairing.build_pairing(parse_method(method), 0, np.zeros(4, int),
                               np.zeros((4, 5), int), ["a"] * 4, 4)
-    spec = parse_method("(UMC-subset)durratiocutmix")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pairing.build_pairing(spec, 0, np.zeros(4, int), np.zeros((4, 5), int),
-                              ["a"] * 4, 4)
 
 
 def test_same_cvd_needs_a_map(split):

@@ -100,9 +100,9 @@ def test_method_parser_equals_reference(method):
 
 
 @pytest.mark.parametrize("method", [
-    "cutmix", "lengthcutmix", "manifold-cutmix", "(closestknn=8)durratiomixup",
-    "(saloptenv)durratiomixup", "durratiocutmix",
+    "(closestknn=8)durratiomixup", "(saloptenv)durratiomixup", "lc-nointrusion",
+    "saliency-cutmix", "(closestbins=4)durmixmagwarp(0.2,4)", "(saloptsum-2)durratiomixup",
 ])
 def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10"):
         AugmentEngine(AugmentConfig(method, B, C, T))

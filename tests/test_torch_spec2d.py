@@ -10,7 +10,8 @@ from the same flax init at the bar of tests/test_transplant_dynamics.py,
 and the full-width model with frozen weights gives its losses for a mask
 method, mixup and latentmixup within 1e-4 relative; a 2-D run dir the port's runner writes reads back through
 ``pcgmix_tpu.exp.results``; and what waits for later slices raises,
-naming its ROADMAP item."""
+naming its ROADMAP item (2-D cutmix and durratiocutmix: tests/test_torch_concat.py;
+the UMC datasets: tests/test_torch_umc.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -234,20 +235,12 @@ def test_2d_row_global_bases_refuse_a_split_batch(method):
 
 
 @pytest.mark.parametrize("method,spectrogram,item", [
-    ("manifold-cutmix", False, 5), ("cutmix", True, 5), ("durratiocutmix", True, 5),
-    ("labelcutmix", False, 5),
+    ("lc-nointrusion", False, 10), ("saliency-cutmix", False, 10),
+    ("(closestknn=8)durratiomixup", True, 10), ("(saloptenv)durratiomixup", False, 10),
 ])
 def test_unported_bases_name_their_queue_item(method, spectrogram, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         AugmentEngine(AugmentConfig(method, B, 1, S, spectrogram=spectrogram, spec_freq=S))
-
-
-@pytest.mark.parametrize("dataset", ["UMC(spec128)", "UMC(spec64)", "UMC"])
-def test_umc_datasets_name_their_queue_item(dataset, spec_dict):
-    cfg = TrainConfig(dataset=dataset, batch_size=B, num_epochs=1, save_artifacts=False,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_model(cfg, spec_dict)
 
 
 def test_runner_takes_the_spectrogram_seed_grids(monkeypatch, spec_dict):
