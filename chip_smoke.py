@@ -78,6 +78,20 @@ Phases (any failure exits non-zero):
    variant (``synthetic_physionet_full_dict``, 4 × 2500, frames padded to
    28, 27 pieces a row) with PCGmix (K1) and PCGmix+ (K2).  Steps/s and
    finite losses, as phase 3.
+3d. The model zoo: each of its 17 distinct architectures (FCN,
+   FCN(custom), ResCNN, ResNet, Singstad d3/d6/d10, InceptionTime,
+   XceptionTime, XResNet1d18, gMLP, XCM, RNN, LSTM, GRU, mWDN,
+   OmniScaleCNN) at its published width, batch 64, 4 × 2500, fp32, 8
+   steps with PCGmix+ (K2 once per step); FCN, ResCNN and Singstad_d10
+   also with PCGmix and ``manifold-cutmix`` (K1 once per step) and
+   ``latentmixup`` (no kernel).  Each run prints steps/s, peak memory and
+   its losses, each architecture its parameter count beside the JAX
+   package's (``JAX_PARAM_COUNTS``; they must be equal); each alias builds
+   and runs one forward; the
+   phase's wall time is printed.  Profiled PCGmix+ calls of Singstad_d10
+   and OmniScaleCNN stand beside phase 3's.  K1 also runs at FCN's depth-2
+   latent (64 × 256 × 2500) in phases 2 and 5, under an FCN
+   ``manifold-cutmix`` plan.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -90,7 +104,8 @@ Phases (any failure exits non-zero):
    once per step.  So do ``cutmix`` (K3 with a zero base on the rows
    ``idx1`` and ``idx2`` name) and ``durratiocutmix`` (K3, base d1): K3
    once per step, K1 never, and with the weights frozen every plot epoch's
-   loss within 1e-5 of the single-device route's.
+   loss within 1e-5 of the single-device route's; and so does ResCNN
+   with PCGmix, a zoo model whose BatchNorm takes the global statistics.
 4b. The experiment grid: a ``synthetic_effect_dict`` corpus (240 train
    recordings × 4 cycles, 40 test recordings, 4 × 2500, seed 7) with a
    ``cvds_map.csv`` for its recordings goes through
@@ -142,6 +157,23 @@ import time
 
 B, C, T = 64, 4, 2500
 MAIN_STEPS = 16
+
+# Trainable parameters of each registry model at 4 × 2500 in the JAX
+# package (``jax.eval_shape`` of its init; the card has no JAX, so they are
+# kept here, and tests/test_torch_zoo_ref.py holds them to the package)
+JAX_PARAM_COUNTS = {
+    "resnet9": 2274626, "resnet9-5k": 4868, "resnet9-15k": 14006, "resnet9-50k": 45098,
+    "resnet9-150k": 158546, "resnet9-600k": 590498, "resnet9-1.4m": 1368578,
+    "resnet9-2.3m": 2274626, "resnet9-5m": 5052386, "resnet9-9m": 8923778,
+    "Potes": 199634, "Potes(noDropout)": 199634, "PotesBig128and64": 3231614,
+    "PotesBig64and32": 1605598, "Potes0.1": 49925, "Potes0.02": 49914, "FCN": 267010,
+    "FCN(custom)": 67970, "ResCNN": 257859, "ResNet": 480002, "Singstad_d3": 153346,
+    "Singstad_d6": 169986, "Singstad_d10": 169986, "ResNetPlus": 480002,
+    "XResNet1d18": 3854210, "XResNet1d18Plus": 3854210, "InceptionTime": 455682,
+    "InceptionTimePlus": 455682, "XceptionTime": 399700, "XceptionTimePlus": 399700,
+    "gMLP": 38707194, "XCM": 3201668, "XCMPlus": 3201668, "FCNPlus": 267010, "RNN": 10702,
+    "LSTM": 42202, "GRU": 31802, "mWDN": 16870682, "OmniScaleCNN": 238633,
+}
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory bytes/s, and float32 FLOP/s outside the tensor cores (the
@@ -219,6 +251,16 @@ GRID_METHODS_2D = ("base", "freqmask(0.1)", "timemask(0.1)", "cutout(0.25,0.25)"
 # UMC: the cycle length of its recordings, the methods of its grid
 UMC_LEN = 2000
 GRID_METHODS_UMC = ("base", "(UMC-subset)durratiocutmix")
+# phase 3d: each distinct architecture of the zoo, those with a split
+# forward, the registry's aliases, and the epochs (4 steps each) a run takes
+ZOO = ("FCN", "FCN(custom)", "ResCNN", "ResNet", "Singstad_d3", "Singstad_d6",
+       "Singstad_d10", "InceptionTime", "XceptionTime", "XResNet1d18", "gMLP", "XCM",
+       "RNN", "LSTM", "GRU", "mWDN", "OmniScaleCNN")
+ZOO_SPLIT = ("FCN", "ResCNN", "Singstad_d10")
+ZOO_ALIASES = ("InceptionTimePlus", "XceptionTimePlus", "XResNet1d18Plus", "XCMPlus",
+               "FCNPlus", "ResNetPlus")
+ZOO_EPOCHS = 2
+ZOO_PROFILED = ("Singstad_d10", "OmniScaleCNN")
 
 
 def grid_kernel(method):
@@ -383,7 +425,7 @@ def main() -> int:
             synthetic_spectrogram_dict,
             synthetic_umc_dict,
         )
-        from pcgmix_tpu_torch.models import build_model
+        from pcgmix_tpu_torch.models import build_model, count_parameters
         from pcgmix_tpu_torch.models.potes import potes_features
         from pcgmix_tpu_torch.ops import mix_kernels as mk
         from pcgmix_tpu_torch.parallel import init_group
@@ -534,6 +576,12 @@ def main() -> int:
           f"{manifold['len'].numel()} pieces run past its end")
     if not past:
         raise AssertionError("the manifold-cutmix geometry has no piece past the latent")
+    # the zoo's full-length latent: FCN at depth 2, 64 × 256 × 2500 (164 MB
+    # in fp32), under a manifold-cutmix plan of an FCN engine
+    fcn_manifold = AugmentEngine.device_arrays(AugmentEngine(AugmentConfig(
+        "manifold-cutmix", B, C, T, model="FCN")).plan(7, frames, labels).arrays, dev)
+    with torch.no_grad():
+        fcn_latent = build_model("FCN", 2, C, T).to(dev).eval()(x32, depth=2, part="first")
     # (name, geometry) -> report, and the closure phase 5 profiles
     report, profiled_closures = {}, {}
     # name, wrapper, geometry, rows, plan, fp32 tolerance, idx_bytes,
@@ -553,6 +601,8 @@ def main() -> int:
          None, True),
         ("piecewise_mix_pairs", k1z, "manifold-cutmix", latent, manifold, 1e-6, 8, 1, False,
          None, True),
+        ("piecewise_mix_pairs", k1z, "fcn-latent", fcn_latent, fcn_manifold, 1e-6, 8, 1,
+         False, None, True),
     ):
         report[name, geometry] = measure(name, geometry, make, x, a, tol, idx_bytes,
                                          row_reads, warp, extra, zero)
@@ -602,15 +652,18 @@ def main() -> int:
                 raise AssertionError(f"{model} {method}: card and CPU loss traces "
                                      "disagree")
 
-    def drive(method, kernel, route, model="resnet9", data=ds, sig_len=T, **overrides):
-        """One 16-step main-path run (on the spectrogram corpus ``spec_ds``
-        with ``dataset=SPEC``, on a UMC dict with ``dataset="UMC"``); the
-        counts are set to 0 just before it and read just after.  ``kernel``
-        must launch once per step, no other kernel at all (``kernel`` None:
-        nothing).  Returns (launches of ``kernel``, losses)."""
-        cfg = TrainConfig(model=model, method=method, num_epochs=4, batch_size=B,
+    def drive(method, kernel, route, model="resnet9", data=ds, sig_len=T, epochs=4,
+              **overrides):
+        """One main-path run of ``epochs`` epochs of 4 steps (16 steps; on
+        the spectrogram corpus ``spec_ds`` with ``dataset=SPEC``, on a UMC
+        dict with ``dataset="UMC"``); the counts are set to 0 just before it
+        and read just after.  ``kernel`` must launch once per step, no other
+        kernel at all (``kernel`` None: nothing).  Returns (launches of
+        ``kernel``, losses)."""
+        cfg = TrainConfig(model=model, method=method, num_epochs=epochs, batch_size=B,
                           num_channels=C, save_artifacts=False, **overrides)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         mk.reset_launch_counts()
         t0 = time.time()
         perf = train_model(cfg, data)
@@ -618,7 +671,7 @@ def main() -> int:
         wall = time.time() - t0
         counts = mk.launch_counts()
         steps = perf["steps"][-1]
-        if steps != MAIN_STEPS or any(n != (steps if k == kernel else 0)
+        if steps != 4 * epochs or any(n != (steps if k == kernel else 0)
                                       for k, n in counts.items()):
             raise AssertionError(f"{route} {method}: {steps} steps but launches {counts}")
         if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
@@ -632,9 +685,10 @@ def main() -> int:
               f"launches {counts}, losses {perf['train_loss']}, "
               f"test_accuracy {perf['test_accuracy'][-1]}")
         print(f"{route} {method}: {d_steps / d_time:.3f} steps/s, "
-              f"{B * d_steps / d_time:.1f} samples/s (epochs 2-4), "
+              f"{B * d_steps / d_time:.1f} samples/s (epochs 2-{epochs}), "
               f"{steps / wall:.3f} steps/s over the whole call incl. eval "
-              f"({wall:.3f} s) on {card}")
+              f"({wall:.3f} s), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
         return counts.get(kernel, 0), perf["train_loss"]
 
     launches, single_losses = {}, {}
@@ -667,6 +721,29 @@ def main() -> int:
                            ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused")):
         drive(method, kernel, "multi-cycle", data=full_ds)
 
+    # ---- 3d. the model zoo: every distinct architecture at its width -------
+    t_zoo = time.time()
+    for name in ZOO:
+        n_params = count_parameters(build_model(name, 2, C, T))
+        print(f"zoo {name}: {n_params} parameters (JAX package {JAX_PARAM_COUNTS[name]})")
+        if n_params != JAX_PARAM_COUNTS[name]:
+            raise AssertionError(f"zoo {name}: the parameter counts differ")
+        runs = [("durmixmagwarp(0.2,4)", "pcgmix_plus_fused")]
+        if name in ZOO_SPLIT:  # PCGmix, K1 on a latent, and latentmixup (no kernel)
+            runs += [("durratiomixup", "piecewise_mix_pairs"),
+                     ("manifold-cutmix", "piecewise_mix_pairs"), ("latentmixup", None)]
+        for method, kernel in runs:
+            n, _ = drive(method, kernel, f"zoo {name}", model=name, epochs=ZOO_EPOCHS)
+            if name == "FCN" and method == "manifold-cutmix":
+                launches_concat["piecewise_mix_pairs", "fcn-latent"] = n
+    for alias in ZOO_ALIASES:  # each alias builds and runs one forward
+        with torch.no_grad():
+            out = build_model(alias, 2, C, T).to(dev).eval()(x32[:8])
+        if out.shape != (8, 2) or not torch.isfinite(out).all():
+            raise AssertionError(f"zoo alias {alias}: output {tuple(out.shape)}")
+        print(f"zoo alias {alias}: one forward, logits {tuple(out.shape)}, finite")
+    print(f"zoo phase: {len(ZOO)} architectures, {time.time() - t_zoo:.3f} s wall on {card}")
+
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
     def host_ms(fn, n=16):
@@ -697,6 +774,11 @@ def main() -> int:
         torch, lambda: train_model(dataclasses.replace(
             profiled, dataset=SPEC, method="durratiomixup"), spec_ds),
         card, label="profile spec2d")
+    for name in ZOO_PROFILED:  # the zoo's slowest convolutional families
+        profile_breakdown(
+            torch, lambda: train_model(dataclasses.replace(
+                profiled, model=name, num_epochs=ZOO_EPOCHS), ds),
+            card, label=f"profile zoo {name}")
 
     # ---- 4. the data-parallel route (1-rank NCCL group) -------------------
     # Full-width training at lr 0.01 is chaotic on this data: the single-
@@ -729,6 +811,9 @@ def main() -> int:
     cuts = ("cutmix", "durratiocutmix")
     for method in cuts:
         _, ref[method, "frozen"] = drive(method, "piecewise_mix_pairs", "frozen", lr_max=0.0)
+    # a zoo model on this route: ResCNN's BatchNorm takes global statistics
+    _, ref["ResCNN", "frozen"] = drive("durratiomixup", "piecewise_mix_pairs", "frozen",
+                                       model="ResCNN", epochs=ZOO_EPOCHS, lr_max=0.0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         init_group("nccl", 0, 1, os.path.join(tmp, "store"))
         try:
@@ -760,6 +845,17 @@ def main() -> int:
                 if not d_frozen < 1e-5:
                     raise AssertionError(f"data-parallel {method}: loss differs from the "
                                          "single-device route")
+            drive("durratiomixup", "piecewise_mix_prepaired", "data-parallel zoo",
+                  model="ResCNN", epochs=ZOO_EPOCHS)
+            _, frozen = drive("durratiomixup", "piecewise_mix_prepaired",
+                              "data-parallel zoo frozen", model="ResCNN", epochs=ZOO_EPOCHS,
+                              lr_max=0.0)
+            d_frozen = float(np.max(np.abs(np.subtract(frozen, ref["ResCNN", "frozen"]))))
+            print(f"data-parallel ResCNN durratiomixup: frozen weights max |diff| "
+                  f"{d_frozen:.3e} over {len(frozen)} plot epochs")
+            if not d_frozen < 1e-5:
+                raise AssertionError("data-parallel ResCNN: loss differs from the "
+                                     "single-device route")
             # the spectrogram path's PCGmix splits its batch too: K3
             launches_2d["piecewise_mix_prepaired"], _ = drive(
                 "durratiomixup", "piecewise_mix_prepaired", "data-parallel spec2d",

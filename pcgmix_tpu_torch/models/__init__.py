@@ -1,4 +1,6 @@
-"""Models: the ResNet9 1-D and Potes presets, and the 2-D ResNet9."""
+"""Models: all 39 names of the JAX package's registry (the ResNet9 and
+Potes presets, FCN, ResCNN, ResNet, Singstad d3/d6/d10 and the tsai zoo),
+and the 2-D ResNet9."""
 
 from pcgmix_tpu_torch.models.potes import POTES_PRESETS, Potes
 from pcgmix_tpu_torch.models.registry import (

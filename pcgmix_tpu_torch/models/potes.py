@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pcgmix_tpu_torch.models.resnet9 import SPLIT_PARTS
+from pcgmix_tpu_torch.models.layers import check_part
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
 
 HIDDEN = 20  # dimreduc's width (models.py:379)
@@ -89,8 +89,7 @@ class Potes(nn.Module):
         (``pcgmix_tpu/models/potes.py:71-85``): ``"first"`` returns the
         input at depth 0 and the features at depth 1, ``"second"`` runs
         the rest from there, ``"latent_space"`` returns the features."""
-        if part not in SPLIT_PARTS:
-            raise ValueError(f"part must be one of {SPLIT_PARTS}, got {part!r}")
+        check_part(part, "Potes", split=True)
         if part == "first":
             return x if depth == 0 else self.features(x)
         if part == "second":

@@ -1,7 +1,10 @@
 """Model factory keyed by the reference's model-name strings
-(counterpart: ``pcgmix_tpu/models/registry.py``).  The port knows the
-ResNet9 and Potes presets and, for the spectrogram datasets, the 2-D
-ResNet9; the rest of the zoo comes with later slices."""
+(counterpart: ``pcgmix_tpu/models/registry.py``; reference
+train_model.py:294-386).  The port knows all 39 names of the JAX package:
+the ResNet9 and Potes presets, FCN, FCN(custom), ResCNN, ResNet,
+Singstad_d3/d6/d10 and the 16 tsai names, under the same aliases (the
+"Plus" names, FCNPlus and ResNetPlus map to the classes the JAX package
+maps them to); for the spectrogram datasets, the 2-D ResNet9."""
 
 from __future__ import annotations
 
@@ -9,14 +12,38 @@ from typing import Optional
 
 from torch import nn
 
+from pcgmix_tpu_torch.models.fcn import FCN
 from pcgmix_tpu_torch.models.potes import POTES_PRESETS, Potes
+from pcgmix_tpu_torch.models.rescnn import ResCNN
 from pcgmix_tpu_torch.models.resnet9 import RESNET9_PRESETS, ResNet9_1D
 from pcgmix_tpu_torch.models.resnet9_2d import ResNet9_2D
+from pcgmix_tpu_torch.models.resnet_ts import ResNetTS
+from pcgmix_tpu_torch.models.singstad import SingstadInceptionTime
+from pcgmix_tpu_torch.models.tsai_inception import InceptionTime, XceptionTime
+from pcgmix_tpu_torch.models.tsai_misc import MWDN, XCM, OmniScaleCNN
+from pcgmix_tpu_torch.models.tsai_seq import GMLP, TsaiRNN
+from pcgmix_tpu_torch.models.tsai_xresnet import XResNet1d18
 
-MODEL_NAMES = tuple(RESNET9_PRESETS) + tuple(POTES_PRESETS)
+TSAI_NAMES = (
+    "ResNetPlus", "XResNet1d18", "XResNet1d18Plus", "InceptionTime", "InceptionTimePlus",
+    "XceptionTime", "XceptionTimePlus", "gMLP", "XCM", "XCMPlus", "FCNPlus", "RNN",
+    "LSTM", "GRU", "mWDN", "OmniScaleCNN",
+)
+
+MODEL_NAMES = (
+    tuple(RESNET9_PRESETS) + tuple(POTES_PRESETS)
+    + ("FCN", "FCN(custom)", "ResCNN", "ResNet", "Singstad_d3", "Singstad_d6",
+       "Singstad_d10")
+    + TSAI_NAMES
+)
 
 #: the datasets of (N, 1, F, T) mel spectrograms, which take the 2-D ResNet9
 SPECTROGRAM_DATASETS = ("PhysioNet(spec128)", "UMC(spec128)", "UMC(spec64)")
+
+#: each alias → the name whose class and arguments it takes
+ALIASES = {"FCNPlus": "FCN", "ResNetPlus": "ResNet", "InceptionTimePlus": "InceptionTime",
+           "XceptionTimePlus": "XceptionTime", "XResNet1d18Plus": "XResNet1d18",
+           "XCMPlus": "XCM"}
 
 
 def build_model(name: str, num_classes: int = 2, num_channels: int = 4,
@@ -25,7 +52,8 @@ def build_model(name: str, num_classes: int = 2, num_channels: int = 4,
     """Instantiate a model by its reference name; ``seed`` seeds the
     model's own random draws (Potes' dropout masks).  A spectrogram
     ``dataset`` selects the 2-D variant of ``"resnet9"`` for inputs of
-    ``freq`` × ``sig_len`` (square when ``freq`` is None)."""
+    ``freq`` × ``sig_len`` (square when ``freq`` is None).  gMLP, XCM,
+    OmniScaleCNN and mWDN are sized for inputs of ``sig_len`` steps."""
     if dataset in SPECTROGRAM_DATASETS:
         if name != "resnet9":
             raise ValueError(f"2-D dataset {dataset!r} supports model 'resnet9' only")
@@ -36,16 +64,42 @@ def build_model(name: str, num_classes: int = 2, num_channels: int = 4,
     if name in POTES_PRESETS:
         return Potes(num_classes, num_channels=num_channels, sig_len=sig_len,
                      seed=seed, **POTES_PRESETS[name])
-    raise NotImplementedError(
-        f"model {name!r} is not ported yet; available: {', '.join(MODEL_NAMES)}"
-    )
+    name = ALIASES.get(name, name)
+    c = dict(num_channels=num_channels)
+    t = dict(c, sig_len=sig_len)
+    if name == "FCN":
+        return FCN(num_classes, **c)
+    if name == "FCN(custom)":
+        return FCN(num_classes, layers=(64, 128, 64), **c)
+    if name == "ResCNN":
+        return ResCNN(num_classes, **c)
+    if name == "ResNet":
+        return ResNetTS(num_classes, **c)
+    if name in ("Singstad_d3", "Singstad_d6", "Singstad_d10"):
+        return SingstadInceptionTime(num_classes, int(name.split("_d")[1]), **c)
+    if name == "InceptionTime":
+        return InceptionTime(num_classes, **c)
+    if name == "XceptionTime":
+        return XceptionTime(num_classes, **c)
+    if name == "XResNet1d18":
+        return XResNet1d18(num_classes, **c)
+    if name in ("RNN", "LSTM", "GRU"):
+        return TsaiRNN(num_classes, cell_type=name.lower(), **c)
+    if name == "gMLP":
+        return GMLP(num_classes, **t)
+    if name == "XCM":
+        return XCM(num_classes, **t)
+    if name == "mWDN":
+        return MWDN(num_classes, **t)
+    if name == "OmniScaleCNN":
+        return OmniScaleCNN(num_classes, **t)
+    raise ValueError(f"unknown model {name!r}; available: {', '.join(MODEL_NAMES)}")
 
 
 def max_latent_depth(name: str) -> int:
     """Largest depth of latentmixup's depth draw (reference
-    augmentations.py:1484-1494; the JAX package's table, whose FCN, ResCNN
-    and Singstad_d10 entries wait for those models here).  Raises for a
-    model without a split (part='first'/'second') forward."""
+    augmentations.py:1484-1494).  Raises for a model without a split
+    (part='first'/'second') forward."""
     if name in ("FCN", "FCN(custom)"):
         return 4
     if name.startswith("Potes"):

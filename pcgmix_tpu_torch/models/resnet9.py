@@ -23,94 +23,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
-from pcgmix_tpu_torch.parallel.dist import current_batch_rows
-
-
-class _BiasedBatchNorm:
-    """BatchNorm whose running variance follows the JAX package, for 1-D
-    (B, C, T) and 2-D (B, C, F, T) activations.
-
-    flax's BatchNorm (momentum 0.9, eps 1e-5) folds the *biased* batch
-    variance into its running average; ``nn.BatchNorm1d``/``2d`` fold the
-    unbiased one, which would make eval after training drift by n/(n−1).
-    Training normalizes with the biased batch statistics as both do, and
-    the running buffers are updated here explicitly, without gradient.
-
-    Under data parallelism (a ``torch.distributed`` process group is
-    initialized) the statistics are those of the global batch, as GSPMD
-    gives flax's BatchNorm on the JAX package's mesh: the per-channel Σx,
-    Σx² and count are all-reduced with the differentiable all-reduce, and
-    x is normalized with the global mean and the global biased variance
-    E[x²] − E[x]², as flax computes it.  On a batch that every rank holds
-    whole (replicated, :func:`pcgmix_tpu_torch.parallel.batch_rows`) the
-    local statistics are the global ones, and the all-reduce is skipped.
-    It would give the same numbers over ``world`` copies of the batch (its
-    backward sums the ranks' equal statistics gradients, but the count it
-    divides by grew by the same factor); skipping it saves a collective per
-    layer and computes what the JAX package's replicated step computes.
-    """
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight,
-                self.bias, False, 0.0, self.eps,
-            )
-        rows = current_batch_rows()
-        if (dist.is_available() and dist.is_initialized()
-                and (rows is None or not rows.replicated)):
-            return self._global_batch_norm(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=_reduced(x), correction=0)
-            self._update_running(mean, var)
-        return y
-
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-        self.num_batches_tracked.add_(1)
-
-    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        from torch.distributed.nn.functional import all_reduce
-
-        xf = x.float()
-        dims = _reduced(x)
-        c = x.shape[1]
-        count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
-        # one collective per layer: [Σx (C), Σx² (C), count]; its backward
-        # all-reduces the statistics' gradients, so each rank's parameter
-        # gradients are its share of the global batch's
-        sums = all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
-        n = sums[2 * c]
-        mean = sums[:c] / n
-        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
-        scale = torch.rsqrt(var + self.eps) * self.weight
-        shape = (1, c) + (1,) * (x.dim() - 2)
-        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
-        with torch.no_grad():
-            self._update_running(mean, var)
-        return y.to(x.dtype)
-
-
-def _reduced(x: torch.Tensor) -> tuple:
-    """The axes BatchNorm reduces over: every one but the channels'."""
-    return (0, *range(2, x.dim()))
-
-
-class BatchNorm1d(_BiasedBatchNorm, nn.BatchNorm1d):
-    """Biased-variance BatchNorm over (B, C, T) (see :class:`_BiasedBatchNorm`)."""
-
-
-class BatchNorm2d(_BiasedBatchNorm, nn.BatchNorm2d):
-    """Biased-variance BatchNorm over (B, C, F, T) (see :class:`_BiasedBatchNorm`)."""
-
-
-SPLIT_PARTS = (None, "first", "second", "latent_space")
+# BatchNorm1d/2d live in layers.py; they are imported from here too
+from pcgmix_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, check_part  # noqa: F401
 
 
 class ResNet9Stages(nn.Module):
@@ -131,8 +47,7 @@ class ResNet9Stages(nn.Module):
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:
-        if part not in SPLIT_PARTS:
-            raise ValueError(f"part must be one of {SPLIT_PARTS}, got {part!r}")
+        check_part(part, type(self).__name__, split=True)
         if part == "first":
             if depth == 0:
                 return x

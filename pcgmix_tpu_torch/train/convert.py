@@ -1,25 +1,29 @@
 """Weight carry-over between the two packages (inverses of
 ``pcgmix_tpu/train/convert.py::torch_resnet9_to_flax`` and
-``torch_potes_to_flax``, and the 2-D ResNet9's flax tree to torch) and the
-reference's seeded initialization.
+``torch_potes_to_flax``, and every other registry model's flax trees to
+torch: :func:`jax_to_torch`) and the reference's seeded initialization.
 
-Layouts: flax Conv kernel (k, Ci, Co) ↔ torch Conv1d weight (Co, Ci, k),
-(kh, kw, Ci, Co) ↔ Conv2d weight (Co, Ci, kh, kw); flax Dense kernel
-(Ci, Co) ↔ torch Linear weight (Co, Ci); flax BatchNorm scale/bias and
-batch_stats mean/var ↔ BatchNorm weight/bias and running_mean/running_var.
+Layouts: flax Conv kernel (k, Ci, Co) ↔ torch Conv1d weight (Co, Ci, k)
+(a depthwise kernel (k, 1, C) ↔ (C, 1, k)), (kh, kw, Ci, Co) ↔ Conv2d
+weight (Co, Ci, kh, kw); flax Dense kernel (Ci, Co) ↔ torch Linear weight
+(Co, Ci); flax BatchNorm and LayerNorm scale/bias and batch_stats mean/var
+↔ weight/bias and running_mean/running_var; PReLU's alpha ↔ its weight.
 The 2-D ResNet9's classifier needs no reordering: the JAX model flattens
 its (B, H, W, C) features in torch's C, H, W order
-(``pcgmix_tpu/models/layers.py::flatten_torch_2d``).
+(``pcgmix_tpu/models/layers.py::flatten_torch_2d``); no other model
+flattens.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from pcgmix_tpu_torch.models import POTES_PRESETS, RESNET9_PRESETS
 
 # torch module path → flax block name (reference ResNet9_myrtle)
 RESNET9_BLOCKS = {
@@ -81,6 +85,79 @@ def jax_potes_to_torch(params: Mapping) -> dict:
     return sd
 
 
+#: flax recurrent cells → the port's ``Recurrent`` parameters: each torch
+#: tensor is the listed flax Denses' kernels (transposed) or biases,
+#: concatenated in torch's gate order
+RECURRENT_CELLS = {
+    "SimpleCell_0": {"weight_ih": ("i",), "weight_hh": ("h",), "bias_ih": ("i",)},
+    "GRUCell_0": {"weight_ih": ("ir", "iz", "in"), "weight_hh": ("hr", "hz", "hn"),
+                  "bias_ih": ("ir", "iz", "in"), "bias_hn": ("hn",)},
+    "OptimizedLSTMCell_0": {"weight_ih": ("ii", "if", "ig", "io"),
+                            "weight_hh": ("hi", "hf", "hg", "ho"),
+                            "bias_hh": ("hi", "hf", "hg", "ho")},
+}
+# the flax wrappers' inner modules (pcgmix_tpu/models/layers.py: Conv1d and
+# Conv2d hold an nn.Conv "Conv_0", Dense an nn.Dense "Dense_0", BatchNorm an
+# nn.BatchNorm "BatchNorm_0") and ConvBNAct's unnamed wrappers
+_INNER = ("Conv_0", "Dense_0", "BatchNorm_0")
+_CONVBNACT = {"Conv1d_0": "conv", "BatchNorm_0": "bn"}
+_LEAVES = {"kernel": "weight", "scale": "weight", "alpha": "weight", "bias": "bias",
+           "mean": "running_mean", "var": "running_var"}
+
+
+def _torch_key(path: tuple) -> str:
+    """A flax leaf path → the port's state_dict key: the wrapper's inner
+    module is dropped, ConvBNAct's unnamed ``Conv1d_0``/``BatchNorm_0`` are
+    its ``conv``/``bn``, every other module keeps its flax name."""
+    *mods, leaf = path
+    if mods and mods[-1] in _INNER:
+        mods.pop()
+    return ".".join([_CONVBNACT.get(m, m) for m in mods] + [_LEAVES[leaf]])
+
+
+def _torch_tensor(leaf: str, a) -> torch.Tensor:
+    a = np.asarray(a)
+    if leaf == "kernel":
+        a = np.transpose(a, {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[a.ndim])
+    return _t(a)
+
+
+def _leaves(tree: Mapping, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def jax_to_torch(name: str, params: Mapping,
+                 batch_stats: Optional[Mapping] = None) -> dict:
+    """The JAX package's variables of registry model ``name`` (numpy
+    leaves) → the port's ``build_model(name)`` state_dict."""
+    batch_stats = batch_stats or {}
+    if name in RESNET9_PRESETS:
+        return jax_resnet9_to_torch(params, batch_stats)
+    if name in POTES_PRESETS:
+        return jax_potes_to_torch(params)
+    sd = {}
+    for cell, spec in RECURRENT_CELLS.items():
+        if cell in params:
+            tree = params[cell]
+            for key, parts in spec.items():
+                leaf = "kernel" if key.startswith("weight") else "bias"
+                sd[f"rnn.{key}"] = _t(np.concatenate(
+                    [np.asarray(tree[p][leaf]).T if leaf == "kernel"
+                     else np.asarray(tree[p][leaf]) for p in parts]))
+    for path, a in _leaves(params):
+        if path[0] not in RECURRENT_CELLS:
+            sd[_torch_key(path)] = _torch_tensor(path[-1], a)
+    for path, a in _leaves(batch_stats):
+        key = _torch_key(path)
+        sd[key] = _t(a)
+        sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
 def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
     """Re-draw the model's Conv1d/Conv2d/Linear parameters as a fresh reference
     model built under ``torch.manual_seed(seed)`` would hold them
@@ -93,11 +170,16 @@ def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
     model's device.  For Potes the same rule covers its four live layers;
     the reference also draws its dead ``cnn2``–``cnn4`` branches, so no
     reference-exact init stream is claimed there (the JAX package has no
-    torch-seeded Potes init either).
+    torch-seeded Potes init either).  A module with an init of its own
+    (the recurrent cells, gMLP's spatial projection, mWDN's wave linears)
+    draws it from the same generator through its ``seeded_reset``.
     """
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
+            if hasattr(m, "seeded_reset"):
+                m.seeded_reset(g)
+                continue
             if not isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 continue
             w = torch.empty(m.weight.shape)

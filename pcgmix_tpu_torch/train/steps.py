@@ -33,9 +33,13 @@ in train mode, so its BatchNorm layers update their running statistics; a
 manifold method's first pass runs in eval mode under ``torch.no_grad()``
 (the JAX ``stop_gradient``), its BatchNorm reading the running statistics
 and updating nothing; its parameters get zero gradients, not none, so Adam
-moves them by weight decay and momentum as optax does.  The two parts share no BatchNorm layer at any
-depth, so the in-place updates of the first pass are the flax ``bs1`` that
-the second pass starts from.
+moves them by weight decay and momentum as optax does.  The in-place
+updates of the first pass are the flax ``bs1`` that the second pass starts
+from; a layer that runs in both parts (Singstad_d10's shared ``deep2`` and
+``shortcut2``) updates its statistics in the first part's applications and
+then in the second's, the order in which flax threads ``bs1``.  The step
+takes any registry model with a split forward (ResNet9, Potes, FCN,
+ResCNN, Singstad_d10); the others refuse ``part="first"``.
 """
 
 from __future__ import annotations

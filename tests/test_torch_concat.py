@@ -15,6 +15,7 @@ within 1e-3 relative)."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,6 +66,16 @@ METHODS_2D = ["cutmix", "(rand)cutmix+0.6", "(smooth)cutmix", "durratiocutmix",
 EYE = np.eye(2, dtype=np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def split():
     ds = synthetic_physionet_dict(num_wavs_train=24, num_wavs_test=2,
@@ -109,6 +120,7 @@ def _check_plans_and_applies(method, split, spectrogram=False):
     """Plans, identity plans and applies over STEPS steps; returns the
     number of steps the method augmented."""
     eng, ref = _engines(method, spectrogram)
+    japply = jax.jit(ref.apply)  # one compile for the method's shapes
     n_plans = 0
     for step, b in _batches(split, STEPS):
         args = (step, b["frames"], b["label"], b["wav"])
@@ -120,7 +132,7 @@ def _check_plans_and_applies(method, split, spectrogram=False):
         data = split.data[b["indices"]]
         out, tgt = eng.apply(torch.from_numpy(data), torch.from_numpy(EYE[b["label"]]),
                              got_a)
-        jout, jtgt = ref.apply(jnp.asarray(data), jnp.asarray(EYE[b["label"]]), exp_a)
+        jout, jtgt = japply(jnp.asarray(data), jnp.asarray(EYE[b["label"]]), exp_a)
         np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0, atol=1e-6,
                                    err_msg=f"{method} step {step}")
         np.testing.assert_allclose(tgt.numpy(), np.asarray(jtgt), rtol=0, atol=1e-6)
@@ -241,6 +253,7 @@ def test_manifold_cutmix_latent_applies_equal_reference(model, spectrogram, spli
     s = spec_split if spectrogram else split
     method = "manifold-cutmix"
     eng, ref = _engines(method, spectrogram, model=model)
+    japply = jax.jit(ref.apply)  # one compile per latent shape
     net = _seeded_model(model, spectrogram)
     depths, past_the_end = set(), 0
     for step, b in _batches(s, 24):
@@ -255,8 +268,8 @@ def test_manifold_cutmix_latent_applies_equal_reference(model, spectrogram, spli
         a = got.arrays
         past_the_end += int(((a["dst"] + a["len"] > latent.shape[-1]) & (a["len"] > 0)).sum())
         out, tgt = eng.apply(latent, torch.from_numpy(EYE[b["label"]]), a)
-        jout, jtgt = ref.apply(jnp.asarray(latent.numpy()), jnp.asarray(EYE[b["label"]]),
-                               exp.arrays)
+        jout, jtgt = japply(jnp.asarray(latent.numpy()), jnp.asarray(EYE[b["label"]]),
+                            exp.arrays)
         assert out.shape == latent.shape
         np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0, atol=1e-6,
                                    err_msg=f"{model} depth {got.latent_depth}")

@@ -557,3 +557,60 @@ def test_spectrogram_cuts_on_the_card_equal_the_cpu(dev, method):
     assert launch_counts()["piecewise_mix_pairs"] == 1
     assert (out.cpu() - ref).abs().max().item() <= 1e-6
     assert torch.equal(tgt.cpu(), ref_t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["FCN", "ResCNN", "Singstad_d10"])
+def test_manifold_cutmix_on_a_zoo_latent_on_the_card(batch, dev, model, dtype):
+    """K1 with a zero base on the zoo's full-length latents (FCN at depth 2:
+    256 channels × 2500 steps), bit-equal to the plain version."""
+    data, frames, labels = batch
+    eng = AugmentEngine(AugmentConfig("manifold-cutmix", B, C, T, model=model))
+    arrays = eng.plan(3, frames, labels).arrays
+    from pcgmix_tpu_torch.models import build_model
+
+    net = build_model(model, 2, C, T).to(dev).eval()
+    with torch.no_grad():
+        latent = net(torch.from_numpy(data).to(dev), depth=2, part="first").to(dtype)
+    assert latent.shape[-1] == T
+    t = torch.eye(2, device=dev)[torch.from_numpy(labels).to(dev)]
+    reset_launch_counts()
+    out, _ = eng.apply(latent, t, arrays)
+    torch.cuda.synchronize()
+    assert launch_counts()["piecewise_mix_pairs"] == 1
+    ref, _ = eng.apply(latent.cpu(), t.cpu(), arrays)
+    assert torch.equal(out.cpu(), ref)
+
+
+ZOO = ["FCN", "FCN(custom)", "ResCNN", "ResNet", "Singstad_d3", "Singstad_d6",
+       "Singstad_d10", "InceptionTime", "XceptionTime", "XResNet1d18", "gMLP", "XCM",
+       "RNN", "LSTM", "GRU", "mWDN", "OmniScaleCNN"]
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_forward_on_the_card_equals_the_cpu(dev, name):
+    """A train-mode forward and backward of each zoo architecture on the
+    card (cuDNN, TF32 off) against the same on the CPU: logits and the last
+    weight's gradient within 1e-4, running statistics within 1e-5."""
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.train.convert import seeded_init
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = 512
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(8, C, t)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(8, 2)).astype(np.float32))
+    outs = []
+    for device in ("cpu", dev):
+        model = seeded_init(build_model(name, 2, C, t), 4).to(device).train()
+        logits = model(x.to(device))
+        (logits * w.to(device)).sum().backward()
+        grad = [p for k, p in model.named_parameters() if k.endswith("weight")][-1].grad
+        stats = [b.detach().cpu() for k, b in model.named_buffers() if "running" in k]
+        outs.append((logits.detach().cpu(), grad.cpu(), stats))
+    (l0, g0, s0), (l1, g1, s1) = outs
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
+    for a, b in zip(s1, s0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -5,8 +5,8 @@ Held: BatchNorm over 2 ranks equals BatchNorm over the concatenated batch
 (outputs, input gradients, running statistics within 1e-6); one
 data-parallel train step equals one single-device step (loss within rtol
 1e-5, ``linear.weight`` within rtol 1e-4, the SELC table equal once the
-epoch is past ``es``, predictions identical), for ResNet9 and for Potes
-with its dropout on; ``train_model`` over 2 ranks with a batch that does
+epoch is past ``es``, predictions identical), for ResNet9, for Potes
+with its dropout on and for FCN (global BatchNorm in the zoo's ConvBlocks); ``train_model`` over 2 ranks with a batch that does
 not divide (7 rows, replicated) returns the single-device run's numbers
 (loss trace within 1e-6, identical recording-level predictions).
 
@@ -75,8 +75,9 @@ def _one_step(dp, name="resnet9-5k"):
     idx = np.arange(B) % len(train)
     plan = engine.plan(0, train.frames[idx], train.label[idx])
     out = step(idx, plan.arrays, epoch=1)
+    head = [m for m in model.modules() if isinstance(m, torch.nn.Linear)][-1]
     return {"loss": float(out["loss"]), "preds": out["preds"].numpy(),
-            "linear": model.linear.weight.detach().numpy().copy(),
+            "linear": head.weight.detach().numpy().copy(),
             "table": table.numpy().copy(),
             "table0": init_selc_table(train.label, 2).numpy()}
 
@@ -97,7 +98,8 @@ def _rank_cases():
     """Entry point of each spawned rank."""
     dp = DataParallel.current()
     return {"bn": _bn_case(dp), "step": _one_step(dp),
-            "potes": _one_step(dp, "Potes"), "indivisible": _indivisible()}
+            "potes": _one_step(dp, "Potes"), "fcn": _one_step(dp, "FCN"),
+            "indivisible": _indivisible()}
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +109,8 @@ def cases():
     torch.set_num_threads(1)  # the ranks' thread count: the same sum orders
     try:
         one = {"bn": _bn_case(None), "step": _one_step(None),
-               "potes": _one_step(None, "Potes"), "indivisible": _indivisible()}
+               "potes": _one_step(None, "Potes"), "fcn": _one_step(None, "FCN"),
+               "indivisible": _indivisible()}
     finally:
         torch.set_num_threads(threads)
     return {"dp": dp, "one": one}
@@ -126,13 +129,13 @@ def test_batchnorm_weight_gradients_sum_to_the_concatenated_batch(cases):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("model", ["step", "potes"])
+@pytest.mark.parametrize("model", ["step", "potes", "fcn"])
 def test_dp_step_loss_matches_single_device(cases, model):
     np.testing.assert_allclose(cases["dp"][model]["loss"],
                                cases["one"][model]["loss"], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("model", ["step", "potes"])
+@pytest.mark.parametrize("model", ["step", "potes", "fcn"])
 def test_dp_step_update_matches_single_device(cases, model):
     np.testing.assert_allclose(cases["dp"][model]["linear"],
                                cases["one"][model]["linear"], rtol=1e-4, atol=1e-6)
@@ -146,7 +149,7 @@ def test_dp_step_selc_table_is_replicated_and_updated(cases):
     assert moved[:B // 2].any() and moved[B // 2:B].any()
 
 
-@pytest.mark.parametrize("model", ["step", "potes"])
+@pytest.mark.parametrize("model", ["step", "potes", "fcn"])
 def test_dp_step_preds_identical(cases, model):
     np.testing.assert_array_equal(cases["dp"][model]["preds"],
                                   cases["one"][model]["preds"])

@@ -50,7 +50,10 @@ def test_port_sources_exist():
                      "pcgmix_tpu_torch/exp/results.py", "pcgmix_tpu_torch/exp/paper.py",
                      "pcgmix_tpu_torch/exp/robust.py", "pcgmix_tpu_torch/ops/masks.py",
                      "pcgmix_tpu_torch/models/resnet9_2d.py",
-                     "pcgmix_tpu_torch/data/umc.py"):
+                     "pcgmix_tpu_torch/data/umc.py",
+                     *(f"pcgmix_tpu_torch/models/{m}.py" for m in (
+                         "layers", "fcn", "rescnn", "resnet_ts", "singstad",
+                         "tsai_inception", "tsai_xresnet", "tsai_seq", "tsai_misc"))):
         assert required in names
     for source in ("mix_kernels.cu", "conv_bn_stats.cu"):
         assert (ROOT / "pcgmix_tpu_torch/ops/csrc" / source).exists()
@@ -122,6 +125,16 @@ def test_latent_and_spectrogram_paths_refuse_a_missing_card(dataset, method):
           "UMC": lambda: synthetic_umc_dict(1, sig_len=256, seed=1)}[dataset]()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_model(TrainConfig(dataset=dataset, method=method, batch_size=4,
+                                num_epochs=1, save_artifacts=False), ds)
+
+
+@pytest.mark.parametrize("model", ["FCN", "Singstad_d10", "LSTM"])
+def test_zoo_models_refuse_a_missing_card(model):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal cannot be shown")
+    ds = synthetic_physionet_dict(4, 2, 2, sig_len=256, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_model(TrainConfig(model=model, method="durmixmagwarp(0.2,4)", batch_size=4,
                                 num_epochs=1, save_artifacts=False), ds)
 
 

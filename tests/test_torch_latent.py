@@ -11,6 +11,8 @@ within 1e-3 relative), for ResNet9 and for ``Potes(noDropout)`` with the
 head's dropout off on both sides (its masks cannot match), and with
 manifold-cutout for ResNet9."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,16 @@ B, C, T = 8, 4, 512
 STEPS = 8
 ATOL = 1e-5
 MAX_DEPTH = {"resnet9-15k": 3, "Potes": 1}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -75,10 +87,15 @@ def no_head_dropout(monkeypatch):
     monkeypatch.setattr(potes, "HEAD_DROPOUT", 0.0)
 
 
+@functools.lru_cache(maxsize=None)
 def _carried(name, seed=0):
-    """A JAX model (eval), its variables, and the port's model holding them."""
+    """A JAX model (eval), its variables (flax init, jitted), the port's
+    model holding them, and one jitted run of the JAX model on the split
+    tests' input (the ``rng`` fixture's first draw): the activation at
+    every depth, the second part from each, and the features."""
     jmodel = jbuild(name, train=False)
-    variables = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, C, T), jnp.float32))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(seed),
+                                     jnp.zeros((1, C, T), jnp.float32))
     np_vars = jax.tree_util.tree_map(np.asarray, variables)
     model = build_model(name, 2, C, T)
     if name.startswith("Potes"):
@@ -86,31 +103,37 @@ def _carried(name, seed=0):
     else:
         model.load_state_dict(jax_resnet9_to_torch(np_vars["params"],
                                                    np_vars["batch_stats"]))
-    return jmodel, variables, model.eval()
+    x = np.random.default_rng(1234).normal(size=(B, C, T)).astype(np.float32)
+
+    def run(v, x):
+        firsts = [jmodel.apply(v, x, depth=d, part="first")
+                  for d in range(MAX_DEPTH[name] + 1)]
+        seconds = [jmodel.apply(v, f, depth=d, part="second") for d, f in enumerate(firsts)]
+        return firsts, seconds, jmodel.apply(v, x, part="latent_space")
+
+    ref = jax.tree_util.tree_map(np.asarray, jax.jit(run)(variables, x))
+    return jmodel, variables, model.eval(), x, ref
 
 
 @pytest.mark.parametrize("name,depth", [("resnet9-15k", d) for d in range(4)]
                          + [("Potes", d) for d in range(2)])
-def test_split_forward_matches_reference(name, depth, rng):
-    jmodel, variables, model = _carried(name)
-    x = rng.normal(size=(B, C, T)).astype(np.float32)
+def test_split_forward_matches_reference(name, depth):
+    _, _, model, x, (jfirsts, jseconds, jfeatures) = _carried(name)
     with torch.no_grad():
         latent = model(torch.from_numpy(x), depth=depth, part="first")
         full = model(torch.from_numpy(x))
         again = model(latent, depth=depth, part="second")
-    jlatent = jmodel.apply(variables, jnp.asarray(x), depth=depth, part="first")
+    jlatent = jfirsts[depth]
     assert latent.shape == jlatent.shape
-    np.testing.assert_allclose(latent.numpy(), np.asarray(jlatent), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(latent.numpy(), jlatent, rtol=0, atol=ATOL)
     # the second part from the JAX package's latent, and first ∘ second
     with torch.no_grad():
-        second = model(torch.from_numpy(np.asarray(jlatent)), depth=depth, part="second")
-    jsecond = jmodel.apply(variables, jlatent, depth=depth, part="second")
-    np.testing.assert_allclose(second.numpy(), np.asarray(jsecond), rtol=0, atol=ATOL)
+        second = model(torch.from_numpy(jlatent), depth=depth, part="second")
+    np.testing.assert_allclose(second.numpy(), jseconds[depth], rtol=0, atol=ATOL)
     assert torch.equal(again, full)
     with torch.no_grad():
         features = model(torch.from_numpy(x), part="latent_space")
-    jfeatures = jmodel.apply(variables, jnp.asarray(x), part="latent_space")
-    np.testing.assert_allclose(features.numpy(), np.asarray(jfeatures), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(features.numpy(), jfeatures, rtol=0, atol=ATOL)
 
 
 def test_split_forward_refuses_an_unknown_part():
@@ -150,6 +173,7 @@ def _batches(split, n_steps):
 def test_latent_plans_and_applies_equal_reference(method, model, split, rng):
     eng = AugmentEngine(AugmentConfig(method, B, C, T, model=model))
     ref = JEngine(JConfig(method, B, C, T, model=model))
+    japply = jax.jit(ref.apply)  # one compile per latent shape
     n_plans, depths = 0, set()
     eye = np.eye(2, dtype=np.float32)
     for step, b in _batches(split, STEPS):
@@ -176,7 +200,7 @@ def test_latent_plans_and_applies_equal_reference(method, model, split, rng):
         latent = rng.normal(size=shape).astype(np.float32)
         target = eye[b["label"]]
         out, tgt = eng.apply(torch.from_numpy(latent), torch.from_numpy(target), got.arrays)
-        jout, jtgt = ref.apply(jnp.asarray(latent), jnp.asarray(target), exp.arrays)
+        jout, jtgt = japply(jnp.asarray(latent), jnp.asarray(target), exp.arrays)
         np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0, atol=1e-6)
         np.testing.assert_allclose(tgt.numpy(), np.asarray(jtgt), rtol=0, atol=1e-6)
     assert n_plans >= 3

@@ -68,6 +68,16 @@ METHODS = [
 _JAX_ONLY, _PORT_ONLY = {"key"}, {"noise_seed"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def split():
     ds = synthetic_physionet_dict(

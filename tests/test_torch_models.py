@@ -17,6 +17,16 @@ C = 4
 LOGIT_RTOL = 1e-4  # fp32 convs summed in another order, through 9 layers
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_variables(name, T, seed=0):
     model = jbuild(name, train=True)
     return model.init(jax.random.PRNGKey(seed), jnp.zeros((1, C, T), jnp.float32))
@@ -125,5 +135,6 @@ def test_registry_presets_and_parameter_counts():
         assert model.conv1[0].out_channels == f[0]
         assert model.linear.in_features == f[3] * (2500 // 32)
     assert count_parameters(build_model("resnet9-5k", 2, C, 2500)) > 0
-    with pytest.raises(NotImplementedError):
-        build_model("FCN")
+    assert count_parameters(build_model("FCN")) > 0  # the zoo is ported too
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("FCN(huge)")

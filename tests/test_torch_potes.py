@@ -34,6 +34,16 @@ C, T, B, EPOCHS = 4, 512, 8, 7
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def dataset():
     # 8 recordings × 2 segments: one batch of 8 per epoch, so each plot

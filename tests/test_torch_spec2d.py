@@ -26,6 +26,7 @@ from pcgmix_tpu.data import synthetic_spectrogram_dict as jsynthetic_spectrogram
 from pcgmix_tpu.exp import results as jresults
 from pcgmix_tpu.models import build_model as jbuild
 from pcgmix_tpu.train import TrainConfig as JTrainConfig
+from pcgmix_tpu.train import loop as jloop
 from pcgmix_tpu.train import train_model as jtrain
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
@@ -48,6 +49,16 @@ METHODS_2D = [
     "freqmask(0.1)", "freqmask(0.3)", "mixup(same)", "mixup(mix)", "latentmixup",
     "latentmixup+0.5",
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +85,35 @@ def _flax_init(seed=4, model=None):
 def full_width():
     """The registry's (full-width) JAX 2-D ResNet9 and its flax init."""
     return _flax_init()
+
+
+@pytest.fixture(scope="module")
+def full_width_run(full_width):
+    """One jitted eval-mode run of the full-width JAX 2-D ResNet9 on the
+    split tests' input (the ``rng`` fixture's first draw): the activation
+    at every depth and the logits."""
+    jmodel, variables = full_width
+    x = np.random.default_rng(1234).normal(size=(2, 1, S, S)).astype(np.float32)
+    run = jax.jit(lambda v, x: ([jmodel.apply(v, x, depth=d, part="first") for d in range(4)],
+                                jmodel.apply(v, x)))
+    firsts, logits = jax.tree_util.tree_map(np.asarray, run(variables, x))
+    return x, firsts, logits
+
+
+def _jax_loop_starts_from(monkeypatch, variables):
+    """The JAX loop's ``init_state`` from ``variables``, its flax init at
+    PRNGKey(seed_fix) taken jitted once here (``_flax_init``) instead of op
+    by op in each loop call; the port's loop carries the same variables."""
+    init_state = jloop.init_state
+
+    class Initialized:
+        @staticmethod
+        def init(key, sample):  # a copy: the JAX step donates its state
+            return jax.tree_util.tree_map(jnp.copy, variables)
+
+    monkeypatch.setattr(jloop, "init_state",
+                        lambda cfg, model, train_ds, tx: init_state(cfg, Initialized, train_ds,
+                                                                    tx))
 
 
 def _carried(variables, model=None):
@@ -117,19 +157,18 @@ def test_resnet9_2d_width_and_classifier_size():
 
 
 @pytest.mark.parametrize("depth", [0, 1, 2, 3])
-def test_split_forward_matches_reference(depth, rng, full_width):
-    jmodel, variables = full_width
+def test_split_forward_matches_reference(depth, full_width, full_width_run):
+    _, variables = full_width
+    x, jfirsts, jlogits = full_width_run
     model = _carried(variables).eval()
-    x = rng.normal(size=(2, 1, S, S)).astype(np.float32)
     with torch.no_grad():
         latent = model(torch.from_numpy(x), depth=depth, part="first")
         full = model(torch.from_numpy(x))
         again = model(latent, depth=depth, part="second")
-    jlatent = jmodel.apply(variables, jnp.asarray(x), depth=depth, part="first")
+    jlatent = jfirsts[depth]
     assert latent.shape == jlatent.shape
-    np.testing.assert_allclose(latent.numpy(), np.asarray(jlatent), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(full.numpy(), np.asarray(jmodel.apply(variables, jnp.asarray(x))),
-                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(latent.numpy(), jlatent, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(full.numpy(), jlogits, rtol=0, atol=1e-5)
     assert torch.equal(again, full)
 
 
@@ -142,7 +181,8 @@ def test_train_mode_logits_and_batchnorm_updates_match_reference(rng, full_width
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     jtrain_model = jbuild("resnet9", SPEC, train=True)
-    ref, mut = jtrain_model.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    ref, mut = jax.jit(lambda v, x: jtrain_model.apply(v, x, mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
     np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-5)
     stats = jax.tree_util.tree_map(np.asarray, mut["batch_stats"])
     for tname, fname in (("conv1", "conv1"), ("res2.1", "res2b")):
@@ -171,6 +211,7 @@ def _engines(method):
 @pytest.mark.parametrize("method", METHODS_2D)
 def test_2d_plans_and_applies_equal_reference(method, split):
     eng, ref = _engines(method)
+    japply = jax.jit(ref.apply)  # one compile for the method's shapes
     assert vars(eng.spec) == vars(ref.spec)
     eye = np.eye(2, dtype=np.float32)
     n_plans = 0
@@ -189,7 +230,7 @@ def test_2d_plans_and_applies_equal_reference(method, split):
             np.testing.assert_array_equal(g, r, err_msg=f"{method} step {step} {k}")
         data, target = split.data[b["indices"]], eye[b["label"]]
         out, tgt = eng.apply(torch.from_numpy(data), torch.from_numpy(target), got.arrays)
-        jout, jtgt = ref.apply(jnp.asarray(data), jnp.asarray(target), exp.arrays)
+        jout, jtgt = japply(jnp.asarray(data), jnp.asarray(target), exp.arrays)
         assert out.shape == data.shape
         np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0, atol=1e-6)
         np.testing.assert_allclose(tgt.numpy(), np.asarray(jtgt), rtol=0, atol=1e-6)
@@ -264,9 +305,9 @@ def test_train_model_pcgmix_tracks_reference(monkeypatch):
     within three steps, as full-width 1-D training does.  The port starts
     from the JAX loop's flax init, carried over."""
     from pcgmix_tpu.models.resnet9_2d import ResNet9_2D as JResNet9_2D
-    from pcgmix_tpu.train import loop as jloop
 
     _, variables = _flax_init(model=JResNet9_2D(filters=NARROW, train=False))
+    _jax_loop_starts_from(monkeypatch, variables)
     monkeypatch.setattr(jloop, "build_model", lambda name, dataset, num_classes, train,
                         **kw: JResNet9_2D(num_classes, NARROW, train=train))
     monkeypatch.setattr(loop, "build_model",
@@ -300,6 +341,7 @@ def test_train_model_full_width_frozen_tracks_reference(method, monkeypatch, ful
     logits differ by some 1e-5 on equal inputs, which is why the bar is
     not the narrow trace's 1e-5."""
     _, variables = full_width
+    _jax_loop_starts_from(monkeypatch, variables)
     monkeypatch.setattr(loop, "seeded_init", lambda model, seed: _carried(variables, model))
     ds = synthetic_spectrogram_dict(num_wavs_train=8, num_wavs_test=4,
                                     segments_per_wav=1, size=S, seed=3)

@@ -24,6 +24,16 @@ from pcgmix_tpu_torch.train.metrics import recording_level_eval, roc_auc
 T, BATCH, EPOCHS = 512, 8, 7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def dataset():
     # 8 recordings × 2 segments: one batch of 8 per epoch, so each plot

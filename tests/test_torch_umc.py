@@ -13,6 +13,7 @@ loader_parity="torch")`` at the bar of tests/test_transplant_dynamics.py
 
 import numpy as np
 import pytest
+import torch
 
 from pcgmix_tpu.augment import pairing as jpairing
 from pcgmix_tpu.data import synthetic as jsynthetic
@@ -32,6 +33,16 @@ from pcgmix_tpu_torch.train import TrainConfig, train_model
 
 T = 512
 FIELDS = ("data", "label", "frames", "wav", "sig_qual", "ids")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: a thread pool per process
+    oversubscribes the CPU when the suite runs in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _with_filters(d, seed):
