@@ -48,9 +48,14 @@ Phases (any failure exits non-zero):
    ``idx1``/``idx2`` (``cutmix``); and K1 on a full-width ResNet9 latent
    (depth 2, 64 × 512 × 312) with a ``manifold-cutmix`` plan reckoned for
    T = 2500, whose pieces run past the latent's end (the source index
-   clamps).  Each bit-equal to its plain version in bf16 and within 1e-6
-   in fp32; their byte bounds count the source steps the pieces read (no
-   base row is read) and the whole output.
+   clamps).  And at the model-in-the-loop joins': K1 with ``idx1`` and a
+   zero base on ``lc-nointrusion``'s candidate pool, 4B = 256 output rows
+   gathered from the 64-row batch (the engine's plan), and on
+   ``saliency-cutmix``'s 14-piece splice, its bins those of a random
+   saliency map through the port's ``bin_training_saliency``.  Each
+   bit-equal to its plain version in bf16 and within 1e-6 in fp32; their
+   byte bounds count the source steps the pieces read (no base row is
+   read) and the whole output.
 3. The slice end to end: ``train_model`` with full-width ResNet9 and with
    full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
    PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
@@ -92,6 +97,26 @@ Phases (any failure exits non-zero):
    and OmniScaleCNN stand beside phase 3's.  K1 also runs at FCN's depth-2
    latent (64 × 256 × 2500) in phases 2 and 5, under an FCN
    ``manifold-cutmix`` plan.
+3e. The model in the loop.  The native displacement scan (g++, one
+   library) against its NumPy plain version on 200 random windows; the
+   saliency maps of frozen full-width ResNet9 weights (pretrained maps and
+   the live training map) on the card against the CPU's, with float64
+   gradients, within ``SALIENCY_BAR``, and in float32 beside the CPU's own
+   float32 spread.  Then the runner CLI in a subprocess, as phase 4b, on
+   the same corpus under the robust schedules (full-width ResNet9: 50
+   epochs of one step each), with ``(saloptenv)durratiomixup``,
+   ``(saloptsum-2)durmixmagwarp(0.2,4)``,
+   ``(closestknn=8)durmixmagwarp(0.2,4)`` and
+   ``(closestbins=4)durratiomixup``: it first trains their dependencies,
+   ``base``, the robust ``durmixmagwarp(0.2,4)+1.0`` and the canonical
+   ResCNN embedder (10 epochs at batch 32, n_fraction 1.0, seed_data 3:
+   its run dir's name, not cut); each run must launch its kernel (K1 or
+   K2) once per step and no other, and print steps/s, finite losses and
+   the host ms per step of its saliency pass, displacement search, latent
+   embedding and TSP pairing; a rerun must train nothing.  Then
+   ``lc-nointrusion`` (the candidate forward of 256 rows and
+   ``lc_select``) and ``saliency-cutmix`` (the live model's saliency bins)
+   through ``train_model``, 16 steps each, K1 once per step.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -134,9 +159,9 @@ Phases (any failure exits non-zero):
    step an epoch), ``base`` and ``(UMC-subset)durratiocutmix``, 3 epochs,
    and its rerun, which must train nothing.
 5. The profiler's kernel time of K1–K4 over 60 calls of phase 2's
-   closures, which has no launch floor (K1 and K3 at the spectrogram and
-   concat geometries too), and each kernel's share of its bound against it and
-   against the bursts (last, since a profiler
+   closures, which has no launch floor (K1 and K3 at the spectrogram,
+   concat, latent and model-in-the-loop geometries too), and each kernel's
+   share of its bound against it and against the bursts (last, since a profiler
    session leaves host overhead behind it).  Summary: a
    ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -157,6 +182,12 @@ import time
 
 B, C, T = 64, 4, 2500
 MAIN_STEPS = 16
+# phase 3e: the most the saliency maps of one set of weights may differ
+# between the card and the CPU, gradients in float64 (the maps are smoothed
+# and scaled in float32).  In float32 the input gradient of full-width
+# ResNet9 at this batch is conditioned at a few 1e-4 of the map (the CPU's
+# own float32 maps against its float64 ones); that spread is printed.
+SALIENCY_BAR = 1e-6
 
 # Trainable parameters of each registry model at 4 × 2500 in the JAX
 # package (``jax.eval_shape`` of its init; the card has no JAX, so they are
@@ -272,6 +303,16 @@ def grid_kernel(method):
     return None
 
 
+def parse_done(line):
+    """(run dir, wall s, steps, launches, host ms per step) of a runner
+    ``done:`` line."""
+    run_dir, rest = line[len("done: "):].split(" in ", 1)
+    wall, rest = rest.split(" s, ", 1)
+    steps, rest = rest.split(" steps, launches ", 1)
+    launches, host = rest.split(", host ms per step ", 1)
+    return run_dir, float(wall), int(steps), json.loads(launches), json.loads(host)
+
+
 def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
                n_train=240, n_test=40, segments=4, epochs=3, dataset="PhysioNet",
                methods=GRID_METHODS, seed_data=1010001):
@@ -335,16 +376,14 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
         template = TrainConfig(dataset=dataset, model=model, num_epochs=epochs,
                                batch_size=batch, n_fraction=0.1, seed_data=seed_data,
                                experiments_root=root)
-        runs, done = {}, [ln for ln in first if ln.startswith("done: ")]
+        runs, done = {}, [parse_done(ln) for ln in first if ln.startswith("done: ")]
         for method in methods:
             cfg = dataclasses.replace(template, method=method)
             run_dir = experiment_dir(cfg)
-            line = [ln for ln in done if ln.startswith(f"done: {run_dir} in ")]
+            line = [d for d in done if d[0] == run_dir]
             if len(line) != 1:
                 raise AssertionError(f"grid {method}: no single done line")
-            rest = line[0][len(f"done: {run_dir} in "):]
-            wall, steps = float(rest.split(" s, ")[0]), int(rest.split(", ")[1].split()[0])
-            launches = json.loads(rest.split(" launches ", 1)[1])
+            _, wall, steps, launches, _ = line[0]
             kernel = grid_kernel(method)
             on_card = device.startswith("cuda")  # the CPU runs the plain versions
             if launches != ({kernel: steps} if kernel and on_card else {}):
@@ -370,6 +409,87 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
                   f"launches {launches}")
         if dataset != "UMC":  # the reader's seed grids are PhysioNet's
             print(to_string(results_table(template, methods, [0.1], robust=False)))
+    return runs
+
+
+# phase 3e: the model-in-the-loop methods that take a dependency run
+MIL_METHODS = ("(saloptenv)durratiomixup", "(saloptsum-2)durmixmagwarp(0.2,4)",
+               "(closestknn=8)durmixmagwarp(0.2,4)", "(closestbins=4)durratiomixup")
+
+
+def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
+                     n_train=240, n_test=40, segments=4, seed_data=1010001,
+                     methods=MIL_METHODS):
+    """Phase 3e's runner part: ``methods`` through the runner CLI in a
+    subprocess under the robust schedules, twice; the first call must train
+    each method's dependency before it, each run launching its kernel once
+    per step, the second nothing.  Returns {run dir: (steps/s, host ms per
+    step)}."""
+    from pcgmix_tpu_torch import utils
+    from pcgmix_tpu_torch.data import synthetic_effect_dict
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deps_") as tmp:
+        corpus = synthetic_effect_dict(num_wavs_train=n_train, num_wavs_test=n_test,
+                                       segments_per_wav=segments, sig_len=sig_len, seed=7)
+        dat = os.path.join(tmp, "corpus.dat")
+        utils.dict2file(corpus, dat)
+        root = os.path.join(tmp, "experiments")
+        cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
+               "--device", device, "--model", model, "--batch-size", str(batch),
+               "--n-fractions", "0.1", "--seed-datas", str(seed_data),
+               "--experiments-root", root, "--methods", *methods]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+
+        def invoke():
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"the runner exited {proc.returncode}")
+            return proc.stdout.splitlines(), time.time() - t0
+
+        first, wall_first = invoke()
+        # each trained run: the line that announced it, then its done line
+        order = [ln.split(": ", 1) for ln in first
+                 if ln.startswith(("run: ", "run (salopt dependency): ",
+                                   "run (latent dependency): "))]
+        done = [parse_done(ln) for ln in first if ln.startswith("done: ")]
+        if [d for _, d in order] != [d[0] for d in done]:
+            raise AssertionError(f"dependency runs out of order: {first}")
+        kinds = [k for k, _ in order]
+        want = ["run (salopt dependency)", "run", "run (salopt dependency)", "run",
+                "run (latent dependency)", "run", "run"]
+        if kinds != want:
+            raise AssertionError(f"runs {kinds}, expected {want}")
+        on_card = device.startswith("cuda")
+        runs = {}
+        for run_dir, wall, steps, launches, host in done:
+            method = os.path.basename(run_dir).split("_")[2]
+            kernel = grid_kernel(method)
+            if launches != ({kernel: steps} if kernel and on_card else {}):
+                raise AssertionError(f"{method}: {steps} steps but launches {launches}")
+            perf = utils.load_dict(os.path.join(run_dir, "performance.pkl"))
+            if not (np.isfinite(perf["train_loss"]).all()
+                    and os.path.exists(os.path.join(run_dir, "model.pth"))):
+                raise AssertionError(f"{method}: non-finite loss or no model.pth")
+            d_steps = perf["steps"][-1] - perf["steps"][0]
+            rate = d_steps / (perf["times"][-1] - perf["times"][0])
+            runs[run_dir] = (rate, host)
+            print(f"model-in-the-loop {method}: {os.path.basename(run_dir).split('_')[1]} "
+                  f"{steps} steps, launches {launches}, {rate:.3f} steps/s after the first "
+                  f"plot epoch, {wall:.3f} s wall; host ms per step "
+                  f"{json.dumps({k: round(v, 3) for k, v in host.items()})}; losses "
+                  f"{[round(float(x), 4) for x in perf['train_loss']]} on {card}")
+        second, wall_second = invoke()
+        skips = [ln for ln in second if ln.startswith("skip (done): ")]
+        if len(skips) != len(methods) or any(ln.startswith(("run", "done: ")) for ln in second):
+            raise AssertionError(f"dependency rerun trained: {second}")
+        print(f"model-in-the-loop runner: {len(done)} runs ({len(done) - len(methods)} "
+              f"dependencies) in {wall_first:.3f} s; the rerun skipped all {len(skips)} in "
+              f"{wall_second:.3f} s, on {card}")
     return runs
 
 
@@ -416,6 +536,7 @@ def main() -> int:
     try:
         import numpy as np
 
+        from pcgmix_tpu_torch import native
         from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
         from pcgmix_tpu_torch.bench import conv_bn_fused as k5
         from pcgmix_tpu_torch.data import (
@@ -429,7 +550,14 @@ def main() -> int:
         from pcgmix_tpu_torch.models.potes import potes_features
         from pcgmix_tpu_torch.ops import mix_kernels as mk
         from pcgmix_tpu_torch.parallel import init_group
+        from pcgmix_tpu_torch.saliency import (
+            bin_training_saliency,
+            saliency_maps,
+            training_saliency_raw,
+        )
+        from pcgmix_tpu_torch.timing import host_times, reset_host_times
         from pcgmix_tpu_torch.train import TrainConfig, train_model
+        from pcgmix_tpu_torch.train.convert import seeded_init
     except ImportError as e:
         print(f"chip_smoke: the pcgmix_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -462,9 +590,9 @@ def main() -> int:
     rng = np.random.default_rng(11)
     k27 = AugmentEngine.device_arrays(k27_geometry(np, rng, B, T), dev)
 
-    def plan(method):
+    def plan(method, **hooks):
         eng = AugmentEngine(AugmentConfig(method, B, C, T))
-        return AugmentEngine.device_arrays(eng.plan(7, frames, labels).arrays, dev)
+        return AugmentEngine.device_arrays(eng.plan(7, frames, labels, **hooks).arrays, dev)
 
     def pieces(a):
         return a["dst"], a["src"], a["len"], a["sel"], a["alpha"]
@@ -513,6 +641,7 @@ def main() -> int:
         ``zero_base`` no base row is read, only the source steps of the
         pieces."""
         n, c, t = x.shape
+        n_out = a["dst"].shape[0]  # lc-nointrusion: 4n candidate rows
         errs = [max_err(make, x, p)[0] for p in (a, extra) if p is not None]
         _, got16, ref16 = max_err(make, x.bfloat16(), a)
         n_diff16 = int((got16 != ref16).sum().item())
@@ -521,7 +650,7 @@ def main() -> int:
         else:  # one bf16 ulp: 2^-7 relative to the larger magnitude
             ulp = torch.maximum(got16.float().abs(), ref16.float().abs()) * 2.0 ** -7
             bf16_ok = bool(((got16.float() - ref16.float()).abs() <= ulp).all())
-        shape = "x".join(map(str, x.shape))
+        shape = "x".join(map(str, x.shape)) + (f"->{n_out}" if n_out != n else "")
         label = f"{name} {geometry} {shape}"
         print(f"{label}: max_abs_err fp32 "
               f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}); bf16 "
@@ -538,9 +667,9 @@ def main() -> int:
         K = a["dst"].shape[1]
         reads = (source_steps(np, a, t, row_reads == 2) * c * 4 if zero_base
                  else row_reads * x.numel() * 4)
-        nbytes = reads + x.numel() * 4 + idx_bytes * n + n * K * 5 * 4
+        nbytes = reads + n_out * c * t * 4 + idx_bytes * n_out + n_out * K * 5 * 4
         nflops = 4 * int(a["len"].sum().item()) * c
-        if warp:
+        if warp:  # K2/K4 (n_out = n)
             k2n = a["knots"].shape[1]
             nbytes += a["knots"].numel() * 4 + t * k2n * 4
             nflops += (2 * k2n + 1) * x.numel()
@@ -567,6 +696,13 @@ def main() -> int:
     # the concat family's plans, and a full-width ResNet9 latent at depth 2
     # (64 × 512 × 312) under a manifold-cutmix plan reckoned for T = 2500
     concat = {m: plan(m) for m in ("cutmix", "cont-cutmix", "swapsysdia")}
+    # the model-in-the-loop joins: lc-nointrusion's pool of 4B = 256
+    # candidates from the 64-row batch, saliency-cutmix's 14 pieces from the
+    # bins of a random saliency map
+    sal = rng.random((B, T)).astype(np.float32)
+    live = {"lc-nointrusion": plan("lc-nointrusion"),
+            "saliency-cutmix": plan("saliency-cutmix",
+                                    saliency_bins_fn=lambda: bin_training_saliency(sal, frames))}
     manifold = plan("manifold-cutmix")
     with torch.no_grad():
         latent = build_model("resnet9", 2, C, T).to(dev).eval()(x32, depth=2, part="first")
@@ -603,6 +739,8 @@ def main() -> int:
          None, True),
         ("piecewise_mix_pairs", k1z, "fcn-latent", fcn_latent, fcn_manifold, 1e-6, 8, 1,
          False, None, True),
+        *[("piecewise_mix_pairs", k1z, m, x32, live[m], 1e-6, 8, 1, False, None, True)
+          for m in live],
     ):
         report[name, geometry] = measure(name, geometry, make, x, a, tol, idx_bytes,
                                          row_reads, warp, extra, zero)
@@ -665,11 +803,13 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mk.reset_launch_counts()
+        reset_host_times()
         t0 = time.time()
         perf = train_model(cfg, data)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = mk.launch_counts()
+        host = {k: round(ms / perf["steps"][-1], 3) for k, (ms, _) in host_times().items()}
         steps = perf["steps"][-1]
         if steps != 4 * epochs or any(n != (steps if k == kernel else 0)
                                       for k, n in counts.items()):
@@ -689,6 +829,8 @@ def main() -> int:
               f"{steps / wall:.3f} steps/s over the whole call incl. eval "
               f"({wall:.3f} s), peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
+        if host:
+            print(f"{route} {method}: host ms per step {json.dumps(host)} on {card}")
         return counts.get(kernel, 0), perf["train_loss"]
 
     launches, single_losses = {}, {}
@@ -743,6 +885,51 @@ def main() -> int:
             raise AssertionError(f"zoo alias {alias}: output {tuple(out.shape)}")
         print(f"zoo alias {alias}: one forward, logits {tuple(out.shape)}, finite")
     print(f"zoo phase: {len(ZOO)} architectures, {time.time() - t_zoo:.3f} s wall on {card}")
+
+    # ---- 3e. the model in the loop -----------------------------------------
+    t0 = time.time()
+    native.build_library()
+    build_s, disagree = time.time() - t0, 0
+    for _ in range(200):
+        n1 = int(rng.integers(20, 1200))
+        s1, s2 = rng.random(n1), rng.random(int(rng.integers(1, n1)))
+        disagree += native.opt_disp_env(s1, s2) != native.opt_disp_env_plain(s1, s2)
+    print(f"native opt_disp_env: built in {build_s:.3f} s; {disagree} of 200 random windows "
+          f"disagree with the NumPy scan")
+    if disagree:
+        raise AssertionError("the native displacement scan disagrees with its plain version")
+    frozen_cpu = seeded_init(build_model("resnet9", 2, C, T), 4)
+    onehot = torch.from_numpy(np.eye(2, dtype=np.float32)[labels])
+    maps = {}  # (what, device, dtype) -> maps
+    for dtype in (torch.float64, torch.float32):
+        for where in (dev, torch.device("cpu")):
+            model = build_model("resnet9", 2, C, T).to(where, dtype)
+            model.load_state_dict(frozen_cpu.state_dict())
+            x, y = x32.to(where, dtype), onehot.to(where, dtype)
+            maps["pretrained", where.type, dtype] = saliency_maps(model, x, y, frames)
+            maps["live", where.type, dtype] = training_saliency_raw(
+                model, x, y, frames[:, -1]).cpu().numpy()
+    f64 = torch.float64
+
+    def diff(what, a, b):
+        return float(np.abs(maps[(what, *a)] - maps[(what, *b)]).max())
+
+    errs = {w: diff(w, ("cuda", f64), ("cpu", f64)) for w in ("pretrained", "live")}
+    print(f"saliency of frozen full-width ResNet9 weights, {B}x{C}x{T}, float64 gradients: "
+          f"card against CPU max |diff| {errs['pretrained']:.3e} (pretrained maps, n=101), "
+          f"{errs['live']:.3e} (live map, n=57); bar {SALIENCY_BAR:g}, on {card}")
+    f32 = {(w, where): diff(w, (where, torch.float32), ("cpu", f64))
+           for w in ("pretrained", "live") for where in ("cuda", "cpu")}
+    print(f"saliency in float32 against the float64 maps: card {f32['pretrained', 'cuda']:.3e}"
+          f" / {f32['live', 'cuda']:.3e}, CPU {f32['pretrained', 'cpu']:.3e} / "
+          f"{f32['live', 'cpu']:.3e} (pretrained / live), on {card}")
+    if max(errs.values()) > SALIENCY_BAR:
+        raise AssertionError("saliency maps on the card disagree with the CPU's")
+    del frozen_cpu, model
+    for method in ("lc-nointrusion", "saliency-cutmix"):
+        n, _ = drive(method, "piecewise_mix_pairs", "model-in-the-loop")
+        launches_concat["piecewise_mix_pairs", method] = n
+    dependency_phase(np, card)
 
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card

@@ -21,6 +21,15 @@
   sinusoid, Gaussian noise, the ``(smooth)`` crossfade of a concat join).
   For latentmixup and the manifold methods the trainer calls it on the
   latent of the split forward (``train/steps.py``).
+- Model-in-the-loop methods take the model through callables the trainer
+  passes to ``plan`` (JAX ``engine.py:207-216``): ``saliency_fn(mix_model)``
+  gives the batch's (B, T) saliency maps under a pretrained checkpoint for
+  the ``(salopt…)`` displacement search; ``saliency_bins_fn()`` the live
+  model's per-segment saliency bins for ``saliency-cutmix``; ``latent_fn()``
+  the batch's latent embeddings for ``(closestknn=…)``/``(closestbins=…)``.
+  ``lc-nointrusion`` plans a pool of 4B candidate joins (K1 with ``idx1``
+  and a zero base, N = 4B output rows) that the trainer scores with the
+  live model and thins with :meth:`AugmentEngine.lc_select`.
 - ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
   counterpart for the per-row bases (JAX ``engine.py:877-953``): a rank
   passes its block of the batch (or, for the concat family, the rows
@@ -43,12 +52,12 @@ the keep-duration cut (``durratiocutmix``, ``wav-durratiocutmix``,
 ``wavcutmix``, ``swapsysdia``, ``cont-cutmix``; ``(rand)``, ``(smooth)``
 and ``+cutout``), ``mixup``, ``latentmixup``, ``timemask``,
 ``respiratoryscale``, ``magnitudewarp``, ``timewarp``, ``gaussiannoise``,
-``cutout`` (with ``(ch)``), ``s1s2mask``, and ``manifold-cutout`` and
-``manifold-cutmix``; every 2-D base; every pairing but the latent-distance
-ones, and the ``(rand)``, ``(alpha=…)`` and ``+p`` modifiers.  The
-model-in-the-loop bases and pairings (``lc-nointrusion``,
-``saliency-cutmix``, ``(closestknn=…)``, ``(closestbins=…)``,
-``(salopt…)``) raise, naming the ROADMAP item they wait for.
+``cutout`` (with ``(ch)``), ``s1s2mask``, ``manifold-cutout`` and
+``manifold-cutmix``, ``lc-nointrusion`` (with ``+cutout``) and
+``saliency-cutmix``; every 2-D base; every pairing, and the ``(rand)``,
+``(alpha=…)``, ``(salopt…)`` and ``+p`` modifiers.  A batch split over
+data-parallel ranks refuses the model-in-the-loop methods, naming ROADMAP
+queue 1 item 9 (:meth:`AugmentEngine.check_prepaired`).
 
 One deviation from the JAX engine: ``gaussiannoise`` draws its noise
 tensor from ``jax.random`` there, which torch cannot reproduce (as with
@@ -62,7 +71,8 @@ are the JAX plan's, bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import random
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,6 +80,7 @@ import torch
 from pcgmix_tpu_torch import rng as prng
 from pcgmix_tpu_torch.augment import pairing as pairing_mod
 from pcgmix_tpu_torch.augment.methods import MethodSpec, parse_method
+from pcgmix_tpu_torch.augment.salopt import salopt_displacements
 from pcgmix_tpu_torch.ops.mix_kernels import (
     pcgmix_plus_fused,
     pcgmix_plus_fused_prepaired,
@@ -81,6 +92,7 @@ from pcgmix_tpu_torch.models.registry import max_latent_depth
 from pcgmix_tpu_torch.ops.masks import box_mask, freq_mask, time_mask, zero_after
 from pcgmix_tpu_torch.ops.piecewise import segment_blend_pieces
 from pcgmix_tpu_torch.ops.spline import magnitude_warp, time_warp
+from pcgmix_tpu_torch.timing import timed
 
 MASKED_BLEND_BASES = ("durmixfreqmask", "durmixtimemask", "durmixcutout")  # 2-D
 KEEPDUR_BASES = ("durratiomixup", "durmixmagwarp", "durmixrespscale") + MASKED_BLEND_BASES
@@ -89,16 +101,17 @@ KEEPDUR_CUT_BASES = ("durratiocutmix", "(UMC-subset)durratiocutmix", "wav-durrat
 # the concat family: pieces of two rows re-joined on a zero base
 CONCAT_BASES = ("cutmix", "labelcutmix", "lengthcutmix", "datasetcutmix", "wavcutmix",
                 "swapsysdia", "cont-cutmix")
-PORTED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES + (
+# the concat joins whose plan takes the live model: a candidate pool scored
+# by its loss, and bins of its saliency
+LIVE_MODEL_BASES = ("lc-nointrusion", "saliency-cutmix")
+PORTED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES + LIVE_MODEL_BASES + (
     "mixup", "latentmixup", "timemask", "freqmask", "respiratoryscale",
     "magnitudewarp", "timewarp", "gaussiannoise", "cutout", "s1s2mask",
 )
 # the bases a data-parallel rank mixes on its block (every row's pieces
 # read only its own row and one partner)
 PREPAIRED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES
-# base → the ROADMAP queue 1 item that it waits for (the model in the loop)
-_WAITING_BASES = dict.fromkeys(("lc-nointrusion", "saliency-cutmix"), 10)
-SALOPT_ITEM = 10
+LC_MULT = 4  # lc-nointrusion's candidates per batch row (augmentations.py:1230)
 # plan arrays that are not batch-leading: a data-parallel rank takes them
 # whole (the frequency band is shared by the batch, the sinusoid by its rows)
 SHARED_ARRAYS = ("fbb", "sinusoid")
@@ -117,6 +130,7 @@ class AugmentConfig:
     spectrogram: bool = False  # (B, 1, F, T) batches, the 2-D method ladder
     spec_freq: int = 0  # F, the frequency axis of a spectrogram
     model: str = "resnet9"  # the model name, for latentmixup's depth draw
+    num_classes: int = 2  # lc-nointrusion draws its candidates per class
 
 
 @dataclasses.dataclass
@@ -124,6 +138,9 @@ class Plan:
     arrays: dict
     latent_depth: Optional[int] = None  # latent methods: the split depth
     frames_new: Optional[np.ndarray] = None  # concat joins: the new rows' frames
+    # lc-nointrusion: the candidates' labels and each class's batch count
+    # (for lc_select); saliency-cutmix: its β(1, 1) draw
+    aux: dict = dataclasses.field(default_factory=dict)
 
 
 def _sanitize_padded_pieces(pieces: dict) -> None:
@@ -229,6 +246,15 @@ def _gaussian_noise(data, snr, end, seed: int):
     return zero_after(data + noise * std, end)
 
 
+def model_in_the_loop(spec: MethodSpec) -> bool:
+    """True when the method's plan takes a model: a pretrained checkpoint's
+    saliency (``(salopt…)``), a frozen embedder's latents (``(closest…)``),
+    or the live model's saliency or candidate losses."""
+    return spec.enabled and (spec.salopt is not None
+                             or spec.pairing in pairing_mod.LATENT_PAIRINGS
+                             or spec.base in LIVE_MODEL_BASES)
+
+
 def frames_end(frames: np.ndarray) -> np.ndarray:
     """Last valid segment boundary per row (the row max: frames[:, -1] for
     the zero-pad variant, the last non-padding entry for −1-padded
@@ -243,13 +269,6 @@ class AugmentEngine:
         self.cfg = cfg
         self.spec: MethodSpec = parse_method(cfg.method, spectrogram=cfg.spectrogram)
         spec = self.spec
-        item = spec.enabled and (
-            _WAITING_BASES.get(spec.base) or pairing_mod.WAITING.get(spec.pairing)
-            or (SALOPT_ITEM if spec.salopt is not None else None))
-        if item:
-            raise NotImplementedError(
-                f"method {cfg.method!r} is not ported yet (ROADMAP queue 1 item {item})"
-            )
         if spec.enabled and (
             spec.base not in PORTED_BASES
             or spec.pairing not in pairing_mod.PORTED_PAIRINGS
@@ -272,6 +291,24 @@ class AugmentEngine:
     def enabled(self) -> bool:
         return self.spec.enabled
 
+    # what the trainer wires into plan() (JAX ``engine.py:191-205``)
+    @property
+    def needs_pretrained_saliency(self) -> bool:
+        return self.spec.salopt is not None
+
+    @property
+    def needs_latent_model(self) -> bool:
+        return self.spec.pairing in pairing_mod.LATENT_PAIRINGS
+
+    @property
+    def needs_training_model(self) -> bool:
+        return (self.spec.base in LIVE_MODEL_BASES + ("latentmixup",)
+                or self.spec.manifold)
+
+    @property
+    def model_in_the_loop(self) -> bool:
+        return model_in_the_loop(self.spec)
+
     # ------------------------------------------------------------------ #
     # host: plan
     # ------------------------------------------------------------------ #
@@ -282,8 +319,16 @@ class AugmentEngine:
         labels: np.ndarray,
         wavs: Optional[Sequence[str]] = None,
         *,
+        latent_fn: Optional[Callable] = None,
+        saliency_fn: Optional[Callable] = None,
+        saliency_bins_fn: Optional[Callable] = None,
         _force: bool = False,
     ) -> Optional[Plan]:
+        """The step's plan, or None when the ``+p`` gate leaves the batch
+        alone.  ``latent_fn()``, ``saliency_fn(mix_model)`` and
+        ``saliency_bins_fn()`` give the model-in-the-loop methods their
+        latents, pretrained saliency maps and live saliency bins; each is
+        called only by the methods that need it."""
         spec = self.spec
         if not spec.enabled:
             return None
@@ -293,7 +338,7 @@ class AugmentEngine:
         frames = np.asarray(frames, np.int64)
         labels = np.asarray(labels)
         B = len(labels)
-        if frames.shape[1] != 5 and base in CONCAT_BASES:
+        if frames.shape[1] != 5 and base in CONCAT_BASES + LIVE_MODEL_BASES:
             # a concat join rewrites the frames vector, which −1-padded
             # multi-cycle frames leave undefined (the reference too)
             raise NotImplementedError(
@@ -304,11 +349,12 @@ class AugmentEngine:
 
         def pair():
             return pairing_mod.build_pairing(
-                spec, step, labels, frames, wavs, cfg.batch_size, cvd_map=cfg.cvd_map
+                spec, step, labels, frames, wavs, cfg.batch_size, cvd_map=cfg.cvd_map,
+                latent_fn=latent_fn,
             )
 
         if base in KEEPDUR_BASES:
-            return self._plan_keepdur_blend(step, frames, labels, pair())
+            return self._plan_keepdur_blend(step, frames, labels, pair(), saliency_fn)
         if base in KEEPDUR_CUT_BASES:
             return self._plan_keepdur_cut(step, frames, pair())
         if base in ("cutmix", "labelcutmix", "lengthcutmix", "datasetcutmix", "wavcutmix"):
@@ -323,6 +369,10 @@ class AugmentEngine:
             return self._plan_swapsysdia(step, frames)
         if base == "cont-cutmix":
             return self._plan_cont_cutmix(step, frames)
+        if base == "lc-nointrusion":
+            return self._plan_lc_nointrusion(step, frames, labels)
+        if base == "saliency-cutmix":
+            return self._plan_saliency_cutmix(step, frames, saliency_bins_fn)
         if base == "mixup":
             mix = pair()
             return Plan(arrays={"mix": mix,
@@ -364,7 +414,7 @@ class AugmentEngine:
         # s1s2mask
         return Plan(arrays={"bb1": frames[:, 0:2], "bb2": frames[:, 2:4]})
 
-    def _plan_keepdur_blend(self, step, frames, labels, mix):
+    def _plan_keepdur_blend(self, step, frames, labels, mix, saliency_fn=None):
         spec, cfg = self.spec, self.cfg
         alpha = 1.0 if spec.base == "durmixrespscale" else spec.alpha
         knots = None
@@ -377,7 +427,18 @@ class AugmentEngine:
             lam = prng.np_beta_lambda(alpha, step)
         nseg = frames.shape[1] - 1  # 4 (zero-pad variant) or 27 (multi-cycle)
         disp = np.zeros((len(labels), nseg), np.int64)
-        if spec.rand and not cfg.spectrogram:
+        if spec.salopt is not None:
+            # the displacement that maximizes the partners' summed saliency
+            # under a pretrained model (JAX ``engine.py:352-359``)
+            if nseg != 4:
+                raise NotImplementedError(
+                    "(salopt…) displacement assumes single-cycle frames; "
+                    "use the zero-pad dataset variant"
+                )
+            sal = saliency_fn(mix_model=spec.salopt_model)
+            with timed("salopt search"):
+                disp = salopt_displacements(sal, frames, mix, lam, spec.salopt)
+        elif spec.rand and not cfg.spectrogram:
             disp = self._rand_displacements(step, frames, mix, segs=range(nseg))
         lam_seg = np.full((len(labels), nseg), lam, np.float32)
         pieces = segment_blend_pieces(frames, frames[mix], disp, lam_seg)
@@ -431,24 +492,27 @@ class AugmentEngine:
         """The segment boundary a concat join cuts at; the seed differs per
         handler (JAX ``engine.py:436-453``): the 1-D plain cutmix always
         draws Random(step·131071).randint(1, 3) (augmentations.py:1549);
-        labelcutmix and 2-D cutmix draw that under ``(rand)``
-        (:1304, augmentations2d.py:588-590); length/dataset/wav-cutmix draw
+        labelcutmix, lc-nointrusion and 2-D cutmix draw that under ``(rand)``
+        (:1304, :1248, augmentations2d.py:588-590); length/dataset/wav-cutmix draw
         Random(step) under ``(rand)`` (:1139, :1170, :1201); else 2."""
         spec = self.spec
         if spec.base == "cutmix" and not self.cfg.spectrogram:
             return prng.py_randint(step * 131071, 1, 3)
         if not spec.rand:
             return 2
-        if spec.base == "labelcutmix" or (self.cfg.spectrogram and spec.base == "cutmix"):
+        if spec.base in ("labelcutmix", "lc-nointrusion") or (
+                self.cfg.spectrogram and spec.base == "cutmix"):
             return prng.py_randint(step * 131071, 1, 3)
         return prng.py_randint(step, 1, 3)
 
-    def _concat_piece_arrays(self, frames, mix, cut):
+    def _concat_piece_arrays(self, frames, mix, cut, idx1=None):
         """Two pieces on a zero base (reference cutmix_multidim_tensors,
-        augmentations.py:30-58): d1 up to its boundary ``cut`` (c1), then
-        d2 from its own (c2) on, clipped at T; and the joined row's frames."""
+        augmentations.py:30-58): d1 (row ``idx1``, default the row itself)
+        up to its boundary ``cut`` (c1), then d2 (row ``mix``) from its own
+        (c2) on, clipped at T; and the joined row's frames."""
         T = self.cfg.sig_len
-        f1, f2 = frames, frames[mix]
+        f1 = frames if idx1 is None else frames[idx1]
+        f2 = frames[mix]
         N = f1.shape[0]
         c1, c2 = f1[:, cut], f2[:, cut]
         last = np.minimum(c1 + f2[:, -1] - c2, T)
@@ -547,6 +611,104 @@ class AugmentEngine:
             "lam_t": np.full(B, np.float32(1.0 - (hi - lo)), np.float32),
         })
 
+    def _plan_lc_nointrusion(self, step, frames, labels):
+        """The candidate pool of ``lc-nointrusion`` (JAX ``engine.py:550-596``;
+        reference augmentations.py:1228-1259): per class, 4n base rows and
+        partners drawn with replacement, zipped, shuffled with Random(step)
+        and joined at ``_cut_choice``; 4B output rows from a B-row batch."""
+        idx_by_class = [[i for i, t in enumerate(labels) if int(t) == c]
+                        for c in range(self.cfg.num_classes)]
+        n_per_class = [len(ix) for ix in idx_by_class]
+        idx1, idx2 = [], []
+        for members in idx_by_class:
+            drawn1 = random.Random(step * 131071 + 178397654).choices(
+                members, k=len(members) * LC_MULT)
+            # the reference reassigns label_indices1[i] before it computes
+            # the second k, so the partner draw is 16n long, not 4n, and the
+            # zip below truncates: every class-1 candidate then takes its
+            # partner from class 0's oversized block (cross-class joins).
+            # Kept bit for bit, as the JAX package keeps it.
+            drawn2 = random.Random(step * 8191 + 99999).choices(
+                members, k=len(drawn1) * LC_MULT)
+            idx1.append(drawn1)
+            idx2.append(drawn2)
+        both = list(zip([i for d in idx1 for i in d], [i for d in idx2 for i in d]))
+        random.Random(step).shuffle(both)
+        idx1 = np.array([p[0] for p in both], np.int64)
+        idx2 = np.array([p[1] for p in both], np.int64)
+        cut = self._cut_choice(step)
+        arrays, f_new = self._concat_piece_arrays(frames, idx2, cut, idx1=idx1)
+        arrays["idx1"] = idx1
+        arrays["idx2"] = idx2
+        if "cutout" in self.spec.raw:
+            lo, hi = prng.py_sorted_uniform_pair(step)
+            arrays["bb"] = np.stack([(lo * f_new[:, -1]).astype(np.int64),
+                                     (hi * f_new[:, -1]).astype(np.int64)], axis=1)
+        return Plan(arrays=arrays, frames_new=f_new,
+                    aux={"n_per_class": n_per_class, "cand_labels": labels[idx1]})
+
+    @staticmethod
+    def lc_select(losses: np.ndarray, cand_labels: np.ndarray,
+                  n_per_class: list) -> np.ndarray:
+        """The lowest-loss candidates of each class, as many as the class
+        has rows in the batch, in ascending index order (JAX
+        ``engine.py:598-607``; augmentations.py:1266-1277)."""
+        keep = []
+        for c, n in enumerate(n_per_class):
+            members = np.where(cand_labels == c)[0]
+            order = members[np.argsort(losses[members], kind="stable")]
+            keep.extend(order[:n].tolist())
+        return np.array(sorted(keep), np.int64)
+
+    def _plan_saliency_cutmix(self, step, frames, saliency_bins_fn):
+        """Bin-level saliency splicing (JAX ``engine.py:653-703``; reference
+        augmentations.py:1396-1470): of the live model's 14 saliency bins a
+        row keeps, in order, the S1 and S2 bins of the more salient partner
+        and the systole and diastole bins of its mix_all partner that reach
+        the β(1, 1)-drawn rank threshold, else its own; 14 pieces on a zero
+        base, packed from 0."""
+        B = frames.shape[0]
+        mix = pairing_mod.mix_all(B, step)
+        bin_values, bin_frames = saliency_bins_fn()
+        quasi_lam = prng.np_beta_lambda(1.0, step)
+        nbins = bin_values.shape[1]
+        dst, src, ln, sel = (np.zeros((B, nbins), np.int64) for _ in range(4))
+        lam_t = np.zeros(B, np.float32)
+        f_new = np.zeros((B, 5), np.int64)
+        thr_idx = min(int(quasi_lam * nbins), nbins - 1)
+        for i in range(B):
+            bv1, bv2 = bin_values[i], bin_values[mix[i]]
+            bf1, bf2 = bin_frames[i], bin_frames[mix[i]]
+            thr = np.sort(bv2)[::-1][thr_idx]
+            pos = 0
+            took = [0, 0]
+            for j in range(nbins):
+                if j in (0, 5):  # S1 / S2 bins keep the more salient source
+                    use2 = not (bv1[j] > bv2[j])
+                else:
+                    use2 = bv2[j] >= thr
+                bf = bf2 if use2 else bf1
+                # a bin's start overshoots a short segment (ceil(L/bins)
+                # steps a bin), so its raw length can be negative: the
+                # placement takes it as empty (the cursor never moves back)
+                # while the target weight adds the raw length, as the
+                # reference's handler does
+                L_raw = int(bf[j + 1] - bf[j])
+                L_eff = max(0, L_raw)
+                dst[i, j] = pos
+                src[i, j] = bf[j]
+                ln[i, j] = L_eff
+                sel[i, j] = int(use2)
+                took[int(use2)] += L_raw
+                pos += L_eff
+            lam_t[i] = took[0] / max(took[0] + took[1], 1)
+            # the new row's frames at its S1/systole/S2/diastole boundaries
+            f_new[i] = [0, dst[i, 1], dst[i, 5], dst[i, 6], min(pos, self.cfg.sig_len)]
+        arrays = {"idx1": np.arange(B, dtype=np.int64), "idx2": mix,
+                  "dst": dst, "src": src, "len": ln, "sel": sel,
+                  "alpha": np.zeros((B, nbins), np.float32), "lam_t": lam_t}
+        return Plan(arrays=arrays, frames_new=f_new, aux={"quasi_lam": quasi_lam})
+
     def _plan_cutout_1d(self, step, frames):
         """1-D cutout bounds: one window per row, or with ``(ch)`` one per
         (row, channel) from per-channel seeds (JAX ``engine.py:705-728``);
@@ -633,26 +795,32 @@ class AugmentEngine:
     # ------------------------------------------------------------------ #
     # structure-stable plans (gated-off steps as identity rewrites)
     # ------------------------------------------------------------------ #
-    def plan_arrays_or_identity(self, step, frames, labels, wavs=None):
+    def plan_arrays_or_identity(self, step, frames, labels, wavs=None, **hooks):
         """Like :meth:`plan`, but always returns arrays of the method's fixed
         structure: gated-off steps come back as identity plans.
 
         Returns (arrays, plan_or_None)."""
-        plan = self.plan(step, frames, labels, wavs)
+        plan = self.plan(step, frames, labels, wavs, **hooks)
         if plan is not None:
             return plan.arrays, plan
-        return self.identity_arrays(step, frames, labels, wavs), None
+        return self.identity_arrays(step, frames, labels, wavs, **hooks), None
 
-    def identity_arrays(self, step, frames, labels, wavs=None):
+    def identity_arrays(self, step, frames, labels, wavs=None, **hooks):
         """A no-op plan with the method's array structure, cached per batch
         size and frames width.  Built under a snapshot of the NumPy mirror
-        stream so a gated-off step consumes no RNG.  Read-only."""
+        stream so a gated-off step consumes no RNG.  Read-only.  Not defined
+        for ``lc-nointrusion`` (its plan has 4B rows) and
+        ``saliency-cutmix`` (its pieces come from the live model), as in the
+        JAX engine."""
+        if self.spec.base in LIVE_MODEL_BASES:
+            raise NotImplementedError(
+                f"identity plans are not defined for {self.spec.base!r}")
         B = len(labels)
         fkey = (B, np.asarray(frames).shape[-1])
         if fkey not in self._identity_cache:
             np_state = self.np_stream.get_state()
             try:
-                forced = self.plan(step, frames, labels, wavs, _force=True)
+                forced = self.plan(step, frames, labels, wavs, _force=True, **hooks)
             finally:
                 self.np_stream.set_state(np_state)
             self._identity_cache[fkey] = self._identity_arrays(forced.arrays, B)
@@ -735,10 +903,11 @@ class AugmentEngine:
             return _mask_2d(data, a), target_ohe
         if base in KEEPDUR_CUT_BASES:
             return self._keepdur_apply(data, a), target_ohe
-        if base in CONCAT_BASES:
+        if base in CONCAT_BASES + LIVE_MODEL_BASES:
             if self.spec.per_channel:
                 out = _cutmix_per_channel(data, data.index_select(0, a["idx2"].long()), a)
             else:
+                # N output rows: B, or lc-nointrusion's 4B candidates
                 rows = _as_rows(data)
                 out = piecewise_mix_pairs(
                     rows, a["idx1"], a["idx2"], a["dst"], a["src"], a["len"], a["sel"],
@@ -747,9 +916,11 @@ class AugmentEngine:
                 out = self._concat_finish(
                     out, lambda: rows.index_select(0, a["idx1"].long()),
                     lambda: rows.index_select(0, a["idx2"].long()), a,
-                ).view(data.shape)
+                ).view(-1, *data.shape[1:])
             if "lam_t" in a:
                 target_ohe = _blend_targets(target_ohe, a["idx2"], a["lam_t"])
+            elif base == "lc-nointrusion":
+                target_ohe = target_ohe.index_select(0, a["idx1"].long())
             return out, target_ohe
         if base in KEEPDUR_BASES or base in ("mixup", "latentmixup"):
             if base == "durmixmagwarp":
@@ -787,7 +958,14 @@ class AugmentEngine:
         data-parallel route splits a batch over the ranks for the
         keep-duration blends and cut and the concat family (the latent
         methods, the masks and the other baselines run on a replicated
-        batch, or on one device)."""
+        batch, or on one device).  The model-in-the-loop methods refuse
+        the data-parallel route, naming the ROADMAP item they wait for."""
+        if self.model_in_the_loop:
+            raise NotImplementedError(
+                f"{self.cfg.method!r} takes a model in the loop, which the "
+                "data-parallel route does not run yet (ROADMAP queue 1 item 9); "
+                "run it on one device"
+            )
         if self.spec.base not in PREPAIRED_BASES or self.spec.latent:
             raise NotImplementedError(
                 f"{self.spec.base!r} on a data-parallel batch split over the "

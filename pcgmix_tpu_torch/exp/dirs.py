@@ -4,7 +4,8 @@ The reference encodes every hyperparameter into the run directory name
 (utils.experiment_dir, utils.py:34-53) and treats an existing final
 checkpoint as "experiment done".  The names are the JAX package's, so run
 directories from either package interoperate; this package writes
-``model.pth``.
+``model.pth``, and a run that loads another run's weights (a dependency of
+the model-in-the-loop methods) reads ``model.pth`` only.
 """
 
 from __future__ import annotations
@@ -31,3 +32,23 @@ def experiment_already_done(cfg, experiments_root: str | None = None) -> bool:
     return any(
         os.path.exists(os.path.join(d, f)) for f in ("model.msgpack", "model.pth")
     )
+
+
+CHECKPOINT = "model.pth"  # the final weights this package writes and loads
+
+
+def require_checkpoint(run_dir: str, what: str) -> str:
+    """The path of ``run_dir``'s ``model.pth``; raises FileNotFoundError
+    naming it when it is missing (``what`` says who needs it).  A JAX
+    package's ``model.msgpack`` in its place marks the run done, but this
+    package cannot load it."""
+    path = os.path.join(run_dir, CHECKPOINT)
+    if not os.path.exists(path):
+        jax_ckpt = os.path.exists(os.path.join(run_dir, "model.msgpack"))
+        raise FileNotFoundError(
+            f"{what} needs the checkpoint {path}"
+            + (" (the run dir holds the JAX package's model.msgpack, which this "
+               "package does not load: train the run with pcgmix_tpu_torch)"
+               if jax_ckpt else "; train that run first")
+        )
+    return path

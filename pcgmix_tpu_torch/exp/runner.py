@@ -19,37 +19,80 @@ the spectrogram seed grids: ``--dataset "PhysioNet(spec128)"``.  A UMC
 
 It prints ``run: <dir>`` before each run it trains, ``skip (done): <dir>``
 for each finished one, and after each run ``done: <dir>`` with its wall
-time, steps and kernel launches.  Gang training, multi-step dispatch,
-checkpoints, the classical/latent dumps, bf16 compute, the matmul conv and
-the (salopt…)/(closest…) dependency runs are not ported yet and raise.
+time, steps, kernel launches and the host ms per step of the
+model-in-the-loop phases (:mod:`pcgmix_tpu_torch.timing`).
+
+(salopt…) and (closestknn/closestbins) methods depend on another run, as
+in the JAX runner: a pretrained checkpoint of the same configuration with
+the method swapped (``base``, or for the '-1'/'-2' variants the
+robust-scheduled ``durratiomixup`` / ``durmixmagwarp(0.2,4)``), or the
+canonical frozen ResCNN embedder.  The runner trains a missing dependency
+first, printing ``run (salopt dependency): <dir>`` or ``run (latent
+dependency): <dir>``, and loads its ``model.pth``.  ``--latent-space``
+sets ``TrainConfig.latent_space`` but passes no embedder, as the JAX
+runner does, so it writes no dumps.  Gang training, multi-step dispatch,
+checkpoints, the classical dumps, bf16 compute and the matmul conv are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import time
 
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.methods import parse_method
+from pcgmix_tpu_torch.augment.pairing import LATENT_PAIRINGS
 from pcgmix_tpu_torch.data.umc import FOLDS
-from pcgmix_tpu_torch.exp.dirs import experiment_already_done, experiment_dir
+from pcgmix_tpu_torch.exp.dirs import (
+    experiment_already_done,
+    experiment_dir,
+    require_checkpoint,
+)
 from pcgmix_tpu_torch.exp.robust import SEED_DATA_GRIDS, hyperparameters_robust
 from pcgmix_tpu_torch.ops import launch_counts, reset_launch_counts
-from pcgmix_tpu_torch.train.loop import TrainConfig, resolve_device, train_model
+from pcgmix_tpu_torch.timing import host_times, reset_host_times
+from pcgmix_tpu_torch.train.loop import (
+    TrainConfig,
+    check_single_device,
+    resolve_device,
+    run_world,
+    train_model,
+)
 
 
-def _check_no_dependency(method: str, spectrogram: bool = False) -> None:
-    """(salopt…) and (closestknn/closestbins) methods need a dependency run
-    (a pretrained checkpoint, a frozen latent model) that the port cannot
-    train or load yet."""
-    spec = parse_method(method, spectrogram=spectrogram)
-    if spec.salopt is not None or spec.pairing in ("closestknn", "closestbins"):
-        raise NotImplementedError(
-            f"method {method!r} depends on another run (salopt / latent "
-            "pairing); the dependency DAG waits for ROADMAP queue 1 item 10"
-        )
+def _salopt_dependency(cfg: TrainConfig, robust: bool) -> TrainConfig | None:
+    """The pretrained run a (salopt…) method depends on (JAX
+    ``exp/runner.py:25-42``): the same config with method 'base' (salopt
+    model 0) or the robust-rewritten 'durratiomixup' /
+    'durmixmagwarp(0.2,4)' ('-1'/'-2'); reference saliency.py:26-37.  None
+    when the method has no salopt dependency."""
+    from pcgmix_tpu_torch.saliency import SALOPT_PRETRAIN_METHODS
+
+    spec = parse_method(cfg.method, spectrogram=cfg.spectrogram)
+    if spec.salopt is None:
+        return None
+    dep = copy.deepcopy(cfg)
+    dep.method = SALOPT_PRETRAIN_METHODS[spec.salopt_model]
+    if robust and spec.salopt_model:
+        dep = hyperparameters_robust(dep)
+    dep.save_artifacts = True  # the dependency's checkpoint is the artifact
+    return dep
+
+
+def _latent_dependency(cfg: TrainConfig) -> TrainConfig | None:
+    """The frozen-embedder run a (closestknn/closestbins) method depends on:
+    the canonical ResCNN base run (latent_space.py:27-29).  None when the
+    method has no latent pairing."""
+    from pcgmix_tpu_torch.latent import latent_pretrain_config
+
+    spec = parse_method(cfg.method, spectrogram=cfg.spectrogram)
+    if spec.pairing not in LATENT_PAIRINGS:
+        return None
+    return latent_pretrain_config(cfg)
 
 
 def run_grid(
@@ -64,15 +107,73 @@ def run_grid(
     progress: bool = True,
 ) -> list[TrainConfig]:
     """Run every grid point in order, skipping finished runs.  Returns the
-    configs that were executed."""
+    configs that were executed, dependency runs included.
+
+    A (salopt…) or (closestknn/closestbins) point first trains the run it
+    depends on when that run is not done (JAX ``exp/runner.py:131-152``),
+    then loads that run's ``model.pth``."""
     resolve_device(base_cfg.device)
+    world = run_world(base_cfg)
     for method in methods:
-        _check_no_dependency(method, base_cfg.spectrogram)
+        check_single_device(dataclasses.replace(base_cfg, method=method), world)
     if base_cfg.dataset.startswith("UMC") and not (
             seed_datas and all(s in FOLDS for s in seed_datas)):
         raise ValueError("a UMC grid takes its train folds as data seeds: "
                          "--seed-datas with values in 1..10")
     executed = []
+
+    def train(cfg, **hooks):
+        reset_launch_counts()
+        reset_host_times()
+        t0 = time.time()
+        perf = train_model(cfg, dataset, **hooks)
+        wall = time.time() - t0
+        executed.append(cfg)
+        if progress:
+            steps = perf["steps"][-1]
+            launches = {k: v for k, v in launch_counts().items() if v}
+            host = {k: ms / steps for k, (ms, _) in host_times().items()}
+            print(f"done: {experiment_dir(cfg)} in {wall:.3f} s, {steps} steps, "
+                  f"launches {json.dumps(launches)}, host ms per step "
+                  f"{json.dumps(host)}", flush=True)
+
+    def salopt_provider_for(cfg):
+        """The saliency provider of one (salopt…) config: each checkpoint
+        dir resolved through :func:`_salopt_dependency`, so the run trained
+        first is the run loaded."""
+        from pcgmix_tpu_torch.saliency import make_pretrained_saliency_fn
+
+        return make_pretrained_saliency_fn(
+            cfg, lambda method: experiment_dir(_salopt_dependency(cfg, robust)))
+
+    def run_one(cfg):
+        """Train ``cfg`` after its dependencies; a point that one of them
+        completed meanwhile (a salopt method listed before 'base') skips."""
+        if skip_done and experiment_already_done(cfg):
+            if progress:
+                print(f"skip (done): {experiment_dir(cfg)}")
+            return
+        hooks = {}
+        lat_dep = _latent_dependency(cfg)
+        if lat_dep is not None:
+            if not experiment_already_done(lat_dep):
+                if progress:
+                    print(f"run (latent dependency): {experiment_dir(lat_dep)}", flush=True)
+                train(lat_dep)
+            # train_model loads the embedder from this run dir itself
+            require_checkpoint(experiment_dir(lat_dep), f"{cfg.method!r}'s latent pairing")
+        dep = _salopt_dependency(cfg, robust)
+        if dep is not None:
+            if not experiment_already_done(dep):
+                if progress:
+                    print(f"run (salopt dependency): {experiment_dir(dep)}", flush=True)
+                train(dep)
+            require_checkpoint(experiment_dir(dep), f"{cfg.method!r}'s saliency model")
+            hooks["saliency_model_provider"] = salopt_provider_for(cfg)
+        if progress:
+            print(f"run: {experiment_dir(cfg)}", flush=True)
+        train(cfg, **hooks)
+
     for method in methods:
         for n_frac in n_fractions:
             if seed_datas is not None:
@@ -91,22 +192,7 @@ def run_grid(
                     cfg.seed = seed
                     if robust:
                         cfg = hyperparameters_robust(cfg)
-                    if skip_done and experiment_already_done(cfg):
-                        if progress:
-                            print(f"skip (done): {experiment_dir(cfg)}")
-                        continue
-                    if progress:
-                        print(f"run: {experiment_dir(cfg)}", flush=True)
-                    reset_launch_counts()
-                    t0 = time.time()
-                    perf = train_model(cfg, dataset)
-                    wall = time.time() - t0
-                    executed.append(cfg)
-                    if progress:
-                        launches = {k: v for k, v in launch_counts().items() if v}
-                        print(f"done: {experiment_dir(cfg)} in {wall:.3f} s, "
-                              f"{perf['steps'][-1]} steps, launches "
-                              f"{json.dumps(launches)}", flush=True)
+                    run_one(cfg)
     return executed
 
 
@@ -119,7 +205,6 @@ def _refuse(args) -> None:
         (args.steps_per_dispatch != 1, "--steps-per-dispatch: multi-step dispatch", 11),
         (args.checkpoint_every != 0, "--checkpoint-every: periodic checkpoints", 11),
         (args.classical_space, "--classical-space: classical feature dumps", 13),
-        (args.latent_space, "--latent-space: latent-space dumps", 6),
         (args.compute_dtype != "float32", "--compute-dtype bfloat16", 3),
         (args.conv_impl != "xla", "--conv-impl matmul", 12),
     ]
@@ -161,7 +246,9 @@ def main(argv=None):
     p.add_argument("--steps-per-dispatch", type=int, default=1)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--classical-space", action="store_true")
-    p.add_argument("--latent-space", action="store_true")
+    p.add_argument("--latent-space", action="store_true",
+                   help="set TrainConfig.latent_space (as in the JAX runner, no "
+                        "embedder is passed, so nothing is dumped)")
     p.add_argument("--gang", action="store_true")
     p.add_argument("--gang-devices", type=int, default=None)
     p.add_argument("--gang-max-size", type=int, default=None)
@@ -187,6 +274,7 @@ def main(argv=None):
         eval_batch_size=args.eval_batch_size,
         true_seed=args.true_seed,
         device=args.device,
+        latent_space=args.latent_space,
     )
     run_grid(
         base_cfg,

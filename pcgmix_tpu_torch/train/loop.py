@@ -20,7 +20,23 @@ directory; the caller gets the performance dict.
 
 Latent methods dispatch on the plan's ``latent_depth``: the JAX loop builds
 one jitted step per depth (``loop.py:596-608``), the port's one step takes
-the depth.  The spectrogram datasets (``PhysioNet(spec128)``,
+the depth.
+
+Model-in-the-loop methods (JAX ``loop.py:318-326``, ``:539-595``) get the
+model through the plan's hooks, on the batch before its step: the
+``(salopt…)`` methods a pretrained checkpoint's saliency maps
+(``saliency_model_provider``, see :mod:`pcgmix_tpu_torch.saliency`),
+``saliency-cutmix`` the live model's saliency bins, the
+``(closestknn/closestbins…)`` pairings a frozen embedder's latents
+(``latent_feature_fn``; by default the canonical ResCNN run of
+``experiments_root``, :func:`pcgmix_tpu_torch.latent.latent_space_for`).
+``lc-nointrusion`` scores its pool of 4B candidate joins with the live
+model under eval mode and trains on the lowest-loss ones.  With
+``latent_space`` and a ``latent_space_model`` the embeddings of each
+augmented batch are dumped to ``latent_space/`` in the run directory.  The
+host time of each of these phases adds to :mod:`pcgmix_tpu_torch.timing`.
+They run on one device; the data-parallel route refuses them (ROADMAP
+queue 1 item 9).  The spectrogram datasets (``PhysioNet(spec128)``,
 ``UMC(spec128)``, ``UMC(spec64)``) train the 2-D ResNet9 on (N, 1, F, T)
 mel spectrograms with the 2-D method ladder; the UMC datasets split by
 patient folds (``data/umc.py``).
@@ -39,7 +55,8 @@ import torch
 import torch.distributed as dist
 
 from pcgmix_tpu_torch import utils
-from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
+from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine, model_in_the_loop
+from pcgmix_tpu_torch.augment.methods import parse_method
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split, umc_split
 from pcgmix_tpu_torch.data.datasets import load_cvd_map
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
@@ -52,7 +69,14 @@ from pcgmix_tpu_torch.train.metrics import (
     recording_level_eval,
     segment_accuracy,
 )
-from pcgmix_tpu_torch.train.steps import TrainStep, eval_step, make_optimizer
+from pcgmix_tpu_torch.saliency import training_saliency_bins
+from pcgmix_tpu_torch.timing import timed
+from pcgmix_tpu_torch.train.steps import (
+    TrainStep,
+    candidate_losses,
+    eval_step,
+    make_optimizer,
+)
 
 
 @dataclasses.dataclass
@@ -91,6 +115,9 @@ class TrainConfig:
                                      # visible CUDA device (1 on the CPU);
                                      # the reference wraps every run in
                                      # nn.DataParallel, train_model.py:385
+    latent_space: bool = False  # dump each augmented batch's embeddings
+                                # under a latent_space_model
+                                # (train_model.py:508-518)
 
     @property
     def spectrogram(self) -> bool:
@@ -145,13 +172,48 @@ def _check_world(world: int) -> None:
         raise ValueError(f"n_devices must be at least 1, got {world}")
 
 
-def train_model(cfg: TrainConfig, dataset: dict) -> dict:
+def run_world(cfg: TrainConfig) -> int:
+    """The ranks a run of ``cfg`` takes: its process group's, else
+    ``n_devices``, else every visible card (1 on the CPU)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    if cfg.n_devices is not None:
+        return cfg.n_devices
+    return torch.cuda.device_count() if resolve_device(cfg.device).type == "cuda" else 1
+
+
+def check_single_device(cfg: TrainConfig, world: int, hooks: Optional[dict] = None) -> None:
+    """Raise when a run of ``world`` ranks would need what runs on one device
+    only: a model-in-the-loop method (ROADMAP queue 1 item 9), or the
+    latent-space dumps of a ``latent_space_model`` (item 6)."""
+    if world <= 1:
+        return
+    if model_in_the_loop(parse_method(cfg.method, spectrogram=cfg.spectrogram)):
+        raise NotImplementedError(
+            f"{cfg.method!r} takes a model in the loop, which the data-parallel "
+            "route does not run yet (ROADMAP queue 1 item 9); run it on one device")
+    if hooks and hooks.get("latent_space_model") is not None:
+        raise NotImplementedError(
+            "the latent-space dumps run on one device only (ROADMAP queue 1 item 6)")
+
+
+def train_model(cfg: TrainConfig, dataset: dict, *, saliency_model_provider=None,
+                latent_feature_fn=None, latent_space_model=None) -> dict:
     """Train one configuration end to end; returns the performance dict.
+
+    ``saliency_model_provider(salopt_model)`` → ``fn(data, target_ohe,
+    frames)`` → (B, T) saliency maps, for the (salopt…) methods (see
+    :func:`pcgmix_tpu_torch.saliency.make_pretrained_saliency_fn`);
+    ``latent_feature_fn(data)`` → (B, D) embeddings for the
+    closestknn/closestbins pairings; ``latent_space_model`` (``.generate``)
+    embeds the augmented batches that ``cfg.latent_space`` dumps.
 
     Inside an initialized process group every rank trains its share and
     returns the same dict; otherwise ``cfg.n_devices > 1`` spawns that many
     ranks and returns rank 0's dict."""
     device = resolve_device(cfg.device)
+    hooks = dict(saliency_model_provider=saliency_model_provider,
+                 latent_feature_fn=latent_feature_fn, latent_space_model=latent_space_model)
     if dist.is_available() and dist.is_initialized():
         dp = DataParallel.current()
         if cfg.n_devices is not None and cfg.n_devices != dp.world:
@@ -159,19 +221,18 @@ def train_model(cfg: TrainConfig, dataset: dict) -> dict:
                 f"n_devices={cfg.n_devices} inside a process group of {dp.world}"
             )
         _check_world(dp.world)
-        return _train(cfg, dataset, dp)
-    world = cfg.n_devices
-    if world is None:
-        world = torch.cuda.device_count() if device.type == "cuda" else 1
+        return _train(cfg, dataset, dp, **hooks)
+    world = run_world(cfg)
     _check_world(world)
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise ValueError(
             f"n_devices={world} but {torch.cuda.device_count()} CUDA devices"
         )
     if world > 1:
+        check_single_device(cfg, world, hooks)
         backend = "nccl" if device.type == "cuda" else "gloo"
         return spawn(_train_rank, world, backend, (cfg, dataset))
-    return _train(cfg, dataset, None)
+    return _train(cfg, dataset, None, **hooks)
 
 
 def _train_rank(cfg: TrainConfig, dataset: dict) -> dict:
@@ -179,7 +240,71 @@ def _train_rank(cfg: TrainConfig, dataset: dict) -> dict:
     return _train(cfg, dataset, DataParallel.current())
 
 
-def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
+def _plan_hooks(step: TrainStep, batch: dict, model, saliency_model_provider,
+                latent_feature_fn) -> dict:
+    """The plan's model hooks for one batch (JAX ``loop.py:539-566``), each
+    on the batch's device tensors, gathered at the first call."""
+    cache = []
+
+    def tensors():
+        if not cache:
+            cache.append(step.batch(batch["indices"]))
+        return cache[0]
+
+    def saliency_fn(mix_model):
+        _, data, target = tensors()
+        with timed("saliency"):
+            return saliency_model_provider(mix_model)(data, target, batch["frames"])
+
+    def saliency_bins_fn():
+        _, data, target = tensors()
+        with timed("saliency"):
+            return training_saliency_bins(model, data, target, batch["frames"])
+
+    def latent_fn():
+        data = tensors()[1]
+        with timed("latent embedding"):
+            return latent_feature_fn(data)
+
+    return {"saliency_fn": saliency_fn if saliency_model_provider else None,
+            "saliency_bins_fn": saliency_bins_fn,
+            "latent_fn": latent_fn if latent_feature_fn else None}
+
+
+def _lc_step(step: TrainStep, engine: AugmentEngine, plan, batch: dict, epoch: int) -> dict:
+    """``lc-nointrusion`` (JAX ``loop.py:572-595``): the plan's 4B candidate
+    joins (K1) scored by the live model under eval mode; a step on the
+    lowest-loss ones, whose SELC rows are the batch's corpus rows mapped
+    through ``idx1``."""
+    _, data, target = step.batch(batch["indices"])
+    cands, cand_t = engine.apply(data, target, plan.arrays)
+    with timed("candidate forward"):
+        losses = candidate_losses(step.model, cands, cand_t).cpu().numpy()
+    with timed("lc_select"):
+        sel = engine.lc_select(losses, plan.aux["cand_labels"], plan.aux["n_per_class"])
+    rows = np.asarray(batch["indices"])[plan.arrays["idx1"][sel]]
+    sel = torch.from_numpy(sel).to(cands.device)
+    return step.train_on(cands.index_select(0, sel), cand_t.index_select(0, sel), rows, epoch)
+
+
+def _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
+                  results_dir) -> None:
+    """The embeddings of the augmented batch, dumped per step (JAX
+    ``loop.py:626-675``; train_model.py:508-518): the plan applied to the
+    input, or the batch itself for a latent method or lc-nointrusion."""
+    from pcgmix_tpu_torch.latent import save_latent_space
+
+    _, data, target = step.batch(batch["indices"])
+    if plan is not None and plan.latent_depth is None and (
+            engine.spec.base != "lc-nointrusion"):
+        data, _ = engine.apply(data, target, plan.arrays)
+    save_latent_space({"fts": latent_space_model.generate(data), "target": batch["label"]},
+                      "train", step_count, results_dir)
+
+
+def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
+           saliency_model_provider=None, latent_feature_fn=None,
+           latent_space_model=None) -> dict:
     device = resolve_device(cfg.device)
     if dp is not None and device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -213,8 +338,21 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
     engine = AugmentEngine(AugmentConfig(
         method=cfg.method, batch_size=cfg.batch_size, num_channels=C, sig_len=T,
         sample_rate=cfg.sample_rate, cvd_map=cvd_map, spectrogram=cfg.spectrogram,
-        spec_freq=F, model=cfg.model,
+        spec_freq=F, model=cfg.model, num_classes=cfg.num_classes,
     ))
+    if dp is not None:
+        check_single_device(cfg, dp.world, {"latent_space_model": latent_space_model})
+    if engine.needs_latent_model and latent_feature_fn is None:
+        # the reference's canonical frozen embedder (latent_space.py:27-29);
+        # raises, naming its model.pth, when that run has not been trained
+        from pcgmix_tpu_torch.latent import latent_space_for
+
+        latent_feature_fn = latent_space_for(cfg, T).generate
+    if engine.needs_pretrained_saliency and saliency_model_provider is None:
+        raise ValueError(
+            f"method {cfg.method!r} needs a pretrained saliency model; pass "
+            "saliency_model_provider (see pcgmix_tpu_torch.saliency)"
+        )
     step = TrainStep(
         model, opt, sched,
         train_data=torch.from_numpy(train_ds.data).to(device),
@@ -239,14 +377,23 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel]) -> dict:
         ):
             plan = None
             if engine.enabled:
+                hooks = (_plan_hooks(step, batch, model, saliency_model_provider,
+                                     latent_feature_fn)
+                         if engine.model_in_the_loop else {})
                 plan = engine.plan(
-                    step_count, batch["frames"], batch["label"], batch["wav"]
+                    step_count, batch["frames"], batch["label"], batch["wav"], **hooks
                 )
             lr_per_step.append(
                 float(sched.get_last_lr()[0]) if sched is not None else cfg.lr_max
             )
-            out = step(batch["indices"], plan.arrays if plan else None, epoch,
-                       plan.latent_depth if plan else None)
+            if plan is not None and engine.spec.base == "lc-nointrusion":
+                out = _lc_step(step, engine, plan, batch, epoch)
+            else:
+                out = step(batch["indices"], plan.arrays if plan else None, epoch,
+                           plan.latent_depth if plan else None)
+            if cfg.latent_space and latent_space_model is not None:
+                _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
+                              run_dir or cfg.experiments_root)
             losses.append(out["loss"])
             preds.append(out["preds"])
             targets.append(out["target"])

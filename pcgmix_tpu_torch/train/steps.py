@@ -40,6 +40,12 @@ from; a layer that runs in both parts (Singstad_d10's shared ``deep2`` and
 then in the second's, the order in which flax threads ``bs1``.  The step
 takes any registry model with a split forward (ResNet9, Potes, FCN,
 ResCNN, Singstad_d10); the others refuse ``part="first"``.
+
+``lc-nointrusion`` trains on rows it picked from a candidate pool rather
+than on corpus rows (JAX ``loop.py:572-595``): :func:`candidate_losses`
+scores the pool under eval mode, and :meth:`TrainStep.train_on` takes the
+picked rows' data, one-hot targets and the corpus rows their SELC entries
+belong to.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -149,6 +156,19 @@ class TrainStep:
         latent, target = self.engine.apply(latent, target, plan_arrays)
         return self.model(latent, depth=depth, part="second"), target
 
+    def batch(self, indices):
+        """(rows, data, one-hot target) of the global batch, unmixed."""
+        return self._rows(indices)
+
+    def train_on(self, data: torch.Tensor, target: torch.Tensor, indices, epoch: int) -> dict:
+        """One step on given rows: ``data`` and its one-hot ``target``, whose
+        SELC entries are the corpus rows ``indices``; no plan."""
+        if self.dp is not None:
+            raise NotImplementedError(
+                "a step on given rows runs on one device only (ROADMAP queue 1 item 9)")
+        rows = torch.from_numpy(np.asarray(indices, np.int64)).to(data.device)
+        return self._update(rows, data, target, None, epoch, None, len(rows), False)
+
     def __call__(self, indices, plan_arrays: Optional[dict], epoch: int,
                  latent_depth: Optional[int] = None) -> dict:
         n = len(indices)
@@ -158,11 +178,20 @@ class TrainStep:
             self.engine.check_prepaired()  # raises: latent methods are row-global
         rows, data, target = self._inputs(indices, None if latent else plan_arrays,
                                           sharded)
+        return self._update(rows, data, target, plan_arrays if latent else None, epoch,
+                            latent_depth, n, sharded)
+
+    def _update(self, rows, data, target, latent_plan: Optional[dict], epoch: int,
+                latent_depth: Optional[int], n: int, sharded: bool) -> dict:
+        """Forward (split at ``latent_depth`` with ``latent_plan``), SELC loss,
+        backward and update on this step's rows (``n`` rows in the global
+        batch; this rank's block of them when ``sharded``)."""
+        latent = latent_plan is not None
         self.model.train()
         rows_held = self.dp.block(n) if sharded else slice(0, n)
         with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):
             if latent:
-                out, target = self._split_forward(data, target, plan_arrays, latent_depth)
+                out, target = self._split_forward(data, target, latent_plan, latent_depth)
             else:
                 out = self.model(data)
         loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)
@@ -193,6 +222,17 @@ class TrainStep:
                 self.dp.mean(loss), self.dp.gather(preds), self.dp.gather(target)
             )
         return {"loss": loss, "preds": preds, "target": target}
+
+
+@torch.no_grad()
+def candidate_losses(model: nn.Module, data: torch.Tensor,
+                     target_ohe: torch.Tensor) -> torch.Tensor:
+    """Per-row CE of a candidate pool under eval mode (JAX
+    ``train/steps.py:300-309``; reference augmentations.py:1264-1266): no
+    BatchNorm statistics move, and the model gets its flags back."""
+    with eval_mode(model):
+        logp = F.log_softmax(model(data), dim=1)
+    return -(logp * target_ohe).sum(dim=1)
 
 
 @torch.no_grad()

@@ -614,3 +614,94 @@ def test_zoo_forward_on_the_card_equals_the_cpu(dev, name):
     torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
     for a, b in zip(s1, s0):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _live_plan(batch, method):
+    """A model-in-the-loop plan on the host, its hooks given: a random
+    saliency map's bins, random latents, a random pretrained map."""
+    data, frames, labels = batch
+    sal = np.random.default_rng(5).random((B, T)).astype(np.float32)
+    from pcgmix_tpu_torch.saliency import bin_training_saliency
+
+    eng = AugmentEngine(AugmentConfig(method, B, C, T))
+    plan = eng.plan(3, frames, labels, saliency_fn=lambda mix_model: sal,
+                    saliency_bins_fn=lambda: bin_training_saliency(sal, frames),
+                    latent_fn=lambda: sal[:, ::100])
+    return eng, plan.arrays
+
+
+LIVE_METHODS = ["lc-nointrusion", "lc-nointrusion+cutout+1.0", "saliency-cutmix",
+                "(saloptenv)durratiomixup", "(saloptsum-2)durmixmagwarp(0.2,4)",
+                "(closestknn=3)durmixmagwarp(0.2,4)", "(closestbins=4)durratiomixup"]
+
+
+@pytest.mark.parametrize("method", LIVE_METHODS)
+def test_model_in_the_loop_applies_on_the_card_equal_the_cpu(batch, dev, method):
+    """K1 (lc-nointrusion: 4B output rows; saliency-cutmix: 14 pieces; the
+    salopt and closest blends) or K2, once, within 1e-6 of the CPU."""
+    data, _, labels = batch
+    eng, arrays = _live_plan(batch, method)
+    x, t = torch.from_numpy(data), torch.from_numpy(np.eye(2, dtype=np.float32)[labels])
+    cpu, t_cpu = eng.apply(x, t, arrays)
+    reset_launch_counts()
+    card, t_card = eng.apply(x.to(dev), t.to(dev), arrays)
+    torch.cuda.synchronize()
+    kernel = "pcgmix_plus_fused" if "magwarp" in method else "piecewise_mix_pairs"
+    assert {k: v for k, v in launch_counts().items() if v} == {kernel: 1}
+    assert card.shape == cpu.shape == ((4 * B, C, T) if "lc-" in method else (B, C, T))
+    tol = 1e-5 if "magwarp" in method else 1e-6
+    assert (card.cpu() - cpu).abs().max().item() <= tol
+    assert (t_card.cpu() - t_cpu).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", ["lc-nointrusion", "saliency-cutmix"])
+def test_k1_live_geometries_match_plain(batch, dev, method, dtype):
+    """K1 on lc-nointrusion's 4B candidate rows and saliency-cutmix's 14
+    pieces, bit-equal to its plain version."""
+    data, _, _ = batch
+    _, arrays = _live_plan(batch, method)
+    a = AugmentEngine.device_arrays(arrays, dev)
+    x = torch.from_numpy(data).to(dev, dtype)
+    args = (x, a["idx1"], a["idx2"], *_args(a))
+    got = piecewise_mix_pairs(*args, base_is_d1=False)
+    ref = piecewise_mix_pairs_plain(*args, base_is_d1=False)
+    assert got.shape[0] == len(arrays["idx1"])
+    assert torch.equal(got, ref)
+
+
+def test_saliency_on_the_card_equals_the_cpu(batch, dev):
+    """Maps of one set of weights (pretrained n = 101 and live n = 57) with
+    float64 gradients, as chip_smoke.py phase 3e holds them (in float32 the
+    input gradient is conditioned at a few 1e-4 of the map), and the model
+    left as it was: no buffer or flag changed."""
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.saliency import saliency_maps, training_saliency_raw
+    from pcgmix_tpu_torch.train.convert import seeded_init
+
+    data, frames, labels = batch
+    cpu_model = seeded_init(build_model("resnet9-15k", 2, C, T), 4).double().train()
+    card_model = build_model("resnet9-15k", 2, C, T).to(dev, torch.float64).train()
+    card_model.load_state_dict(cpu_model.state_dict())
+    before = {k: v.clone() for k, v in card_model.state_dict().items()}
+    x = torch.from_numpy(data).double()
+    t = torch.from_numpy(np.eye(2)[labels])
+    for fn in (lambda m, x, t: saliency_maps(m, x, t, frames),
+               lambda m, x, t: training_saliency_raw(m, x, t, frames[:, -1]).cpu().numpy()):
+        assert np.abs(fn(card_model, x.to(dev), t.to(dev)) - fn(cpu_model, x, t)).max() <= 1e-6
+    assert all(m.training for m in card_model.modules())
+    for k, v in card_model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.parametrize("method", ["lc-nointrusion", "saliency-cutmix"])
+def test_live_model_training_on_the_card_launches_k1(dev, method):
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    ds = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4, segments_per_wav=2,
+                                  sig_len=512, seed=3)
+    reset_launch_counts()
+    perf = train_model(TrainConfig(model="resnet9-5k", method=method, num_epochs=3,
+                                   batch_size=8, save_artifacts=False), ds)
+    assert {k: v for k, v in launch_counts().items() if v} == {"piecewise_mix_pairs": 3}
+    assert np.isfinite(perf["train_loss"]).all()

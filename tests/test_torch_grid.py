@@ -5,6 +5,8 @@ the JAX package's ``read_performance`` reads back, resume-skip on a rerun,
 and the options that wait for later slices refused."""
 
 import copy
+import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -101,16 +103,25 @@ def test_the_results_cli_reads_the_grid(grid, capsys):
     (["--gang"], 12), (["--gang-devices", "2"], 12), (["--gang-max-size", "4"], 12),
     (["--no-gang-fallback"], 12), (["--steps-per-dispatch", "4"], 11),
     (["--checkpoint-every", "1"], 11), (["--classical-space"], 13),
-    (["--latent-space"], 6), (["--compute-dtype", "bfloat16"], 3),
-    (["--conv-impl", "matmul"], 12),
+    # --latent-space is taken (no item): the runner goes on to read the file
+    pytest.param(["--latent-space"], None, id="option7-6"),
+    (["--compute-dtype", "bfloat16"], 3), (["--conv-impl", "matmul"], 12),
 ])
 def test_unported_options_raise(option, item):
+    if item is None:
+        with pytest.raises(FileNotFoundError, match="absent.dat"):
+            main(["--dataset-file", "absent.dat", "--device", "cpu", *option])
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         main(["--dataset-file", "absent.dat", "--device", "cpu", *option])
 
 
 @pytest.mark.parametrize("method", ["(saloptenv-1)durratiomixup",
                                     "(closestknn=8)durmixmagwarp(0.2,4)"])
-def test_dependency_methods_raise(method, grid):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_grid(grid["base"], grid["ds"], [method], [1.0], [1], robust=False)
+def test_dependency_methods_raise(method, grid, tmp_path):
+    """A dependency method over data-parallel ranks refuses before any run
+    (its dependency included) trains, naming ROADMAP queue 1 item 9."""
+    base = dataclasses.replace(grid["base"], n_devices=2, experiments_root=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        run_grid(base, grid["ds"], [method], [1.0], [1], robust=False)
+    assert not os.listdir(tmp_path)

@@ -231,13 +231,22 @@ def test_pairings_equal_reference(split, cvd_map):
             np.testing.assert_array_equal(got, exp)
 
 
-@pytest.mark.parametrize("method,item", [
-    ("(closestknn=8)durratiomixup", 10), ("(closestbins=4)durmixmagwarp(0.2,4)", 10),
+@pytest.mark.parametrize("method", [
+    pytest.param("(closestknn=8)durratiomixup", id="(closestknn=8)durratiomixup-10"),
+    pytest.param("(closestbins=4)durmixmagwarp(0.2,4)",
+                 id="(closestbins=4)durmixmagwarp(0.2,4)-10"),
 ])
-def test_unported_pairings_name_their_queue_item(method, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        pairing.build_pairing(parse_method(method), 0, np.zeros(4, int),
-                              np.zeros((4, 5), int), ["a"] * 4, 4)
+def test_unported_pairings_name_their_queue_item(method, rng):
+    """The latent-distance pairings: without latents they raise, naming
+    ``latent_fn``; with them they equal the JAX package's pairing."""
+    labels = rng.integers(0, 2, 16)
+    args = (parse_method(method), 3, labels, np.zeros((16, 5), int), ["a"] * 16, 16)
+    with pytest.raises(ValueError, match="latent_fn"):
+        pairing.build_pairing(*args)
+    latent = rng.normal(size=(16, 8)).astype(np.float32)
+    got = pairing.build_pairing(*args, latent_fn=lambda: latent)
+    exp, _ = jpairing.build_pairing(*args, latent_fn=lambda: latent)
+    np.testing.assert_array_equal(got, exp)
 
 
 def test_same_cvd_needs_a_map(split):

@@ -10,6 +10,7 @@ from pcgmix_tpu.augment.engine import AugmentEngine as JEngine
 from pcgmix_tpu.augment.methods import parse_method as jparse
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine, parse_method
 from pcgmix_tpu_torch.data import EpochIterator, physionet_split, synthetic_physionet_dict
+from pcgmix_tpu_torch.saliency import bin_training_saliency
 
 B, C, T = 8, 4, 512
 METHODS = [
@@ -103,6 +104,17 @@ def test_method_parser_equals_reference(method):
     "(closestknn=8)durratiomixup", "(saloptenv)durratiomixup", "lc-nointrusion",
     "saliency-cutmix", "(closestbins=4)durmixmagwarp(0.2,4)", "(saloptsum-2)durratiomixup",
 ])
-def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AugmentEngine(AugmentConfig(method, B, C, T))
+def test_unported_methods_raise(method, train_split):
+    """The model-in-the-loop methods build and plan (their hooks given
+    here), and refuse a batch split over data-parallel ranks, naming
+    ROADMAP queue 1 item 9."""
+    eng = AugmentEngine(AugmentConfig(method, B, C, T))
+    _, b = next(_batches(train_split, 1))
+    sal = np.random.default_rng(0).random((B, T)).astype(np.float32)
+    plan = eng.plan(0, b["frames"], b["label"], b["wav"],
+                    saliency_fn=lambda mix_model: sal,
+                    saliency_bins_fn=lambda: bin_training_saliency(sal, b["frames"]),
+                    latent_fn=lambda: sal[:, ::64])
+    assert plan.arrays["len"].shape[0] == (4 * B if method == "lc-nointrusion" else B)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.check_prepaired()
