@@ -117,6 +117,46 @@ Phases (any failure exits non-zero):
    ``lc-nointrusion`` (the candidate forward of 256 rows and
    ``lc_select``) and ``saliency-cutmix`` (the live model's saliency bins)
    through ``train_model``, 16 steps each, K1 once per step.
+3f. The runtime extras, full-width ResNet9 and Potes, batch 64, 4 × 2500,
+   fp32, on a corpus of 9 steps an epoch (two full chunks of 4 and a
+   partial one).  ``steps_per_dispatch=4``, a captured CUDA graph of 4
+   steps, against one step per dispatch with PCGmix+ and PCGmix on both
+   models and ``durmixmagwarp(0.2,4)+0.5`` (identity plans) on ResNet9:
+   with the weights frozen every plot epoch's loss within 1e-5, K1/K2
+   once per step (replays counted, the warm-up's launches printed apart;
+   the gated method's eager route only on its augmented steps);
+   ``lr_per_step`` equal.  Training at lr 0.01 under cuDNN's
+   deterministic algorithms, ResNet9 and Potes with Adam and ResNet9 with
+   ``op="SGD"`` (``StepLosses`` records every step's loss): step 0 within
+   1e-5, step 1 within 1e-3 relative, and every one of the 27 steps
+   (replays, partial chunks) within the float32-scalar bar: the largest
+   relative gap the eager route itself shows when ``lr_max`` moves by
+   one float32 ulp, which moves each scheduled scalar by about its
+   float32 rounding, and at most 1e-6 (both routes feed the update the
+   same float32 scalars).  SGD's OneCycle momentum cycles 0.95 → 0.85 → 0.95.
+   Steps/s of both routes with PCGmix+, each over the epochs after the
+   first of a 30-epoch (ResNet9, 261 steps) or 40-epoch (Potes, 351
+   steps) run, the routes alternated eager, graph, graph, eager.  The
+   host ms per step of the eager route's uploads against the chunk's
+   staging, each call timed after the card's queue is drained.  Exact
+   resume (``resnet9-5k``, 5 steps an epoch, ``checkpoint_every=1``,
+   PCGmix+ and ``magnitudewarp(0.2,4)`` one step per dispatch and PCGmix+
+   as a graph of 4, cuDNN deterministic): a run crashed after
+   its first checkpoint and rerun equals the uninterrupted run within its
+   own repeat spread plus 1e-6, and a rerun of the finished config
+   launches nothing; checkpoint save and restore ms and
+   ``replay_plan_rng``'s.  Serving: the trained full-width ResNet9 and
+   Potes exported on the card, ``python -m pcgmix_tpu_torch.serve`` in
+   a subprocess with ``--artifact`` and with ``--checkpoint`` on the test
+   split: probabilities within 1e-5, the recording predictions equal;
+   rows/s of each at batch 256.  Two calls on one corpus: the second
+   hits the device cache and its losses equal an uncached call's; the
+   ``profile_dir`` trace names the K2 kernel; ``variability.pkl`` is
+   written.  Inside phase 4's group the data-parallel route runs the same
+   graph check with K3/K4 (the collectives captured in the graph), and
+   the same alternated steps/s of both routes; a refused capture is
+   printed, not failed.  A profiled graph call stands beside phase 3's
+   eager one.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -527,6 +567,417 @@ def source_steps(np, a, t, prepaired):
     return int(need.sum())
 
 
+# phase 3f: the runtime extras
+RT_K = 4  # steps_per_dispatch under test
+RT_PAIRS = (("resnet9", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+            ("resnet9", "durratiomixup", "piecewise_mix_pairs"),
+            ("Potes", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+            ("Potes", "durratiomixup", "piecewise_mix_pairs"),
+            ("resnet9", "durmixmagwarp(0.2,4)+0.5", "pcgmix_plus_fused"))
+# the epochs of each steps/s run (all but the first timed: 261 and 351 steps)
+RT_RATE_EPOCHS = {"resnet9": 30, "Potes": 40}
+
+
+class StepLosses:
+    """Within: every step's loss of ``train_model``, eager or chunked, in
+    order (the chunk route's per-step losses, which the performance dict
+    averages per epoch)."""
+
+    def __init__(self):
+        from pcgmix_tpu_torch.train import steps
+
+        self.steps, self.losses = steps, []
+
+    def __enter__(self):
+        s, rec = self.steps, self.losses
+        self._call, self._run = s.TrainStep.__call__, s.MultiStep.run
+
+        def call(step, *a, **k):
+            out = self._call(step, *a, **k)
+            rec.append(out["loss"].reshape(1))
+            return out
+
+        def run(multi, *a, **k):
+            out = self._run(multi, *a, **k)
+            rec.append(out["loss"])
+            return out
+
+        s.TrainStep.__call__, s.MultiStep.run = call, run
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.TrainStep.__call__, self.steps.MultiStep.run = self._call, self._run
+
+    def values(self, np, torch):
+        return np.asarray(torch.cat(self.losses).cpu().numpy(), np.float64)
+
+
+class Timed:
+    """Within: the host seconds of every call of ``owner.name``.  With
+    ``sync`` (the torch module) the card's queue is drained before each
+    call, outside the clock, so a copy that waits for the stream is timed
+    without that wait."""
+
+    def __init__(self, owner, name, sync=None):
+        self.owner, self.name, self.sync, self.seconds = owner, name, sync, []
+
+    def __enter__(self):
+        import inspect
+
+        self.raw = inspect.getattr_static(self.owner, self.name)
+        orig, seconds, sync = getattr(self.owner, self.name), self.seconds, self.sync
+
+        def timed(*a, **k):
+            if sync is not None:
+                sync.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+
+        setattr(self.owner, self.name,
+                staticmethod(timed) if isinstance(self.raw, staticmethod) else timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.raw)
+
+
+def rt_train(torch, mk, TrainConfig, train_model, data, *, model="resnet9",
+             method="durmixmagwarp(0.2,4)", epochs=3, k=1, **overrides):
+    """One full-width ``train_model`` call at batch B: its performance dict,
+    launch counts (replays counted), the graph warm-up's launches, every
+    step's loss, and the wall seconds."""
+    import types
+
+    import numpy as np
+
+    cfg = TrainConfig(model=model, method=method, num_epochs=epochs, batch_size=B,
+                      num_channels=C, save_artifacts=False, steps_per_dispatch=k,
+                      **overrides)
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    t0 = time.time()
+    with StepLosses() as rec:
+        perf = train_model(cfg, data)
+    torch.cuda.synchronize()
+    return types.SimpleNamespace(perf=perf, launches=mk.launch_counts(),
+                                 warm_ups=mk.warm_up_counts(), losses=rec.values(np, torch),
+                                 wall=time.time() - t0)
+
+
+def steady_rate(perf):
+    """Steps/s over the plot epochs after the first (synced there)."""
+    return ((perf["steps"][-1] - perf["steps"][0])
+            / (perf["times"][-1] - perf["times"][0]))
+
+
+def route_rates(run, epochs, **kw):
+    """Steps/s of one step per dispatch (1) and of the graph (RT_K), each
+    run twice for ``epochs`` epochs in the order eager, graph, graph, eager;
+    the first epoch (the warm-up and capture) is not timed."""
+    rates = {1: [], RT_K: []}
+    for k in (1, RT_K, RT_K, 1):
+        rates[k].append(steady_rate(run(k=k, epochs=epochs, **kw).perf))
+    return rates
+
+
+def relative_gap(np, a, ref):
+    """|a − ref| / |ref| step by step; 0 where they are equal (the loss of
+    a separated batch may be 0.0 on both)."""
+    gap = np.abs(a - ref)
+    return np.divide(gap, np.abs(ref), out=np.where(gap > 0, np.inf, 0.0),
+                     where=ref != 0)
+
+
+def print_rates(what, rates, n_steps, card):
+    gain = sum(rates[RT_K]) / sum(rates[1]) - 1
+    print(f"steps/s {what}: graph {rates[RT_K][0]:.3f}, {rates[RT_K][1]:.3f}; eager "
+          f"{rates[1][0]:.3f}, {rates[1][1]:.3f}, over {n_steps} steps each (routes "
+          f"alternated eager, graph, graph, eager); graph against eager {100 * gain:+.2f} % "
+          f"on {card}")
+
+
+def runtime_phase(np, torch, card, mk):
+    """Phase 3f: steps_per_dispatch as a CUDA graph against one step per
+    dispatch, op="SGD", exact resume, serving, the device cache, the
+    profiler trace and the variability counter.  Returns the graph route's
+    K1/K2 launches by kernel."""
+    import pickle
+
+    from pcgmix_tpu_torch import serve, utils
+    from pcgmix_tpu_torch.data import device_cache, physionet_split, synthetic_physionet_dict
+    from pcgmix_tpu_torch.train import TrainConfig, checkpoint, loop, steps, train_model
+
+    t_phase = time.time()
+    # 9 steps an epoch at batch 64: two full chunks of 4 and a partial one
+    rt_ds = synthetic_physionet_dict(num_wavs_train=80, num_wavs_test=12,
+                                     segments_per_wav=8, sig_len=T, seed=12)
+    per_epoch = len(physionet_split(rt_ds, "train")) // B
+    if per_epoch < 2 * RT_K + 1 or per_epoch % RT_K == 0:
+        raise AssertionError(f"phase 3f: {per_epoch} steps an epoch, not two full chunks "
+                             "and a partial one")
+    run = lambda **kw: rt_train(torch, mk, TrainConfig, train_model, rt_ds, **kw)  # noqa: E731
+    graph_launches = {}
+    for model, method, kernel in RT_PAIRS:
+        e, g = (run(model=model, method=method, k=k, lr_max=0.0) for k in (1, RT_K))
+        d = float(np.max(np.abs(np.subtract(g.perf["train_loss"], e.perf["train_loss"]))))
+        n_steps = g.perf["steps"][-1]
+        print(f"graph {model} {method}: frozen weights, {n_steps} steps ({per_epoch} an "
+              f"epoch), plot-epoch max |diff| to one step per dispatch {d:.3e}; "
+              f"{kernel} launches {g.launches[kernel]} (graph, replays counted; "
+              f"{g.warm_ups[kernel]} more in the warm-up, undone) / {e.launches[kernel]} "
+              f"(eager), on {card}")
+        others = {k: n for k, n in g.launches.items() if k != kernel and n}
+        gated = "+" in method
+        if d >= 1e-5 or g.launches[kernel] != n_steps or others or (
+                e.launches[kernel] != n_steps and not gated) or g.perf[
+                "lr_per_step"] != e.perf["lr_per_step"]:
+            raise AssertionError(f"graph {model} {method}: differs from one step per "
+                                 f"dispatch (launches {g.launches} / {e.launches})")
+        if model == "resnet9" and not gated:
+            graph_launches[kernel] = g.launches[kernel]
+
+    # training: every step's loss of both routes under cuDNN's deterministic
+    # algorithms (one step per dispatch is then one run), against how far
+    # the eager route moves when every scheduled scalar moves by about its
+    # float32 rounding (lr_max one float32 ulp up): the most that the
+    # graph's update, reading its scalars as float32 device values, could
+    # add
+    torch.backends.cudnn.deterministic = True
+    nudged = float(np.nextafter(np.float32(0.01), np.float32(1)))
+    for model, op in (("resnet9", "adam"), ("Potes", "adam"), ("resnet9", "SGD")):
+        e, g, nu = (run(model=model, op=op, k=k, lr_max=lr)
+                    for k, lr in ((1, 0.01), (RT_K, 0.01), (1, nudged)))
+        rel, f32 = relative_gap(np, g.losses, e.losses), relative_gap(np, nu.losses, e.losses)
+        # both routes compute in the same float32 scalars, so the bar is
+        # the rounding's own gap, and no wider than 1e-6
+        bar = min(float(f32.max()), 1e-6)
+        worst = int(np.argmax(rel))
+        print(f"graph {model} {op} at lr 0.01, cuDNN deterministic: {len(rel)} steps, step 0 "
+              f"|diff| {abs(g.losses[0] - e.losses[0]):.3e}, step 1 relative {rel[1]:.3e}, "
+              f"largest relative {rel[worst]:.3e} (step {worst}), bar {bar:.3e} (the "
+              f"float32-scalar gap {f32.max():.3e}, at most 1e-6); lr_per_step equal: "
+              f"{g.perf['lr_per_step'] == e.perf['lr_per_step']}; losses "
+              f"{np.round(e.perf['train_loss'], 4).tolist()}")
+        if not (np.isfinite(g.losses).all() and len(g.losses) == len(e.losses)
+                and abs(g.losses[0] - e.losses[0]) < 1e-5 and rel[1] < 1e-3
+                and rel.max() <= bar and g.perf["lr_per_step"] == e.perf["lr_per_step"]):
+            raise AssertionError(f"graph {model} {op}: per-step losses differ from the "
+                                 "eager route")
+    torch.backends.cudnn.deterministic = False
+
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.train.steps import make_optimizer
+
+    opt, sched = make_optimizer(build_model("resnet9-5k"), "SGD", 0.01, 1e-4, 100, True)
+    mom = []
+    for _ in range(100):
+        mom.append(opt.param_groups[0]["momentum"])
+        opt.step()
+        sched.step()
+    print(f"SGD: OneCycle momentum {mom[0]:.4f} -> {min(mom):.4f} -> {mom[-1]:.4f}")
+    if not (abs(mom[0] - 0.95) < 1e-9 and abs(min(mom) - 0.85) < 1e-3 and mom[-1] > 0.949):
+        raise AssertionError("SGD: momentum not cycled")
+
+    # speed: the routes alternated, each timed over the epochs after its first
+    for model, epochs in RT_RATE_EPOCHS.items():
+        print_rates(f"{model} durmixmagwarp(0.2,4)", route_rates(run, epochs, model=model),
+                    (epochs - 1) * per_epoch, card)
+
+    # the host time of a step's uploads, each call after the card's queue is
+    # drained: eager, the indices and each plan array on their own; chunked,
+    # one staged buffer for K steps (the warm-up's chunk is staged too)
+    with Timed(steps.TrainStep, "upload", torch) as up, Timed(
+            loop.AugmentEngine, "device_arrays", torch) as arrs:
+        run(k=1, epochs=2)
+    with Timed(steps.MultiStep, "_stage", torch) as stage:
+        run(k=RT_K, epochs=2)
+    eager_ms = (sum(up.seconds) + sum(arrs.seconds)) / len(up.seconds) * 1e3
+    chunk_ms = sum(stage.seconds) / (2 * per_epoch + RT_K) * 1e3
+    print(f"host ms per step of the uploads, the card's queue drained before each: eager "
+          f"{eager_ms:.3f} (indices and plan arrays, {len(up.seconds)} steps), chunked "
+          f"{chunk_ms:.3f} (one pinned buffer per {RT_K} steps, {len(stage.seconds)} "
+          f"stagings for {2 * per_epoch} steps and the warm-up's {RT_K}); saved "
+          f"{eager_ms - chunk_ms:.3f} on {card}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rt_") as tmp:
+        # ---- exact resume ----
+        # 5 steps an epoch at batch 16: one chunk of 4 and a partial one
+        small = synthetic_physionet_dict(num_wavs_train=24, num_wavs_test=6,
+                                         segments_per_wav=4, sig_len=T, seed=5)
+
+        def resume_cfg(method, root, k):
+            return TrainConfig(model="resnet9-5k", method=method, num_epochs=3,
+                               batch_size=16, num_channels=C, checkpoint_every=1,
+                               steps_per_dispatch=k,
+                               experiments_root=os.path.join(tmp, root))
+
+        # cuDNN's deterministic algorithms: two uninterrupted runs are then
+        # the same run, and the resumed one must be it too
+        torch.backends.cudnn.deterministic = True
+        for method, k in (("durmixmagwarp(0.2,4)", 1), ("magnitudewarp(0.2,4)", 1),
+                          ("durmixmagwarp(0.2,4)", RT_K)):
+            tag = f"{method.split('(')[0]}_k{k}"
+            ref = train_model(resume_cfg(method, f"ref_{tag}", k), small)
+            again = train_model(resume_cfg(method, f"again_{tag}", k), small)
+            spread = max(float(np.max(np.abs(np.subtract(ref[key], again[key]))))
+                         for key in ("train_loss", "test_loss"))
+            orig_save = checkpoint.CheckpointManager.save
+
+            def crashing_save(self, *a, **kw):
+                orig_save(self, *a, **kw)
+                raise RuntimeError("simulated crash")
+
+            checkpoint.CheckpointManager.save = crashing_save
+            try:
+                train_model(resume_cfg(method, f"run_{tag}", k), small)
+                raise AssertionError("the simulated crash did not happen")
+            except RuntimeError as err:
+                if "simulated crash" not in str(err):
+                    raise
+            finally:
+                checkpoint.CheckpointManager.save = orig_save
+            mk.reset_launch_counts()
+            with Timed(checkpoint.CheckpointManager, "restore") as rs, Timed(
+                    loop, "replay_plan_rng") as rp, Timed(
+                    checkpoint.CheckpointManager, "save") as sv:
+                t0 = time.time()
+                resumed = train_model(resume_cfg(method, f"run_{tag}", k), small)
+                resume_wall = time.time() - t0
+            resumed_launches = {n: c for n, c in mk.launch_counts().items() if c}
+            resumed_warm_ups = {n: c for n, c in mk.warm_up_counts().items() if c}
+            diff = max(float(np.max(np.abs(np.subtract(resumed[key], ref[key]))))
+                       for key in ("train_loss", "test_loss"))
+            mk.reset_launch_counts()
+            rerun = train_model(resume_cfg(method, f"run_{tag}", k), small)
+            rerun_launches = sum(mk.launch_counts().values()) + sum(
+                mk.warm_up_counts().values())
+            print(f"resume resnet9-5k {method} steps_per_dispatch={k}: max |diff| to the "
+                  f"uninterrupted run {diff:.3e}, the uninterrupted run's own repeat spread "
+                  f"{spread:.3e}; the resumed call's launches {resumed_launches} (warm-up "
+                  f"{resumed_warm_ups}); checkpoint save {1e3 * np.mean(sv.seconds):.3f} ms, "
+                  f"restore {1e3 * np.mean(rs.seconds):.3f} ms, replay_plan_rng "
+                  f"{1e3 * sum(rp.seconds):.3f} ms, resumed call {resume_wall:.3f} s; "
+                  f"rerun launches {rerun_launches} on {card}")
+            if diff > spread + 1e-6 or rerun_launches or rerun["train_loss"] != resumed[
+                    "train_loss"] or (k > 1 and not resumed_warm_ups):
+                raise AssertionError(f"resume {method} steps_per_dispatch={k}: differs from "
+                                     "the uninterrupted run")
+        torch.backends.cudnn.deterministic = False
+
+        # ---- serving ----
+        dat = os.path.join(tmp, "serve.dat")
+        utils.dict2file(rt_ds, dat)
+        test = physionet_split(rt_ds, "test")
+        for model in ("resnet9", "Potes"):
+            cfg = TrainConfig(model=model, method="durmixmagwarp(0.2,4)", num_epochs=1,
+                              batch_size=B, num_channels=C,
+                              experiments_root=os.path.join(tmp, "serve_runs"))
+            train_model(cfg, rt_ds)
+            pth = os.path.join(loop.experiment_dir(cfg), "model.pth")
+            art = os.path.join(tmp, f"{model}.pcgt")
+            live = serve.Classifier.from_checkpoint(pth, model, sig_len=T)
+            t0 = time.time()
+            live.export_artifact(art, (C, T), model_name=model)
+            export_s = time.time() - t0
+            exported = serve.ExportedClassifier(art)
+            rates = {}
+            rows = np.concatenate([test.data] * (2048 // len(test.data) + 1))[:2048]
+            for name, clf in (("live", live), ("artifact", exported)):
+                clf.predict_proba(rows)
+                t0 = time.perf_counter()
+                probs = clf.predict_proba(rows)
+                rates[name] = (len(rows) / (time.perf_counter() - t0), probs)
+            d = float(np.max(np.abs(rates["live"][1] - rates["artifact"][1])))
+            outs = {}
+            for mode, args in (("artifact", ["--artifact", art]),
+                               ("live", ["--checkpoint", pth, "--model", model])):
+                proc = subprocess.run(
+                    [sys.executable, "-m", "pcgmix_tpu_torch.serve", *args,
+                     "--dataset-file", dat, "--split", "test"],
+                    capture_output=True, text=True, timeout=300)
+                if proc.returncode:
+                    raise AssertionError(f"serve {mode}: {proc.stderr[-2000:]}")
+                outs[mode] = [ln.split("\t")[:2] for ln in proc.stdout.splitlines()
+                              if not ln.startswith("#")]
+            print(f"serve {model}: artifact against live max |diff| {d:.3e} over "
+                  f"{len(rows)} rows; {len(outs['live'])} recordings, CLI predictions "
+                  f"equal: {outs['live'] == outs['artifact']}; rows/s at batch 256: live "
+                  f"{rates['live'][0]:.1f}, artifact {rates['artifact'][0]:.1f}; export "
+                  f"{export_s:.3f} s, {os.path.getsize(art)} bytes, on {card}")
+            if d > 1e-5 or outs["live"] != outs["artifact"] or not outs["live"]:
+                raise AssertionError(f"serve {model}: artifact and live disagree")
+
+        # ---- device cache, profiler, variability ----
+        device_cache.clear()
+        prof_dir = os.path.join(tmp, "profile")
+        # frozen weights: two runs of one config are then bit-equal (cuDNN's
+        # backward need not be deterministic)
+        base = dict(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
+                    batch_size=B, num_channels=C, lr_max=0.0)
+        first = train_model(TrainConfig(**base, save_artifacts=False), rt_ds)
+        before = device_cache.stats()
+        cfg = TrainConfig(**base, profile_dir=prof_dir, track_variability=True,
+                          experiments_root=os.path.join(tmp, "vary"))
+        second = train_model(cfg, rt_ds)
+        after = device_cache.stats()
+        uncached = train_model(TrainConfig(**base, save_artifacts=False,
+                                           device_cache=False), rt_ds)
+        traces = os.listdir(prof_dir)
+        named = any("mix_warp_kernel" in open(os.path.join(prof_dir, f)).read()
+                    for f in traces)
+        with open(os.path.join(loop.experiment_dir(cfg), "variability.pkl"), "rb") as f:
+            vary = pickle.load(f)
+        print(f"device cache: {before} after the first call, {after} after the second; "
+              f"losses equal to an uncached call: "
+              f"{second['train_loss'] == uncached['train_loss']}; first call "
+              f"{first['train_loss'] == second['train_loss']}; profiler trace {traces} "
+              f"names the K2 kernel: {named}; variability.pkl keys {sorted(vary)}, "
+              f"{vary['steps'][-1] + 1} steps, {vary['pairs'][-1]} pairs")
+        if not (after["hits"] > before["hits"] and second["train_loss"] == uncached[
+                "train_loss"] and named and vary["steps"]):
+            raise AssertionError("device cache, profiler or variability check failed")
+    print(f"runtime phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return graph_launches
+
+
+def runtime_dp_phase(np, torch, card, mk):
+    """Phase 3f on the data-parallel route (inside a 1-rank NCCL group):
+    steps_per_dispatch as a CUDA graph with the collectives inside, K3/K4,
+    against one step per dispatch with the weights frozen, and the steps/s
+    of both routes alternated.  Returns the graph route's K3/K4 launches,
+    empty if the capture is refused (the refusal is printed)."""
+    from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    rt_ds = synthetic_physionet_dict(num_wavs_train=80, num_wavs_test=12,
+                                     segments_per_wav=8, sig_len=T, seed=12)
+    run = lambda **kw: rt_train(torch, mk, TrainConfig, train_model, rt_ds, **kw)  # noqa: E731
+    launches = {}
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused_prepaired"),
+                           ("durratiomixup", "piecewise_mix_prepaired")):
+        e = run(method=method, k=1, lr_max=0.0)
+        try:
+            g = run(method=method, k=RT_K, lr_max=0.0)
+        except RuntimeError as err:
+            print(f"data-parallel graph {method}: capture refused: {err}")
+            return {}
+        d = float(np.max(np.abs(np.subtract(g.perf["train_loss"], e.perf["train_loss"]))))
+        print(f"data-parallel graph {method}: frozen weights, plot-epoch max |diff| {d:.3e}; "
+              f"{kernel} launches {g.launches[kernel]} (graph; {g.warm_ups[kernel]} more in "
+              f"the warm-up, undone) / {e.launches[kernel]} (eager) on {card}")
+        if d >= 1e-5 or g.launches[kernel] != g.perf["steps"][-1]:
+            raise AssertionError(f"data-parallel graph {method}: differs from one step "
+                                 "per dispatch")
+        launches[kernel] = g.launches[kernel]
+    epochs = RT_RATE_EPOCHS["resnet9"]
+    print_rates("data-parallel resnet9 durmixmagwarp(0.2,4)", route_rates(run, epochs),
+                (epochs - 1) * (len(physionet_split(rt_ds, "train")) // B), card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -931,6 +1382,9 @@ def main() -> int:
         launches_concat["piecewise_mix_pairs", method] = n
     dependency_phase(np, card)
 
+    # ---- 3f. the runtime extras -----------------------------------------
+    graph_launches = runtime_phase(np, torch, card, mk)
+
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
     def host_ms(fn, n=16):
@@ -954,6 +1408,9 @@ def main() -> int:
     profiled = TrainConfig(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
                            batch_size=B, num_channels=C, save_artifacts=False)
     profile_breakdown(torch, lambda: train_model(profiled, ds), card)
+    profile_breakdown(
+        torch, lambda: train_model(dataclasses.replace(profiled, steps_per_dispatch=RT_K),
+                                   ds), card, label="profile graph")
     profile_breakdown(
         torch, lambda: train_model(dataclasses.replace(profiled, model="Potes"), ds),
         card, label="profile Potes")
@@ -1047,6 +1504,8 @@ def main() -> int:
             launches_2d["piecewise_mix_prepaired"], _ = drive(
                 "durratiomixup", "piecewise_mix_prepaired", "data-parallel spec2d",
                 data=spec_ds, dataset=SPEC)
+            # phase 3f on this route: the step with its collectives in a graph
+            graph_launches.update(runtime_dp_phase(np, torch, card, mk))
             # the same profiled PCGmix+ call as phase 3, on this route
             profile_breakdown(torch, lambda: train_model(profiled, ds), card,
                               label="profile data-parallel")
@@ -1083,7 +1542,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_us": r["kernel_us"],
          "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-         "floor_ms": floor_ms}
+         "floor_ms": floor_ms, "graph_launches": graph_launches.get(name)}
         for (name, geometry), r in report.items() if geometry == "main"
     ]
     # K1 and K3 on the spectrogram path and at the concat family's

@@ -138,6 +138,10 @@ class Plan:
     arrays: dict
     latent_depth: Optional[int] = None  # latent methods: the split depth
     frames_new: Optional[np.ndarray] = None  # concat joins: the new rows' frames
+    # the partner of each row and a concat join's cut, as the JAX plan
+    # names them (train/counters.py::VariabilityCounter reads them)
+    mix_indices: Optional[np.ndarray] = None
+    cut: Optional[int] = None
     # lc-nointrusion: the candidates' labels and each class's batch count
     # (for lc_select); saliency-cutmix: its β(1, 1) draw
     aux: dict = dataclasses.field(default_factory=dict)
@@ -171,7 +175,7 @@ def _lerp_targets(target_ohe, partner_ohe, lam_t):
 def _blend(data, mix_idx, lam):
     """Whole-signal mixup: data·λ + data[mix]·(1−λ) (augmentations.py:849)."""
     mixed = data.index_select(0, mix_idx.long())
-    lam = torch.tensor(lam, dtype=data.dtype, device=data.device)
+    lam = torch.as_tensor(lam, dtype=data.dtype, device=data.device)
     return data * lam + mixed * (1.0 - lam)
 
 
@@ -234,15 +238,22 @@ def _mask_2d(data, a):
     return data
 
 
-def _gaussian_noise(data, snr, end, seed: int):
+def gaussian_noise_draw(seed: int, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """The N(0, 1) noise of a ``gaussiannoise`` step: from a generator on
+    ``device`` seeded with the plan's ``noise_seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return torch.randn(tuple(shape), generator=gen, device=device, dtype=dtype)
+
+
+def _gaussian_noise(data, snr, end, noise):
     """data + N(0, 1)·rms/10^(snr/20) per row, zero at/after ``end``
-    (augmentations.py:1060-1076); the noise from a generator on the batch's
-    device seeded with ``seed``."""
+    (augmentations.py:1060-1076); ``noise`` is the step's draw, or the seed
+    to draw it from (:func:`gaussian_noise_draw`)."""
     rms = data.square().mean(dim=(1, 2), keepdim=True).sqrt()
     std = rms / torch.pow(10.0, snr[:, None, None] / 20.0)
-    gen = torch.Generator(device=data.device)
-    gen.manual_seed(seed)
-    noise = torch.randn(data.shape, generator=gen, device=data.device, dtype=data.dtype)
+    if not isinstance(noise, torch.Tensor):
+        noise = gaussian_noise_draw(noise, data.shape, data.device, data.dtype)
     return zero_after(data + noise * std, end)
 
 
@@ -376,12 +387,13 @@ class AugmentEngine:
         if base == "mixup":
             mix = pair()
             return Plan(arrays={"mix": mix,
-                                "lam": np.float32(prng.np_beta_lambda(1.0, step))})
+                                "lam": np.float32(prng.np_beta_lambda(1.0, step))},
+                        mix_indices=mix)
         if base == "latentmixup":
             mix = pairing_mod.same_label(labels, step)
             return Plan(arrays={"mix": mix,
                                 "lam": np.float32(prng.np_beta_lambda(1.0, step))},
-                        latent_depth=self._latent_depth(step))
+                        latent_depth=self._latent_depth(step), mix_indices=mix)
         if cfg.spectrogram and base in ("cutout", "timemask", "freqmask"):
             return Plan(arrays=self._mask_arrays_2d(step, frames))
         if base == "timemask":
@@ -460,7 +472,7 @@ class AugmentEngine:
             arrays.update(self._resp_arrays(prng.py_uniform(step), rmin, rmax))
         if spec.base in MASKED_BLEND_BASES:
             arrays.update(self._mask_arrays_2d(step, frames))
-        return Plan(arrays=arrays)
+        return Plan(arrays=arrays, mix_indices=mix)
 
     def _plan_keepdur_cut(self, step, frames, mix):
         """The keep-duration cut (JAX ``engine.py:386-414``; reference
@@ -479,7 +491,7 @@ class AugmentEngine:
             _sanitize_padded_pieces(pieces)
         length = np.asarray(pieces["length"]).copy()
         length[:, [k for k in range(nseg) if k % 4 in (0, 2)]] = 0
-        return Plan(arrays={
+        return Plan(mix_indices=mix, arrays={
             "mix": mix,
             "dst": pieces["dst_start"],
             "src": pieces["src_start"],
@@ -554,7 +566,7 @@ class AugmentEngine:
         if spec.base == "cutmix" and not self.cfg.spectrogram:
             arrays["lam_t"] = (frames[:, cut] / np.maximum(arrays["last"], 1)
                                ).astype(np.float32)
-        return Plan(arrays=arrays, frames_new=f_new)
+        return Plan(arrays=arrays, frames_new=f_new, mix_indices=mix, cut=cut)
 
     def _plan_concat_per_channel(self, step, frames, mix):
         """cutmix(ch) (JAX ``engine.py:511-529``): a cut per channel from
@@ -567,7 +579,7 @@ class AugmentEngine:
         last = np.minimum(c1 + f2[:, -1:] - c2, T)
         lam_t = (c1 / np.maximum(last, 1)).mean(axis=1).astype(np.float32)
         return Plan(arrays={"idx2": mix, "ch_c1": c1, "ch_c2": c2, "ch_last": last,
-                            "lam_t": lam_t})
+                            "lam_t": lam_t}, mix_indices=mix)
 
     def _plan_swapsysdia(self, step, frames):
         """S1(d1) + systole(d2) + S2(d1) + diastole(d2), re-joined from 0
@@ -579,7 +591,7 @@ class AugmentEngine:
         s1, s2 = f1[:, 1] - f1[:, 0], f1[:, 3] - f1[:, 2]
         sys2, dia2 = f2[:, 2] - f2[:, 1], f2[:, 4] - f2[:, 3]
         d0 = np.zeros(B, np.int64)
-        return Plan(arrays={
+        return Plan(mix_indices=mix, arrays={
             "idx1": np.arange(B, dtype=np.int64), "idx2": mix,
             "dst": np.stack([d0, s1, s1 + sys2, s1 + sys2 + s2], axis=1),
             "src": np.stack([f1[:, 0], f2[:, 1], f1[:, 2], f2[:, 3]], axis=1),
@@ -601,7 +613,7 @@ class AugmentEngine:
         bb2 = np.stack([(lo * d2_len).astype(np.int64), (hi * d2_len).astype(np.int64)], 1)
         seg2 = bb2[:, 1] - bb2[:, 0]
         z = np.zeros(B, np.int64)
-        return Plan(arrays={
+        return Plan(mix_indices=mix, arrays={
             "idx1": np.arange(B, dtype=np.int64), "idx2": mix,
             "dst": np.stack([z, bb1[:, 0], bb1[:, 0] + seg2], axis=1),
             "src": np.stack([z, bb2[:, 0], bb1[:, 1]], axis=1),
@@ -644,7 +656,7 @@ class AugmentEngine:
             lo, hi = prng.py_sorted_uniform_pair(step)
             arrays["bb"] = np.stack([(lo * f_new[:, -1]).astype(np.int64),
                                      (hi * f_new[:, -1]).astype(np.int64)], axis=1)
-        return Plan(arrays=arrays, frames_new=f_new,
+        return Plan(arrays=arrays, frames_new=f_new, mix_indices=idx1, cut=cut,
                     aux={"n_per_class": n_per_class, "cand_labels": labels[idx1]})
 
     @staticmethod
@@ -707,7 +719,8 @@ class AugmentEngine:
         arrays = {"idx1": np.arange(B, dtype=np.int64), "idx2": mix,
                   "dst": dst, "src": src, "len": ln, "sel": sel,
                   "alpha": np.zeros((B, nbins), np.float32), "lam_t": lam_t}
-        return Plan(arrays=arrays, frames_new=f_new, aux={"quasi_lam": quasi_lam})
+        return Plan(arrays=arrays, frames_new=f_new, mix_indices=mix,
+                    aux={"quasi_lam": quasi_lam})
 
     def _plan_cutout_1d(self, step, frames):
         """1-D cutout bounds: one window per row, or with ``(ch)`` one per
@@ -805,6 +818,18 @@ class AugmentEngine:
             return plan.arrays, plan
         return self.identity_arrays(step, frames, labels, wavs, **hooks), None
 
+    def gated_arrays(self, arrays: dict, plan) -> dict:
+        """A chunk's plan arrays (:meth:`plan_arrays_or_identity`) with, for a
+        gated (``+p``) method, ``gate``: 1 for the step's plan, 0 for an
+        identity plan.  :meth:`apply` keeps the batch as it came where the
+        gate is 0: an identity plan's arithmetic alone can move a value by
+        an ulp (K2's envelope sums its basis to 1 ± 2e-7), and with the gate
+        a step of a chunk equals the single step that applies no plan, bit
+        for bit."""
+        if self.spec.prob >= 1.0:
+            return arrays
+        return {**arrays, "gate": np.float32(plan is not None)}
+
     def identity_arrays(self, step, frames, labels, wavs=None, **hooks):
         """A no-op plan with the method's array structure, cached per batch
         size and frames width.  Built under a snapshot of the NumPy mirror
@@ -865,10 +890,15 @@ class AugmentEngine:
     @staticmethod
     def device_arrays(arrays: dict, device) -> dict:
         """Upload a plan's arrays: integer arrays as int32, floating ones as
-        float32; λ stays a Python float and the noise seed an int."""
+        float32; λ stays a Python float and the noise seed an int.  Tensors
+        pass as they are: a chunk of steps stages its plans on the device
+        itself (``train/steps.py::MultiStep``), λ as a 0-d tensor and the
+        noise drawn ahead under ``noise``."""
         out = {}
         for k, v in arrays.items():
-            if k == "lam":
+            if isinstance(v, torch.Tensor):
+                out[k] = v
+            elif k == "lam":
                 out[k] = float(v)
             elif k == "noise_seed":
                 out[k] = int(v)
@@ -894,11 +924,23 @@ class AugmentEngine:
             out = _mask_bb(out, a["bb"])
         return out
 
+    @staticmethod
+    def _gated(mixed, data, target_ohe, a: dict):
+        """``mixed`` (data, target) where the plan's ``gate`` is on, else the
+        batch as it came (see :meth:`gated_arrays`)."""
+        if "gate" not in a:
+            return mixed
+        on = torch.as_tensor(a["gate"], device=data.device) > 0
+        return torch.where(on, mixed[0], data), torch.where(on, mixed[1], target_ohe)
+
     def apply(self, data: torch.Tensor, target_ohe: torch.Tensor, arrays: dict):
         """Apply a plan to the device batch, or for a latent method to the
         latent at the plan's depth; returns (data, target_ohe)."""
-        base = self.spec.base
         a = self.device_arrays(arrays, data.device)
+        return self._gated(self._apply(data, target_ohe, a), data, target_ohe, a)
+
+    def _apply(self, data: torch.Tensor, target_ohe: torch.Tensor, a: dict):
+        base = self.spec.base
         if self.cfg.spectrogram and base in ("cutout", "timemask", "freqmask"):
             return _mask_2d(data, a), target_ohe
         if base in KEEPDUR_CUT_BASES:
@@ -951,7 +993,8 @@ class AugmentEngine:
         if base == "timewarp":
             return time_warp(data, a["knots"]), target_ohe
         # gaussiannoise
-        return _gaussian_noise(data, a["snr"], a["end"], a["noise_seed"]), target_ohe
+        noise = a["noise"] if "noise" in a else a["noise_seed"]
+        return _gaussian_noise(data, a["snr"], a["end"], noise), target_ohe
 
     def check_prepaired(self) -> None:
         """Raise unless :meth:`apply_prepaired` takes this method: the
@@ -981,8 +1024,12 @@ class AugmentEngine:
         i of ``target2``.  ``arrays`` holds the block's rows of every
         batch-leading plan array.  Returns (data, target_ohe)."""
         self.check_prepaired()
-        base = self.spec.base
         a = self.device_arrays(arrays, d1.device)
+        return self._gated(self._apply_prepaired(d1, d2, target1, target2, a), d1,
+                           target1, a)
+
+    def _apply_prepaired(self, d1, d2, target1, target2, a: dict):
+        base = self.spec.base
         if base in CONCAT_BASES:
             if self.spec.per_channel:
                 out = _cutmix_per_channel(d1, d2, a)

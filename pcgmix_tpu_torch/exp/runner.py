@@ -202,8 +202,6 @@ def _refuse(args) -> None:
     refused = [
         (args.gang or args.gang_devices is not None or args.gang_max_size is not None
          or args.no_gang_fallback, "--gang*: gang training", 12),
-        (args.steps_per_dispatch != 1, "--steps-per-dispatch: multi-step dispatch", 11),
-        (args.checkpoint_every != 0, "--checkpoint-every: periodic checkpoints", 11),
         (args.classical_space, "--classical-space: classical feature dumps", 13),
         (args.compute_dtype != "float32", "--compute-dtype bfloat16", 3),
         (args.conv_impl != "xla", "--conv-impl matmul", 12),
@@ -240,11 +238,18 @@ def main(argv=None):
     p.add_argument("--eval-batch-size", type=int, default=1000)
     p.add_argument("--true-seed", type=int, default=None,
                    help="override the hardcoded train-balance sampling seed 18")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="train steps per dispatch; on a card K>1 replays one CUDA "
+                        "graph of K steps")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="epochs between full-state checkpoints (a rerun resumes "
+                        "from the latest)")
+    p.add_argument("--no-device-cache", action="store_true",
+                   help="re-upload each run's corpus instead of reusing the device "
+                        "tensors of an equal one")
     # the JAX runner's options that wait for later slices: they raise
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--steps-per-dispatch", type=int, default=1)
-    p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--classical-space", action="store_true")
     p.add_argument("--latent-space", action="store_true",
                    help="set TrainConfig.latent_space (as in the JAX runner, no "
@@ -275,6 +280,9 @@ def main(argv=None):
         true_seed=args.true_seed,
         device=args.device,
         latent_space=args.latent_space,
+        steps_per_dispatch=args.steps_per_dispatch,
+        checkpoint_every=args.checkpoint_every,
+        device_cache=not args.no_device_cache,
     )
     run_grid(
         base_cfg,

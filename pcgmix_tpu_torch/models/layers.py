@@ -11,6 +11,9 @@
 - :class:`ConvBNAct`: tsai's ConvBlock, Conv(SAME, no bias) → BatchNorm →
   activation, the block of FCN, ResCNN, ResNet and the tsai zoo.
 - :func:`gap_1d`: the global average pool over time.
+- :func:`host_uniform`: a module's uniform draws from its CPU generator
+  (Potes' dropout masks), which a captured train step takes from
+  buffers drawn ahead (:func:`record_draws`, :func:`feed_draws`).
 
 Inits are torch's defaults, which the JAX package draws too
 (kaiming-uniform(a=√5), i.e. U(±1/√fan_in), for conv and linear weights
@@ -20,6 +23,7 @@ seed.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
@@ -28,6 +32,54 @@ import torch.nn.functional as F
 from torch import nn
 
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
+
+_draws = None  # ("record", list) or ("feed", iterator) within a context
+
+
+def host_uniform(generator: torch.Generator, shape: tuple,
+                 device: torch.device) -> torch.Tensor:
+    """U[0, 1) of ``shape`` from the CPU ``generator``, on ``device``.
+
+    Within :func:`record_draws` the (generator, shape) of each call is
+    logged too; within :func:`feed_draws` the call draws nothing and
+    returns the next of the tensors given there, which were drawn ahead in
+    the same order, so a replayed CUDA graph sees each step's own draws.
+    Inside a graph capture without them it raises: the capture would
+    freeze one draw for every replay."""
+    if _draws is not None and _draws[0] == "feed":
+        return next(_draws[1])
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host draw inside a CUDA graph capture needs its "
+                           "values drawn ahead (feed_draws)")
+    if _draws is not None:
+        _draws[1].append((generator, tuple(shape)))
+    u = torch.rand(shape, generator=generator, pin_memory=device.type == "cuda")
+    return u.to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def record_draws():
+    """Within: :func:`host_uniform` draws as usual and logs each call's
+    (generator, shape) into the yielded list."""
+    global _draws
+    log = []
+    prev, _draws = _draws, ("record", log)
+    try:
+        yield log
+    finally:
+        _draws = prev
+
+
+@contextlib.contextmanager
+def feed_draws(tensors):
+    """Within: :func:`host_uniform` returns ``tensors`` one by one."""
+    global _draws
+    prev, _draws = _draws, ("feed", iter(tensors))
+    try:
+        yield
+    finally:
+        _draws = prev
+
 
 #: the ``part`` values of a model with a split forward (latentmixup and the
 #: manifold methods); a model without one takes None and "latent_space"

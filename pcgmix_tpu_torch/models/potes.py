@@ -22,7 +22,10 @@ come from the JAX PRNG (PARITY.md "Dropout masks").  During a data-parallel
 step (:func:`pcgmix_tpu_torch.parallel.batch_rows`) every rank draws the
 global batch's masks from an identically seeded generator and keeps its own
 rows, so the ranks' generators stay in step and the step equals the
-single-device one.
+single-device one.  The draws go through
+:func:`pcgmix_tpu_torch.models.layers.host_uniform`, so a train step
+captured as a CUDA graph takes them from buffers drawn ahead in the same
+order (``train/steps.py::MultiStep``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pcgmix_tpu_torch.models.layers import check_part
+from pcgmix_tpu_torch.models.layers import check_part, host_uniform
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
 
 HIDDEN = 20  # dimreduc's width (models.py:379)
@@ -69,9 +72,7 @@ class Potes(nn.Module):
             return h
         rows = current_batch_rows()
         n, sl = (rows.n, rows.rows) if rows is not None else (h.shape[0], slice(None))
-        u = torch.rand((n, *h.shape[1:]), generator=self.generator,
-                       pin_memory=h.is_cuda)[sl]
-        keep = u.to(h.device, non_blocking=True) >= p
+        keep = host_uniform(self.generator, (n, *h.shape[1:]), h.device)[sl] >= p
         return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
 
     def features(self, x: torch.Tensor) -> torch.Tensor:

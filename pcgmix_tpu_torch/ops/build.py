@@ -7,11 +7,16 @@ beside the package, keyed by a hash of the sources and flags, and loaded
 with ctypes.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and
 counts the launch under its wrapper's name (:func:`launch_counts`), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  A launch made
+while a CUDA graph is captured (:func:`capturing`) launches nothing then:
+it is counted each time the graph is replayed (:func:`count_replay`).  The
+real launches of a graph's warm-up, whose steps are undone before the
+capture, are counted apart (:func:`warm_up_counts`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,6 +57,8 @@ _LIMITS = {
     "pcgmix_conv3_chunks_per_tile": CONV3_CHUNKS_PER_TILE,
 }
 _launches = dict.fromkeys(_ENTRIES, 0)
+_warm_ups = dict.fromkeys(_ENTRIES, 0)  # launches of CUDA-graph warm-ups
+_captured = None  # within capturing(): where launches are counted instead
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -61,9 +68,36 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def warm_up_counts() -> dict:
+    """Launches per wrapper of CUDA-graph warm-ups since the last reset:
+    real launches whose steps are undone before the capture, so they are
+    not in :func:`launch_counts`."""
+    return dict(_warm_ups)
+
+
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    for counts in (_launches, _warm_ups):
+        for k in counts:
+            counts[k] = 0
+
+
+@contextlib.contextmanager
+def capturing(warm_up: bool = False):
+    """Within: launches counted into the yielded dict and not into
+    :func:`launch_counts`: those a CUDA graph capture records, or with
+    ``warm_up`` a graph warm-up's, counted into :func:`warm_up_counts`."""
+    global _captured
+    prev, _captured = _captured, _warm_ups if warm_up else dict.fromkeys(_ENTRIES, 0)
+    try:
+        yield _captured
+    finally:
+        _captured = prev
+
+
+def count_replay(captured: dict) -> None:
+    """Count one replay of a graph that recorded ``captured`` launches."""
+    for k, n in captured.items():
+        _launches[k] += n
 
 
 def _nvcc() -> str:
@@ -157,4 +191,4 @@ def launch(name: str, device: torch.device, *args) -> None:
         )
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
-    _launches[name] += 1
+    (_launches if _captured is None else _captured)[name] += 1

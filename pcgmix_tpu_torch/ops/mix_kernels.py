@@ -39,6 +39,7 @@ from pcgmix_tpu_torch.ops.build import (  # noqa: F401  (re-exported)
     launch,
     launch_counts,
     reset_launch_counts,
+    warm_up_counts,
 )
 from pcgmix_tpu_torch.ops.piecewise import piecewise_mix_f32
 from pcgmix_tpu_torch.ops.spline import cubic_spline_basis, spline_envelope

@@ -38,6 +38,18 @@ def cubic_spline_basis(sig_len: int, knot: int) -> np.ndarray:
     return basis
 
 
+_device_constants: dict = {}
+
+
+def _device_constant(key: tuple, make, device) -> torch.Tensor:
+    """The float32 tensor ``make()`` on ``device``, uploaded once per key and
+    device and kept: a step captured as a CUDA graph cannot upload."""
+    full = (*key, str(torch.device(device)))
+    if full not in _device_constants:
+        _device_constants[full] = torch.as_tensor(make(), dtype=torch.float32, device=device)
+    return _device_constants[full]
+
+
 def spline_envelope(basis: torch.Tensor, knots: torch.Tensor) -> torch.Tensor:
     """(B, C, T) float32 envelopes from a (T, K2) basis and (B, K2, C) knots."""
     return torch.einsum("tk,bkc->bct", basis.float(), knots.float())
@@ -47,10 +59,9 @@ def magnitude_warp(x: torch.Tensor, knots: torch.Tensor) -> torch.Tensor:
     """Multiply each (sample, channel) of a (B, C, T) batch by its smooth
     random envelope; knots are (B, knot+2, C).  Runs in float32 and returns
     x's dtype."""
-    basis = torch.as_tensor(
-        cubic_spline_basis(x.shape[-1], knots.shape[1] - 2),
-        dtype=torch.float32, device=x.device,
-    )
+    T, knot = x.shape[-1], knots.shape[1] - 2
+    basis = _device_constant(("basis", T, knot), lambda: cubic_spline_basis(T, knot),
+                             x.device)
     return (x.float() * spline_envelope(basis, knots.to(x.device))).to(x.dtype)
 
 
@@ -88,9 +99,9 @@ def time_warp(x: torch.Tensor, knots: torch.Tensor) -> torch.Tensor:
     T = x.shape[-1]
     knot = knots.shape[1] - 2
     dev = x.device
-    basis = torch.as_tensor(cubic_spline_basis(T, knot), dtype=torch.float32, device=dev)
-    warp_steps = torch.as_tensor(np.linspace(0, T - 1.0, num=knot + 2),
-                                 dtype=torch.float32, device=dev)
+    basis = _device_constant(("basis", T, knot), lambda: cubic_spline_basis(T, knot), dev)
+    warp_steps = _device_constant(
+        ("warp_steps", T, knot), lambda: np.linspace(0, T - 1.0, num=knot + 2), dev)
     scaled = knots.to(dev).float() * warp_steps[None, :, None]
     tw = _fma_contraction(basis, scaled)  # (B, C, T) warped time coordinates
     # a tensor numerator: a Python scalar over a tensor is computed as a

@@ -138,13 +138,13 @@ class DataParallel:
         return slice(self.rank * per, (self.rank + 1) * per)
 
     def shard_arrays(self, arrays: dict, n: int, shared=()) -> dict:
-        """This rank's block of every batch-leading array of a plan; scalars
-        and the ``shared`` arrays pass through (the counterpart of
-        ``mesh.shard_batch``)."""
+        """This rank's block of every batch-leading array of a plan (NumPy
+        or device tensors); scalars and the ``shared`` arrays pass through
+        (the counterpart of ``mesh.shard_batch``)."""
         sl = self.block(n)
         return {
-            k: v[sl] if (k not in shared and isinstance(v, np.ndarray) and v.ndim
-                         and len(v) == n) else v
+            k: v[sl] if (k not in shared and isinstance(v, (np.ndarray, torch.Tensor))
+                         and v.ndim and len(v) == n) else v
             for k, v in arrays.items()
         }
 

@@ -40,6 +40,17 @@ queue 1 item 9).  The spectrogram datasets (``PhysioNet(spec128)``,
 ``UMC(spec128)``, ``UMC(spec64)``) train the 2-D ResNet9 on (N, 1, F, T)
 mel spectrograms with the 2-D method ladder; the UMC datasets split by
 patient folds (``data/umc.py``).
+
+The runtime extras (JAX ``loop.py:76-110``): ``steps_per_dispatch`` K > 1
+trains K steps per dispatch through ``train/steps.py::MultiStep`` (one
+CUDA graph of K steps on a card), for the methods the JAX package runs in
+its scan mode; ``checkpoint_every`` saves the whole state under
+``<run dir>/checkpoints/`` and a rerun resumes from the latest, replaying
+the plan RNG so that later plans are the uninterrupted run's;
+``device_cache`` reuses an equal corpus's device tensors
+(``data/device_cache.py``); ``track_variability`` writes
+``variability.pkl``; ``profile_dir`` takes a ``torch.profiler`` trace of
+epoch 2.
 """
 
 from __future__ import annotations
@@ -59,10 +70,13 @@ from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine, model_
 from pcgmix_tpu_torch.augment.methods import parse_method
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split, umc_split
 from pcgmix_tpu_torch.data.datasets import load_cvd_map
+from pcgmix_tpu_torch.data.device_cache import device_tensor
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
 from pcgmix_tpu_torch.models import SPECTROGRAM_DATASETS, build_model
 from pcgmix_tpu_torch.parallel import DataParallel, spawn
+from pcgmix_tpu_torch.train.checkpoint import CheckpointManager
 from pcgmix_tpu_torch.train.convert import seeded_init
+from pcgmix_tpu_torch.train.counters import VariabilityCounter
 from pcgmix_tpu_torch.train.losses import init_selc_table
 from pcgmix_tpu_torch.train.metrics import (
     PerformanceTracker,
@@ -72,9 +86,11 @@ from pcgmix_tpu_torch.train.metrics import (
 from pcgmix_tpu_torch.saliency import training_saliency_bins
 from pcgmix_tpu_torch.timing import timed
 from pcgmix_tpu_torch.train.steps import (
+    MultiStep,
     TrainStep,
     candidate_losses,
     eval_step,
+    generators,
     make_optimizer,
 )
 
@@ -118,6 +134,18 @@ class TrainConfig:
     latent_space: bool = False  # dump each augmented batch's embeddings
                                 # under a latent_space_model
                                 # (train_model.py:508-518)
+    track_variability: bool = False  # the variability counter; its curves
+                                     # go to variability.pkl at plot epochs
+    checkpoint_every: int = 0  # epochs between full-state checkpoints
+                               # (0 = final weights only, as the reference)
+    profile_dir: Optional[str] = None  # a torch.profiler trace of epoch
+                                       # min(2, num_epochs) into this dir
+    steps_per_dispatch: int = 1  # >1: K steps per dispatch, one CUDA graph
+                                 # on a card (device-resident methods only;
+                                 # gated-off steps ride as identity plans)
+    device_cache: bool = True  # reuse the device tensors of an equal corpus
+                               # across train_model calls in one process
+                               # (data/device_cache.py)
 
     @property
     def spectrogram(self) -> bool:
@@ -353,58 +381,112 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
             f"method {cfg.method!r} needs a pretrained saliency model; pass "
             "saliency_model_provider (see pcgmix_tpu_torch.saliency)"
         )
+    put = _putter(cfg.device_cache)
     step = TrainStep(
         model, opt, sched,
-        train_data=torch.from_numpy(train_ds.data).to(device),
-        train_labels=torch.from_numpy(train_ds.label).to(device),
+        train_data=put(train_ds.data, device),
+        train_labels=put(train_ds.label, device),
         soft_labels=init_selc_table(train_ds.label, cfg.num_classes, device),
         num_classes=cfg.num_classes, grad_clip=cfg.grad_clip,
         selc_es=_selc_turnpoint(cfg), engine=engine, dp=dp,
     )
     eval_staged = stage_eval(test_ds, cfg.eval_batch_size, cfg.num_classes,
-                             device, dp)
+                             device, dp, put=put)
+    variability = VariabilityCounter(len(train_ds)) if cfg.track_variability else None
 
     perf = PerformanceTracker()
     epoch_plot = set(np.linspace(1, cfg.num_epochs, 11).astype(int).tolist())
     step_count = 0
+    start_epoch = 1
     times: list[float] = []
     lr_per_step: list[float] = []
-    for epoch in range(1, cfg.num_epochs + 1):
+    ckpt = None
+    if cfg.checkpoint_every and cfg.save_artifacts:
+        # every rank reads the checkpoints; rank 0 writes them
+        ckpt = CheckpointManager(os.path.join(experiment_dir(cfg), "checkpoints"))
+        if ckpt.latest_step() is not None:
+            # on the CPU: load_state_dict moves each tensor where it belongs
+            # (Adam keeps its step counts on the host)
+            state, step_count = ckpt.restore(map_location="cpu")
+            _load_state(step, state)
+            start_epoch = step_count // (len(train_ds) // cfg.batch_size) + 1
+            saved = ckpt.restore_metrics(step_count) or {}
+            for k, v in saved.get("perf", {}).items():
+                perf.dict[k] = list(v)
+            times = list(saved.get("times", []))
+            lr_per_step = list(saved.get("lr_per_step", []))
+            if step_count and _engine_rng_replayable(engine):
+                # the fresh engine's RNG mirrors to where the uninterrupted
+                # run's are, so post-resume plans are that run's
+                replay_plan_rng(engine, train_ds, cfg, step_count)
+    multi = MultiStep(step, cfg.steps_per_dispatch) if _scan_mode(cfg, engine) else None
+
+    for epoch in range(start_epoch, cfg.num_epochs + 1):
+        profiling = cfg.profile_dir and epoch == min(2, cfg.num_epochs)
+        if profiling:
+            prof = _start_profile(device)
         t0 = time.time()
         losses, preds, targets = [], [], []
+        chunk = []
+
+        def flush():
+            out = multi.run(chunk, epoch)
+            losses.append(out["loss"])
+            preds.append(out["preds"])
+            targets.append(out["target"])
+            lr_per_step.extend(out["lr"])
+            chunk.clear()
+
         for batch in EpochIterator(
             train_ds, cfg.batch_size, cfg.seed, step_count, cfg.loader_parity
         ):
             plan = None
-            if engine.enabled:
-                hooks = (_plan_hooks(step, batch, model, saliency_model_provider,
-                                     latent_feature_fn)
-                         if engine.model_in_the_loop else {})
-                plan = engine.plan(
-                    step_count, batch["frames"], batch["label"], batch["wav"], **hooks
-                )
-            lr_per_step.append(
-                float(sched.get_last_lr()[0]) if sched is not None else cfg.lr_max
-            )
-            if plan is not None and engine.spec.base == "lc-nointrusion":
-                out = _lc_step(step, engine, plan, batch, epoch)
+            if multi is not None:
+                arrays = {}
+                if engine.enabled:
+                    arrays, plan = engine.plan_arrays_or_identity(
+                        step_count, batch["frames"], batch["label"], batch["wav"])
+                    arrays = engine.gated_arrays(arrays, plan)
+                chunk.append((batch["indices"], arrays))
+                if len(chunk) == multi.k:
+                    flush()
             else:
-                out = step(batch["indices"], plan.arrays if plan else None, epoch,
-                           plan.latent_depth if plan else None)
-            if cfg.latent_space and latent_space_model is not None:
-                _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
-                              run_dir or cfg.experiments_root)
-            losses.append(out["loss"])
-            preds.append(out["preds"])
-            targets.append(out["target"])
+                if engine.enabled:
+                    hooks = (_plan_hooks(step, batch, model, saliency_model_provider,
+                                         latent_feature_fn)
+                             if engine.model_in_the_loop else {})
+                    plan = engine.plan(
+                        step_count, batch["frames"], batch["label"], batch["wav"], **hooks
+                    )
+                lr_per_step.append(
+                    float(sched.get_last_lr()[0]) if sched is not None else cfg.lr_max
+                )
+                if plan is not None and engine.spec.base == "lc-nointrusion":
+                    out = _lc_step(step, engine, plan, batch, epoch)
+                else:
+                    out = step(batch["indices"], plan.arrays if plan else None, epoch,
+                               plan.latent_depth if plan else None)
+                if cfg.latent_space and latent_space_model is not None:
+                    _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
+                                  run_dir or cfg.experiments_root)
+                losses.append(out["loss"].reshape(1))
+                preds.append(out["preds"])
+                targets.append(out["target"])
+            if variability is not None:
+                variability.add(batch["indices"], plan.mix_indices if plan else None,
+                                plan.cut if plan else None, step_count)
             step_count += 1
             if step_count >= num_steps:
                 break
+        if chunk:  # an epoch's partial chunk: single steps
+            flush()
         if epoch in epoch_plot and losses:
             # one device→host transfer per plot epoch; it also waits for the
             # epoch's queued work, so `times` stays exact at plot epochs
-            losses_np = torch.stack(losses).cpu().numpy()
+            losses_np = torch.cat(losses).cpu().numpy()
         times.append(time.time() - t0)
+        if profiling:
+            _stop_profile(prof, cfg.profile_dir, epoch, dp, device)
         if epoch in epoch_plot:
             perf.add("epochs", epoch)
             perf.add("steps", step_count)
@@ -416,29 +498,133 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
             perf.add("times", float(np.sum(times)))
             if run_dir:
                 utils.save_dict(perf.dict, os.path.join(run_dir, "performance.pkl"))
+                if variability is not None and variability.steps:
+                    utils.save_dict(variability.curves(),
+                                    os.path.join(run_dir, "variability.pkl"))
+        if ckpt is not None and run_dir and epoch % cfg.checkpoint_every == 0:
+            ckpt.save(step_count, _checkpoint_state(step, step_count),
+                      metrics={"perf": perf.dict, "times": times,
+                               "lr_per_step": lr_per_step})
         if step_count >= num_steps:
             break
 
+    if ckpt is not None:
+        ckpt.close()
     if run_dir:
         torch.save(model.state_dict(), os.path.join(run_dir, "model.pth"))
     perf.dict["lr_per_step"] = lr_per_step
     return perf.dict
 
 
+def _putter(cached: bool):
+    """``put(array, device)``: through the device cache, or a plain upload."""
+    if cached:
+        return device_tensor
+    return lambda a, device: torch.from_numpy(a).to(device)
+
+
+def _scan_mode(cfg: TrainConfig, engine: AugmentEngine) -> bool:
+    """K steps per dispatch for the methods the JAX package runs in its scan
+    mode (``loop.py:332-338``, ``:372-379``): none that reads the batch on
+    the host (the model-in-the-loop methods, the latent-space dumps), nor
+    latentmixup or the manifold methods; those run one step per dispatch."""
+    if cfg.steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch must be at least 1, got "
+                         f"{cfg.steps_per_dispatch}")
+    resident = not (cfg.latent_space or engine.model_in_the_loop)
+    return (cfg.steps_per_dispatch > 1 and resident
+            and (not engine.enabled
+                 or (engine.spec.base != "latentmixup" and not engine.spec.manifold)))
+
+
+def _checkpoint_state(step: TrainStep, step_count: int) -> dict:
+    """What a checkpoint holds: everything a resumed run needs to continue
+    as the uninterrupted one (the plan RNG is replayed instead)."""
+    return {
+        "model": step.model.state_dict(),
+        "optimizer": step.opt.state_dict(),
+        "scheduler": step.sched.state_dict() if step.sched is not None else None,
+        "soft_labels": step.soft_labels,
+        "step": step_count,
+        "generators": {k: g.get_state() for k, g in generators(step.model).items()},
+    }
+
+
+def _load_state(step: TrainStep, state: dict) -> None:
+    step.model.load_state_dict(state["model"])
+    step.opt.load_state_dict(state["optimizer"])
+    if step.sched is not None:
+        step.sched.load_state_dict(state["scheduler"])
+    step.soft_labels.copy_(state["soft_labels"])
+    for name, gen in generators(step.model).items():
+        gen.set_state(state["generators"][name].cpu())
+
+
+def replay_plan_rng(engine: AugmentEngine, train_ds, cfg: TrainConfig,
+                    num_past_steps: int) -> None:
+    """Advance a fresh engine's RNG mirrors (its NumPy stream) to where an
+    uninterrupted run's are after ``num_past_steps`` steps, by rebuilding
+    those steps' plans on the host without training (JAX
+    ``loop.py:786-813``).  Only for engines whose plans take no model
+    (:func:`_engine_rng_replayable`)."""
+    step = 0
+    while step < num_past_steps:
+        advanced = False
+        for batch in EpochIterator(train_ds, cfg.batch_size, cfg.seed, step,
+                                   cfg.loader_parity):
+            engine.plan(step, batch["frames"], batch["label"], batch["wav"])
+            step += 1
+            advanced = True
+            if step >= num_past_steps:
+                break
+        if not advanced:  # a split smaller than one batch: never loop forever
+            break
+
+
+def _engine_rng_replayable(engine: AugmentEngine) -> bool:
+    """Plans that can be rebuilt without a model (see replay_plan_rng): a
+    model-in-the-loop method's plans depend on past weights."""
+    return engine.enabled and not engine.model_in_the_loop
+
+
+def _start_profile(device: torch.device):
+    """A started ``torch.profiler`` session: the CPU, and the card's kernels
+    on a card (JAX ``loop.py:441-444``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = [ProfilerActivity.CUDA] if device.type == "cuda" else []
+    prof = profile(activities=[ProfilerActivity.CPU, *cuda])
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, epoch: int, dp, device: torch.device) -> None:
+    """Stop the epoch's trace once its work is done and write it as a
+    Chrome trace into ``profile_dir`` (JAX ``loop.py:690-691``)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    rank = f"_rank{dp.rank}" if dp is not None else ""
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_epoch{epoch}{rank}.json"))
+
+
 def stage_eval(test_ds, batch_size: int, num_classes: int, device,
-               dp: Optional[DataParallel] = None) -> list:
+               dp: Optional[DataParallel] = None, put=None) -> list:
     """Eval batches on the device as (data, one-hot target, host batch,
     sharded).  Under data parallelism a batch that divides over the ranks
     is sharded (this rank's block); one that does not is replicated
-    (JAX ``loop.py:709-723``)."""
+    (JAX ``loop.py:709-723``).  ``put(array, device)`` uploads (by default
+    a plain copy; ``train_model`` passes the device cache's)."""
+    put = put or _putter(False)
     eye = np.eye(num_classes, dtype=np.float32)
     staged = []
     for b in eval_batches(test_ds, batch_size):
         n = len(b["label"])
         sharded = dp is not None and n % dp.world == 0
         sl = dp.block(n) if sharded else slice(None)
-        staged.append((torch.from_numpy(b["data"][sl]).to(device),
-                       torch.from_numpy(eye[b["label"][sl]]).to(device), b, sharded))
+        staged.append((put(np.ascontiguousarray(b["data"][sl]), device),
+                       put(eye[b["label"][sl]], device), b, sharded))
     return staged
 
 

@@ -31,6 +31,7 @@ from pcgmix_tpu_torch.ops.mix_kernels import (
     piecewise_mix_prepaired,
     piecewise_mix_prepaired_plain,
     reset_launch_counts,
+    warm_up_counts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -705,3 +706,130 @@ def test_live_model_training_on_the_card_launches_k1(dev, method):
                                    batch_size=8, save_artifacts=False), ds)
     assert {k: v for k, v in launch_counts().items() if v} == {"piecewise_mix_pairs": 3}
     assert np.isfinite(perf["train_loss"]).all()
+
+
+# ---- the runtime extras on the card: CUDA graphs of K steps, serving -----------
+
+GRAPH_METHODS = ["durmixmagwarp(0.2,4)", "durratiomixup", "durmixmagwarp(0.2,4)+0.5",
+                 "gaussiannoise", "magnitudewarp(0.2,4)", "timewarp(0.05,4)", "mixup(same)",
+                 "cutmix", "SELC-durratiomixup"]
+
+
+@pytest.mark.parametrize("model", ["resnet9-5k", "Potes"])
+@pytest.mark.parametrize("method", GRAPH_METHODS)
+def test_graph_chunks_equal_eager_steps_with_frozen_weights(dev, model, method):
+    """steps_per_dispatch=4 (a CUDA graph of 4 steps) against one step per
+    dispatch with the weights frozen: the same losses within 1e-5 and K1/K2
+    once per step, replays counted (identity plans included)."""
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    ds = synthetic_physionet_dict(num_wavs_train=22, num_wavs_test=6, segments_per_wav=4,
+                                  sig_len=512, seed=3)
+    runs = {}
+    for k in (1, 4):
+        reset_launch_counts()
+        runs[k] = (train_model(TrainConfig(model=model, method=method, num_epochs=4,
+                                           batch_size=8, lr_max=0.0, save_artifacts=False,
+                                           steps_per_dispatch=k), ds), launch_counts())
+    (one, n1), (four, n4) = runs[1], runs[4]
+    np.testing.assert_allclose(four["train_loss"], one["train_loss"], rtol=0, atol=1e-5)
+    assert four["lr_per_step"] == one["lr_per_step"]
+    kernel = {"durmixmagwarp": "pcgmix_plus_fused", "durratiomixup": "piecewise_mix_pairs",
+              "cutmix": "piecewise_mix_pairs"}.get(method.split("(")[0].split("-")[-1])
+    if kernel:
+        assert n4[kernel] == four["steps"][-1] and n4[kernel] >= n1[kernel]
+
+
+def test_graph_capture_refuses_a_host_draw_without_its_buffer(dev):
+    from pcgmix_tpu_torch.models.layers import host_uniform
+
+    graph, gen = torch.cuda.CUDAGraph(), torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="drawn ahead"):
+        with torch.cuda.graph(graph):
+            host_uniform(gen, (4,), dev)
+
+
+def _graph_corpus():
+    # 10 steps an epoch at batch 8: two chunks of 4 and a partial one of 2
+    return synthetic_physionet_dict(num_wavs_train=22, num_wavs_test=6, segments_per_wav=4,
+                                    sig_len=512, seed=3)
+
+
+@pytest.mark.parametrize("model,op", [("resnet9-5k", "adam"), ("Potes", "adam"),
+                                      ("resnet9-5k", "SGD")])
+def test_graph_chunks_follow_eager_steps_while_training(dev, monkeypatch, model, op):
+    """At lr 0.01 under cuDNN's deterministic algorithms, a CUDA graph of 4
+    steps trains as one step per dispatch: each replay reads its steps' lr
+    and momentum from the staged buffer, and each epoch ends in a partial
+    chunk; every epoch's loss within 1e-6 relative, lr_per_step equal."""
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ds = _graph_corpus()
+    one, four = (train_model(TrainConfig(model=model, op=op, method="durmixmagwarp(0.2,4)",
+                                         num_epochs=4, batch_size=8, save_artifacts=False,
+                                         steps_per_dispatch=k), ds) for k in (1, 4))
+    np.testing.assert_allclose(four["train_loss"], one["train_loss"], rtol=1e-6, atol=0)
+    assert four["lr_per_step"] == one["lr_per_step"]
+
+
+def test_resume_under_the_graph_equals_the_uninterrupted_run(dev, monkeypatch, tmp_path):
+    """steps_per_dispatch=4 with checkpoint_every=1, crashed after its first
+    checkpoint and rerun: the uninterrupted run's losses, a new warm-up and
+    capture, and K2 once per resumed step."""
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+    from pcgmix_tpu_torch.train.checkpoint import CheckpointManager
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ds = _graph_corpus()
+
+    def cfg(root):
+        return TrainConfig(model="resnet9-5k", method="durmixmagwarp(0.2,4)", num_epochs=3,
+                           batch_size=8, checkpoint_every=1, steps_per_dispatch=4,
+                           experiments_root=str(tmp_path / root))
+
+    ref = train_model(cfg("ref"), ds)
+    orig = CheckpointManager.save
+
+    def crashing_save(self, *a, **k):
+        orig(self, *a, **k)
+        raise RuntimeError("simulated crash")
+
+    monkeypatch.setattr(CheckpointManager, "save", crashing_save)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        train_model(cfg("run"), ds)
+    monkeypatch.setattr(CheckpointManager, "save", orig)
+    reset_launch_counts()
+    resumed = train_model(cfg("run"), ds)
+    for key in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(resumed[key], ref[key], rtol=0, atol=1e-6)
+    assert resumed["lr_per_step"] == ref["lr_per_step"]
+    assert launch_counts()["pcgmix_plus_fused"] == 20  # epochs 2 and 3
+    assert warm_up_counts()["pcgmix_plus_fused"] == 4
+
+
+SERVED = ["resnet9", "Potes", *ZOO, "resnet9-2d"]
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_serving_artifact_on_the_card(dev, tmp_path, name):
+    """Every distinct registry architecture (the ResNet9 presets' network,
+    Potes, the zoo's 17 and the 2-D ResNet9) exports its batched softmax
+    forward on the card, and the artifact's probabilities equal the live
+    model's within 1e-5."""
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.serve import Classifier, ExportedClassifier
+
+    if name == "resnet9-2d":
+        shape = (1, 128, 128)
+        model = build_model("resnet9", 2, 1, 128, dataset="PhysioNet(spec128)", freq=128)
+    else:
+        shape = (C, T)
+        model = build_model(name, 2, C, T)
+    x = np.random.default_rng(0).normal(size=(21, *shape)).astype(np.float32)
+    live = Classifier(model, batch_size=16)
+    live.export_artifact(str(tmp_path / "m.pcgt"), shape, model_name=name)
+    exported = ExportedClassifier(str(tmp_path / "m.pcgt"))
+    assert exported.header["platforms"] == ["cuda"]
+    np.testing.assert_allclose(exported.predict_proba(x), live.predict_proba(x),
+                               rtol=0, atol=1e-5)

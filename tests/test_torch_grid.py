@@ -99,13 +99,40 @@ def test_the_results_cli_reads_the_grid(grid, capsys):
     assert out[1].split()[0] == "1" and "±" in out[1]
 
 
+def test_runner_flags_reach_the_runs(grid, tmp_path, monkeypatch, capsys):
+    """--checkpoint-every 1 writes each run's checkpoints/, and with
+    --steps-per-dispatch 2 and --no-device-cache the runs train in chunks
+    of two steps, uploading their corpus anew."""
+    from pcgmix_tpu_torch.train import loop
+
+    seen = []
+    train = loop._train
+    monkeypatch.setattr(loop, "_train", lambda cfg, *a, **k: seen.append(cfg) or train(
+        cfg, *a, **k))
+    root = str(tmp_path / "exp")
+    main(["--dataset-file", str(grid["path"]), "--device", "cpu", "--model", "resnet9-5k",
+          "--methods", "durratiomixup", "--num-epochs", "2", "--batch-size", "8",
+          "--seed-datas", "1100001", "--no-robust", "--experiments-root", root,
+          "--checkpoint-every", "1", "--steps-per-dispatch", "2", "--no-device-cache"])
+    (cfg,) = seen
+    assert (cfg.checkpoint_every, cfg.steps_per_dispatch, cfg.device_cache) == (1, 2, False)
+    ckpts = sorted(os.listdir(os.path.join(experiment_dir(cfg), "checkpoints")))
+    assert [f for f in ckpts if f.startswith("ckpt_")] and len(ckpts) == 4
+    capsys.readouterr()
+
+
 @pytest.mark.parametrize("option,item", [
     (["--gang"], 12), (["--gang-devices", "2"], 12), (["--gang-max-size", "4"], 12),
-    (["--no-gang-fallback"], 12), (["--steps-per-dispatch", "4"], 11),
-    (["--checkpoint-every", "1"], 11), (["--classical-space"], 13),
+    (["--no-gang-fallback"], 12),
+    # ported options (no item): the runner goes on to read the file
+    pytest.param(["--steps-per-dispatch", "4"], None, id="option4-11"),
+    pytest.param(["--checkpoint-every", "1"], None, id="option5-11"),
+    pytest.param(["--no-device-cache"], None, id="no-device-cache"),
+    pytest.param(["--classical-space"], 13, id="option6-13"),
     # --latent-space is taken (no item): the runner goes on to read the file
     pytest.param(["--latent-space"], None, id="option7-6"),
-    (["--compute-dtype", "bfloat16"], 3), (["--conv-impl", "matmul"], 12),
+    pytest.param(["--compute-dtype", "bfloat16"], 3, id="option8-3"),
+    pytest.param(["--conv-impl", "matmul"], 12, id="option9-12"),
 ])
 def test_unported_options_raise(option, item):
     if item is None:
