@@ -135,7 +135,7 @@ Phases (any failure exits non-zero):
    float32 rounding, and at most 1e-6 (both routes feed the update the
    same float32 scalars).  SGD's OneCycle momentum cycles 0.95 → 0.85 → 0.95.
    Steps/s of both routes with PCGmix+, each over the epochs after the
-   first of a 30-epoch (ResNet9, 261 steps) or 40-epoch (Potes, 351
+   first of a 20-epoch (ResNet9, 171 steps) or 25-epoch (Potes, 216
    steps) run, the routes alternated eager, graph, graph, eager.  The
    host ms per step of the eager route's uploads against the chunk's
    staging, each call timed after the card's queue is drained.  Exact
@@ -157,6 +157,27 @@ Phases (any failure exits non-zero):
    the same alternated steps/s of both routes; a refused capture is
    printed, not failed.  A profiled graph call stands beside phase 3's
    eager one.
+3g. Gang training (``train/gang.py``): gangs of 4 members (seed_data
+   1100001…, seed 1…) of full-width ResNet9 and Potes, batch 64, 4 × 2500,
+   with ``base``, PCGmix and PCGmix+, 2 epochs of 4 steps, weights frozen:
+   each member's train and test losses within 1e-6 relative of its own
+   sequential ``train_model`` run, K1/K2 once a gang step (one launch on
+   the 256 rows), no other kernel.  At lr 0.01 under cuDNN's
+   deterministic algorithms, one step an epoch, 7 steps: each member's
+   relative gap printed step by step, step 0 within 1e-5.  The graph gang
+   (``steps_per_dispatch=4``) against the eager one, the same launches.  A
+   ragged gang of three UMC folds (their own train sizes and test
+   patients), frozen, against the folds' runs, K1 once a lockstep step.
+   The runner with ``--gang --no-gang-fallback`` in a subprocess, two
+   gangs of 4 and their ``gang of 4`` lines, then its rerun, which skips
+   all 8.  Member-steps/s of gangs of S = 1, 2, 4, 8 against sequential
+   runs (PCGmix+, 25 steps an epoch, at least 200 member-steps timed
+   after the first epoch), alternated sequential, 1, 2, 4, 8, 8, 4, 2, 1,
+   sequential; peak memory per member beside ``estimate_gang_max_size``'s
+   per-member bytes and S_max.  Phase 2 checks K1/K2 at the gang's
+   geometry, 256 × 4 × 2500 under four members' concatenated plans, and
+   the kernels line carries it as ``gang`` with the gang runs' launches;
+   two profiled gang calls (ResNet9, Potes) give the busy share.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -574,8 +595,8 @@ RT_PAIRS = (("resnet9", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
             ("Potes", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
             ("Potes", "durratiomixup", "piecewise_mix_pairs"),
             ("resnet9", "durmixmagwarp(0.2,4)+0.5", "pcgmix_plus_fused"))
-# the epochs of each steps/s run (all but the first timed: 261 and 351 steps)
-RT_RATE_EPOCHS = {"resnet9": 30, "Potes": 40}
+# the epochs of each steps/s run (all but the first timed: 171 and 216 steps)
+RT_RATE_EPOCHS = {"resnet9": 20, "Potes": 25}
 
 
 class StepLosses:
@@ -978,6 +999,222 @@ def runtime_dp_phase(np, torch, card, mk):
     return launches
 
 
+# phase 3g: gang training
+GANG_S = 4  # members of the correctness gangs
+GANG_METHODS = (("base", None), ("durratiomixup", "piecewise_mix_pairs"),
+                ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"))
+GANG_RATE_S = (1, 2, 4, 8)
+GANG_RATE_MEMBER_STEPS = 200  # timed member-steps of each rate measurement
+GANG_BAR = 1e-6  # members against their sequential runs, frozen weights
+
+
+def gang_members(TrainConfig, model, method, n, epochs, **kw):
+    """``n`` members of one grid point: seed_data 1100001… and seed 1…."""
+    return [TrainConfig(model=model, method=method, num_epochs=epochs, batch_size=B,
+                        num_channels=C, save_artifacts=False, seed_data=1100001 + s,
+                        seed=s + 1, **kw) for s in range(n)]
+
+
+def gang_gap(np, perfs, cfgs, data, train_model):
+    """The largest relative gap of the members' train and test losses to
+    their own sequential ``train_model`` runs."""
+    gaps = []
+    for perf, cfg in zip(perfs, cfgs):
+        ref = train_model(cfg, data)
+        for k in ("train_loss", "test_loss"):
+            gaps.append(float(np.max(relative_gap(np, np.asarray(perf[k], np.float64),
+                                                  np.asarray(ref[k], np.float64)))))
+    return max(gaps)
+
+
+def gang_phase(np, torch, card, mk):
+    """Phase 3g: gangs of full-width ResNet9 and Potes (batch 64, 4 × 2500)
+    against their members' sequential runs (frozen weights; 7 steps at lr
+    0.01 under cuDNN's deterministic algorithms), K1/K2 once a gang step, a
+    ragged UMC gang, the graph gang against the eager one, the runner with
+    --gang and its rerun, member-steps/s of S = 1, 2, 4, 8 against
+    sequential runs, and peak memory per member beside the estimate.
+    Returns the gang path's K1/K2 launches and the profiled gang calls."""
+    from pcgmix_tpu_torch import utils
+    from pcgmix_tpu_torch.data import (
+        physionet_split,
+        synthetic_physionet_dict,
+        synthetic_umc_dict,
+    )
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.train import TrainConfig, gang, train_model
+
+    t_phase = time.time()
+    ds = synthetic_physionet_dict(num_wavs_train=36, num_wavs_test=12,
+                                  segments_per_wav=8, sig_len=T, seed=11)
+
+    def ganged(cfgs, data, **kw):
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        t0 = time.time()
+        perfs = gang.train_gang(cfgs, data, **kw)
+        torch.cuda.synchronize()
+        return perfs, mk.launch_counts(), time.time() - t0
+
+    launches = {}
+    for model in ("resnet9", "Potes"):
+        for method, kernel in GANG_METHODS:
+            cfgs = gang_members(TrainConfig, model, method, GANG_S, 2, lr_max=0.0)
+            perfs, counts, wall = ganged(cfgs, ds)
+            steps = perfs[0]["steps"][-1]
+            gap = gang_gap(np, perfs, cfgs, ds, train_model)
+            print(f"gang frozen {model} {method}: S={GANG_S}, {steps} gang steps in "
+                  f"{wall:.3f} s, launches {counts}; members against their sequential runs: "
+                  f"max relative gap {gap:.3e} (bar {GANG_BAR:g}) on {card}")
+            if any(n != (steps if k == kernel else 0) for k, n in counts.items()):
+                raise AssertionError(f"gang {model} {method}: {steps} steps, launches {counts}")
+            if not gap <= GANG_BAR:
+                raise AssertionError(f"gang {model} {method}: members differ from their runs")
+            if kernel:
+                launches[kernel] = counts[kernel]
+
+    # at lr 0.01, one step an epoch, cuDNN's deterministic algorithms
+    ds_steps = synthetic_physionet_dict(num_wavs_train=10, num_wavs_test=4,
+                                        segments_per_wav=8, sig_len=T, seed=11)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for model in ("resnet9", "Potes"):
+            cfgs = gang_members(TrainConfig, model, "durmixmagwarp(0.2,4)", GANG_S, 7)
+            perfs, _, _ = ganged(cfgs, ds_steps)
+            for s, (perf, cfg) in enumerate(zip(perfs, cfgs)):
+                ref = np.asarray(train_model(cfg, ds_steps)["train_loss"], np.float64)
+                got = np.asarray(perf["train_loss"], np.float64)
+                print(f"gang lr 0.01 {model} member {s}: relative gap over 7 steps "
+                      f"{relative_gap(np, got, ref).tolist()} (step 0 |diff| "
+                      f"{abs(got[0] - ref[0]):.3e}, bar 1e-5) on {card}")
+                if not abs(got[0] - ref[0]) < 1e-5:
+                    raise AssertionError(f"gang {model}: step 0 differs from its run")
+        # the graph gang: K gang steps a CUDA graph, against the eager gang
+        cfgs = gang_members(TrainConfig, "resnet9", "durmixmagwarp(0.2,4)", GANG_S, 3)
+        eager, e_counts, _ = ganged(cfgs, ds)
+        graph, g_counts, _ = ganged(
+            [dataclasses.replace(c, steps_per_dispatch=RT_K) for c in cfgs], ds)
+        gap = max(float(np.max(relative_gap(np, np.asarray(g["train_loss"], np.float64),
+                                            np.asarray(e["train_loss"], np.float64))))
+                  for g, e in zip(graph, eager))
+        print(f"gang graph resnet9 durmixmagwarp(0.2,4): S={GANG_S}, K={RT_K}, lr 0.01, "
+              f"cuDNN deterministic: graph against eager max relative gap {gap:.3e}; "
+              f"launches {g_counts} (graph, replays counted) / {e_counts} (eager) on {card}")
+        if gap > GANG_BAR or g_counts != e_counts:
+            raise AssertionError("the graph gang differs from the eager gang")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # a ragged gang: three UMC folds, each its own train size and test patients
+    umc_ds = synthetic_umc_dict(segments_per_patient=4, sig_len=UMC_LEN, seed=11)
+    cfgs = [dataclasses.replace(c, dataset="UMC", seed_data=f) for c, f in zip(
+        gang_members(TrainConfig, "resnet9", "durratiomixup", 3, 2, lr_max=0.0), (1, 2, 5))]
+    perfs, counts, wall = ganged(cfgs, umc_ds)
+    sizes = [len(gang.build_splits(c, umc_ds)[0]) for c in cfgs]
+    lock = 2 * max(n // B for n in sizes)
+    gap = gang_gap(np, perfs, cfgs, umc_ds, train_model)
+    print(f"gang ragged UMC folds 1, 2, 5: train rows {sizes}, {lock} lockstep steps in "
+          f"{wall:.3f} s, member steps {[p['steps'][-1] for p in perfs]}, launches {counts}; "
+          f"frozen weights max relative gap {gap:.3e} (bar {GANG_BAR:g}) on {card}")
+    if counts.get("piecewise_mix_pairs") != lock or not gap <= GANG_BAR:
+        raise AssertionError("the ragged gang differs from its members' runs")
+
+    # the runner: two gangs of four, then the rerun
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as tmp:
+        dat = os.path.join(tmp, "corpus.dat")
+        utils.dict2file(ds, dat)
+        cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
+               "--model", "resnet9", "--batch-size", str(B), "--num-epochs", "2",
+               "--n-fractions", "1.0", "--no-robust", "--experiments-root",
+               os.path.join(tmp, "experiments"), "--gang", "--no-gang-fallback",
+               "--methods", "durratiomixup", "durmixmagwarp(0.2,4)", "--seed-datas",
+               *[str(1100001 + s) for s in range(GANG_S)]]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+        outs = []
+        for _ in range(2):
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"the gang runner exited {proc.returncode}")
+            outs.append((proc.stdout.splitlines(), time.time() - t0))
+        (first, wall_first), (second, wall_second) = outs
+        gangs = [ln for ln in first if ln.startswith("gang of ")]
+        dones = [ln for ln in first if ln.startswith("gang done: ")]
+        for ln in gangs + dones:
+            print(f"gang runner: {ln}")
+        if (len(gangs) != 2 or len(dones) != 2
+                or sum(ln.startswith("done (gang): ") for ln in first) != 2 * GANG_S
+                or any('{"piecewise_mix_pairs": 8}' not in d and '{"pcgmix_plus_fused": 8}'
+                       not in d for d in dones)):
+            raise AssertionError(f"gang runner: {first}")
+        skips = sum(ln.startswith("skip (done): ") for ln in second)
+        if skips != 2 * GANG_S or any(ln.startswith(("gang of", "run: ")) for ln in second):
+            raise AssertionError(f"gang runner rerun trained: {second}")
+        print(f"gang runner: 2 gangs of {GANG_S} in {wall_first:.3f} s; the rerun skipped "
+              f"all {skips} in {wall_second:.3f} s, on {card}")
+
+    # member-steps/s: sequential runs and gangs of S, alternated in turns;
+    # peak memory per member beside the estimate's S_max
+    rate_ds = synthetic_physionet_dict(num_wavs_train=100, num_wavs_test=4,
+                                       segments_per_wav=16, sig_len=T, seed=13)
+    rows = len(physionet_split(rate_ds, "train"))
+    spe = rows // B
+    for model in ("resnet9", "Potes"):
+        rates: dict = {}
+        peaks: dict = {}
+        # ResNet9 also as a gang of 4 with its convolutions as matmuls
+        # ("matmul"), the JAX package's escape from grouped convolutions
+        mm = ["matmul"] if model == "resnet9" else []
+        order = ["seq", *GANG_RATE_S, *mm, *mm, *GANG_RATE_S[::-1], "seq"]
+        for s in order:
+            n = {"seq": 1, "matmul": GANG_S}.get(s, s)
+            epochs = 1 + max(1, -(-GANG_RATE_MEMBER_STEPS // (n * spe)))
+            cfgs = gang_members(TrainConfig, model, "durmixmagwarp(0.2,4)", n, epochs,
+                                conv_impl="matmul" if s == "matmul" else "xla")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            perfs = ([train_model(cfgs[0], rate_ds)] if s == "seq"
+                     else gang.train_gang(cfgs, rate_ds))
+            torch.cuda.synchronize()
+            rates.setdefault(s, []).append(n * steady_rate(perfs[0]))
+            peaks[s] = torch.cuda.max_memory_allocated()
+        seq = sum(rates["seq"]) / 2
+        for s in (*GANG_RATE_S, *mm):
+            r, n = rates[s], {"matmul": GANG_S}.get(s, s)
+            what = f"S={s}" if s != "matmul" else f"S={GANG_S} conv_impl=matmul"
+            print(f"gang rate {model} durmixmagwarp(0.2,4) {what}: {r[0]:.3f}, {r[1]:.3f} "
+                  f"member-steps/s (sequential {rates['seq'][0]:.3f}, {rates['seq'][1]:.3f}); "
+                  f"gang against sequential {sum(r) / 2 / seq:.3f}x; peak memory "
+                  f"{peaks[s] / n / 2**20:.1f} MiB a member ({peaks[s] / 2**30:.3f} GiB) "
+                  f"on {card}")
+        cfg = gang_members(TrainConfig, model, "durmixmagwarp(0.2,4)", 1, 1)[0]
+        s_max = gang.estimate_gang_max_size(cfg, rows, corpus_bytes=rows * C * T * 4,
+                                            sample_shape=(C, T))
+        saved = gang.activation_bytes(build_model(model, 2, C, T), (B, C, T))
+        state = gang.gang_state_bytes(cfg, rows, (C, T))
+        s_hi, s_lo = GANG_RATE_S[-1], GANG_RATE_S[0]
+        marginal = (peaks[s_hi] - peaks[s_lo]) / (s_hi - s_lo)
+        print(f"gang estimate {model}: autograd saves {saved / 2**20:.1f} MiB a member, "
+              f"state {state / 2**20:.1f} MiB; each member past the first adds "
+              f"{marginal / 2**20:.1f} MiB to the peak (S={s_lo} to {s_hi}), "
+              f"{marginal / saved:.3f}x the saved bytes (reuse 1.5 assumed); S_max "
+              f"{s_max} (timed windows of {GANG_RATE_MEMBER_STEPS} member-steps or more, "
+              f"{spe} steps an epoch) on {card}")
+        if not all(np.isfinite(v).all() for v in rates.values()):
+            raise AssertionError(f"gang rates {model}: not finite")
+
+    profiled = {
+        model: (lambda m=model: gang.train_gang(
+            gang_members(TrainConfig, m, "durmixmagwarp(0.2,4)", GANG_S, 2), ds))
+        for model in ("resnet9", "Potes")}
+    print(f"gang phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return launches, profiled
+
+
 def main() -> int:
     import torch
 
@@ -1134,6 +1371,20 @@ def main() -> int:
                 "library_ms": None}
 
     pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
+    # the gang path's geometry: GANG_S members' batches as one (S·B, C, T)
+    # batch under their concatenated plans, row indices offset by s·B
+    from pcgmix_tpu_torch.train.gang import gang_plan
+
+    g_rows = np.resize(np.arange(len(split)), GANG_S * B)
+    xg = torch.from_numpy(split.data[g_rows]).to(dev)
+
+    def gang_plan_of(method):
+        arrays = [AugmentEngine(AugmentConfig(method, B, C, T)).plan(
+            7, split.frames[g_rows[s * B:(s + 1) * B]],
+            split.label[g_rows[s * B:(s + 1) * B]]).arrays for s in range(GANG_S)]
+        return AugmentEngine.device_arrays(gang_plan(arrays, B), dev)
+
+    gang_pcgmix, gang_plus = gang_plan_of("durratiomixup"), gang_plan_of("durmixmagwarp(0.2,4)")
     # the spectrogram path's geometry: 64 × (1, 128, 128), the 128
     # frequency rows as channels of K1's (B, C, T) view
     spec_ds = synthetic_spectrogram_dict(num_wavs_train=24, num_wavs_test=8,
@@ -1179,6 +1430,8 @@ def main() -> int:
         ("piecewise_mix_prepaired", k3, "main", x32, pcgmix, 1e-6, 0, 2, False, k27, False),
         ("pcgmix_plus_fused_prepaired", k4, "main", x32, pcgmix_plus, 1e-5, 0, 2, True, k27,
          False),
+        ("piecewise_mix_pairs", k1, "gang", xg, gang_pcgmix, 1e-6, 4, 1, False, None, False),
+        ("pcgmix_plus_fused", k2, "gang", xg, gang_plus, 1e-5, 4, 1, True, None, False),
         ("piecewise_mix_pairs", k1, "spec2d", xs, pcgmix_2d, 1e-6, 4, 1, False, None, False),
         ("piecewise_mix_prepaired", k3, "spec2d", xs, pcgmix_2d, 1e-6, 0, 2, False, None,
          False),
@@ -1385,6 +1638,11 @@ def main() -> int:
     # ---- 3f. the runtime extras -----------------------------------------
     graph_launches = runtime_phase(np, torch, card, mk)
 
+    # ---- 3g. gang training ------------------------------------------------
+    gang_launches, gang_profiled = gang_phase(np, torch, card, mk)
+    for name, n in gang_launches.items():
+        launches_concat[name, "gang"] = n
+
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
     def host_ms(fn, n=16):
@@ -1418,6 +1676,8 @@ def main() -> int:
         torch, lambda: train_model(dataclasses.replace(
             profiled, dataset=SPEC, method="durratiomixup"), spec_ds),
         card, label="profile spec2d")
+    for model, run in gang_profiled.items():  # a gang of GANG_S, 2 epochs
+        profile_breakdown(torch, run, card, label=f"profile gang {model}")
     for name in ZOO_PROFILED:  # the zoo's slowest convolutional families
         profile_breakdown(
             torch, lambda: train_model(dataclasses.replace(

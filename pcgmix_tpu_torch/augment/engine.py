@@ -172,10 +172,17 @@ def _lerp_targets(target_ohe, partner_ohe, lam_t):
     return target_ohe * lam_t + partner_ohe * (1.0 - lam_t)
 
 
+def _per_row(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A scalar as it is; a vector of one value per row of ``like`` shaped
+    to broadcast over its other axes (a gang's rows, ``train/gang.py``)."""
+    return x if x.dim() == 0 else x.view(-1, *(1,) * (like.dim() - 1))
+
+
 def _blend(data, mix_idx, lam):
-    """Whole-signal mixup: data·λ + data[mix]·(1−λ) (augmentations.py:849)."""
+    """Whole-signal mixup: data·λ + data[mix]·(1−λ) (augmentations.py:849);
+    λ a scalar or one per row."""
     mixed = data.index_select(0, mix_idx.long())
-    lam = torch.as_tensor(lam, dtype=data.dtype, device=data.device)
+    lam = _per_row(torch.as_tensor(lam, dtype=data.dtype, device=data.device), data)
     return data * lam + mixed * (1.0 - lam)
 
 
@@ -898,7 +905,7 @@ class AugmentEngine:
         for k, v in arrays.items():
             if isinstance(v, torch.Tensor):
                 out[k] = v
-            elif k == "lam":
+            elif k == "lam" and np.ndim(v) == 0:
                 out[k] = float(v)
             elif k == "noise_seed":
                 out[k] = int(v)
@@ -927,11 +934,13 @@ class AugmentEngine:
     @staticmethod
     def _gated(mixed, data, target_ohe, a: dict):
         """``mixed`` (data, target) where the plan's ``gate`` is on, else the
-        batch as it came (see :meth:`gated_arrays`)."""
+        batch as it came (see :meth:`gated_arrays`); a gate per row (a
+        gang's, whose members gate apart) picks row by row."""
         if "gate" not in a:
             return mixed
         on = torch.as_tensor(a["gate"], device=data.device) > 0
-        return torch.where(on, mixed[0], data), torch.where(on, mixed[1], target_ohe)
+        return (torch.where(_per_row(on, data), mixed[0], data),
+                torch.where(_per_row(on, target_ohe), mixed[1], target_ohe))
 
     def apply(self, data: torch.Tensor, target_ohe: torch.Tensor, arrays: dict):
         """Apply a plan to the device batch, or for a latent method to the

@@ -69,6 +69,10 @@ class ArrayDataset:
     wav: np.ndarray  # (N,) object (recording names)
     sig_qual: np.ndarray  # (N,) int64
     ids: Optional[np.ndarray] = None  # (N,) object: UMC patient ids
+    rows: Optional[np.ndarray] = None  # provenance: the row ids of the
+                                       # from_dict base this split was
+                                       # take()n from (a gang gathers its
+                                       # members' batches from one base)
 
     def __len__(self) -> int:
         return len(self.label)
@@ -82,6 +86,7 @@ class ArrayDataset:
             wav=self.wav[indices],
             sig_qual=self.sig_qual[indices],
             ids=None if self.ids is None else self.ids[indices],
+            rows=None if self.rows is None else self.rows[indices],
         )
 
     @classmethod
@@ -100,4 +105,5 @@ class ArrayDataset:
             wav=np.asarray(d["wav"], object),
             sig_qual=np.asarray(d["sig_qual"], np.int64),
             ids=np.asarray(d["id"], object) if "id" in d else None,
+            rows=np.arange(len(np.asarray(d["label"])), dtype=np.int64),
         )

@@ -10,6 +10,9 @@
   ``padding="same"``.
 - :class:`ConvBNAct`: tsai's ConvBlock, Conv(SAME, no bias) → BatchNorm →
   activation, the block of FCN, ResCNN, ResNet and the tsai zoo.
+- :class:`MatmulConv1d` and :func:`conv1d`: ``nn.Conv1d`` computed as K
+  shifted matmuls, the ``conv_impl="matmul"`` path of the ResNet9 and
+  Potes presets.
 - :func:`gap_1d`: the global average pool over time.
 - :func:`host_uniform`: a module's uniform draws from its CPU generator
   (Potes' dropout masks), which a captured train step takes from
@@ -208,6 +211,45 @@ class Conv1d(nn.Conv1d):
         if any(self.pad):
             x = F.pad(x, self.pad)
         return super().forward(x)
+
+
+class MatmulConv1d(nn.Conv1d):
+    """``nn.Conv1d`` (same parameters, same state_dict keys) computed as K
+    shifted matmuls, ``y = Σ_k W[:, :, k] @ x_pad[..., k::stride] + b``
+    (``pcgmix_tpu/models/layers.py::_MatmulConv1d``): under ``vmap`` over
+    stacked weights each product is a batched matmul, where a convolution
+    becomes a grouped one.  The terms are summed in k order, then the bias,
+    as the JAX package sums them."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.groups != 1 or self.dilation != (1,) or isinstance(self.padding, str):
+            raise ValueError("conv_impl='matmul' takes groups 1, dilation 1 and int padding")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (k,), (stride,), (pad,) = self.kernel_size, self.stride, self.padding
+        xp = F.pad(x, (pad, pad)) if pad else x
+        t_out = (xp.shape[-1] - k) // stride + 1
+        span = (t_out - 1) * stride + 1
+        y = None
+        for i in range(k):
+            yi = torch.matmul(self.weight[:, :, i], xp[..., i:i + span:stride])
+            y = yi if y is None else y + yi
+        return y if self.bias is None else y + self.bias[:, None]
+
+
+CONV_IMPLS = ("xla", "matmul")
+
+
+def conv1d(in_channels: int, out_channels: int, kernel_size: int, padding: int = 0,
+           impl: str = "xla") -> nn.Conv1d:
+    """``nn.Conv1d(..., padding=padding)``, or with ``impl="matmul"`` its
+    :class:`MatmulConv1d` (the JAX ``Conv1d.impl``; "xla" names the
+    library convolution, as there)."""
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {impl!r}")
+    cls = MatmulConv1d if impl == "matmul" else nn.Conv1d
+    return cls(in_channels, out_channels, kernel_size, padding=padding)
 
 
 class ConvBNAct(nn.Module):

@@ -35,7 +35,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pcgmix_tpu_torch.models.layers import check_part, host_uniform
+from pcgmix_tpu_torch.models.layers import check_part, conv1d, host_uniform
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
 
 HIDDEN = 20  # dimreduc's width (models.py:379)
@@ -49,16 +49,17 @@ def potes_features(sig_len: int) -> int:
 
 
 class Potes(nn.Module):
-    """Input (B, C, T) channel-first; returns (B, num_classes) logits."""
+    """Input (B, C, T) channel-first; returns (B, num_classes) logits.
+    ``conv_impl="matmul"``: the branch's convolutions as shifted matmuls."""
 
     def __init__(self, num_classes: int = 2, layers: Sequence[int] = (8, 4),
                  dropout: float = 0.25, num_channels: int = 4, sig_len: int = 2500,
-                 seed: int = 0):
+                 seed: int = 0, conv_impl: str = "xla"):
         super().__init__()
         l0, l1 = layers
         self.cnn1 = nn.Sequential(
-            nn.Sequential(nn.Conv1d(1, l0, 5, padding=1), nn.ReLU(), nn.MaxPool1d(2)),
-            nn.Sequential(nn.Conv1d(l0, l1, 5, padding=1), nn.ReLU(), nn.MaxPool1d(2)),
+            nn.Sequential(conv1d(1, l0, 5, 1, conv_impl), nn.ReLU(), nn.MaxPool1d(2)),
+            nn.Sequential(conv1d(l0, l1, 5, 1, conv_impl), nn.ReLU(), nn.MaxPool1d(2)),
         )
         self.dimreduc = nn.Linear(num_channels * l1 * potes_features(sig_len), HIDDEN)
         self.linear = nn.Linear(HIDDEN, num_classes)

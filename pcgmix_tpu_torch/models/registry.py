@@ -48,22 +48,26 @@ ALIASES = {"FCNPlus": "FCN", "ResNetPlus": "ResNet", "InceptionTimePlus": "Incep
 
 def build_model(name: str, num_classes: int = 2, num_channels: int = 4,
                 sig_len: int = 2500, *, seed: int = 0, dataset: str = "PhysioNet",
-                freq: Optional[int] = None) -> nn.Module:
+                freq: Optional[int] = None, conv_impl: str = "xla") -> nn.Module:
     """Instantiate a model by its reference name; ``seed`` seeds the
     model's own random draws (Potes' dropout masks).  A spectrogram
     ``dataset`` selects the 2-D variant of ``"resnet9"`` for inputs of
     ``freq`` × ``sig_len`` (square when ``freq`` is None).  gMLP, XCM,
-    OmniScaleCNN and mWDN are sized for inputs of ``sig_len`` steps."""
+    OmniScaleCNN and mWDN are sized for inputs of ``sig_len`` steps.
+    ``conv_impl="matmul"`` computes the 1-D convolutions of the ResNet9 and
+    Potes presets as shifted matmuls; the other models ignore it, as in
+    the JAX registry (``pcgmix_tpu/models/registry.py:85-115``)."""
     if dataset in SPECTROGRAM_DATASETS:
         if name != "resnet9":
             raise ValueError(f"2-D dataset {dataset!r} supports model 'resnet9' only")
         return ResNet9_2D(num_classes, RESNET9_PRESETS[name],
                           sig_len if freq is None else freq, sig_len)
     if name in RESNET9_PRESETS:
-        return ResNet9_1D(num_classes, RESNET9_PRESETS[name], num_channels, sig_len)
+        return ResNet9_1D(num_classes, RESNET9_PRESETS[name], num_channels, sig_len,
+                          conv_impl=conv_impl)
     if name in POTES_PRESETS:
         return Potes(num_classes, num_channels=num_channels, sig_len=sig_len,
-                     seed=seed, **POTES_PRESETS[name])
+                     seed=seed, conv_impl=conv_impl, **POTES_PRESETS[name])
     name = ALIASES.get(name, name)
     c = dict(num_channels=num_channels)
     t = dict(c, sig_len=sig_len)

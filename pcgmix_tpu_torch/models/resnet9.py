@@ -26,7 +26,12 @@ import torch
 from torch import nn
 
 # BatchNorm1d/2d live in layers.py; they are imported from here too
-from pcgmix_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, check_part  # noqa: F401
+from pcgmix_tpu_torch.models.layers import (  # noqa: F401
+    BatchNorm1d,
+    BatchNorm2d,
+    check_part,
+    conv1d,
+)
 
 
 class ResNet9Stages(nn.Module):
@@ -76,27 +81,33 @@ class ResNet9Stages(nn.Module):
         return self.linear(h)
 
 
-def conv_block(ci: int, co: int, pool: bool = False) -> nn.Sequential:
-    layers = [nn.Conv1d(ci, co, 3, padding=1), BatchNorm1d(co), nn.ReLU()]
+def conv_block(ci: int, co: int, pool: bool = False, conv_impl: str = "xla") -> nn.Sequential:
+    layers = [conv1d(ci, co, 3, 1, conv_impl), BatchNorm1d(co), nn.ReLU()]
     if pool:
         layers.append(nn.MaxPool1d(2))
     return nn.Sequential(*layers)
 
 
 class ResNet9_1D(ResNet9Stages):
-    """Input (B, C, T) channel-first; returns (B, num_classes) logits."""
+    """Input (B, C, T) channel-first; returns (B, num_classes) logits.
+    ``conv_impl="matmul"``: the convolutions as shifted matmuls
+    (:class:`pcgmix_tpu_torch.models.layers.MatmulConv1d`)."""
 
     def __init__(self, num_classes: int = 2, filters=(64, 128, 256, 512),
-                 num_channels: int = 4, sig_len: int = 2500):
+                 num_channels: int = 4, sig_len: int = 2500, conv_impl: str = "xla"):
         super().__init__()
         f = filters
+
+        def block(ci, co, pool=False):
+            return conv_block(ci, co, pool, conv_impl)
+
         # construction order = the reference's, which seeded init relies on
-        self.conv1 = conv_block(num_channels, f[0])
-        self.conv2 = conv_block(f[0], f[1], pool=True)
-        self.res1 = nn.Sequential(conv_block(f[1], f[1]), conv_block(f[1], f[1]))
-        self.conv3 = conv_block(f[1], f[2], pool=True)
-        self.conv4 = conv_block(f[2], f[3], pool=True)
-        self.res2 = nn.Sequential(conv_block(f[3], f[3]), conv_block(f[3], f[3]))
+        self.conv1 = block(num_channels, f[0])
+        self.conv2 = block(f[0], f[1], pool=True)
+        self.res1 = nn.Sequential(block(f[1], f[1]), block(f[1], f[1]))
+        self.conv3 = block(f[1], f[2], pool=True)
+        self.conv4 = block(f[2], f[3], pool=True)
+        self.res2 = nn.Sequential(block(f[3], f[3]), block(f[3], f[3]))
         self.pool = nn.MaxPool1d(4)
         self.linear = nn.Linear(f[3] * (sig_len // 2 // 2 // 2 // 4), num_classes)
 

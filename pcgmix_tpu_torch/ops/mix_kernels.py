@@ -21,6 +21,12 @@ path); K2/K4 add the envelope.  :func:`piecewise_mix_batch` is K1 with
 row i of the batch as each output row's base (the main path's PCGmix),
 launched without a row index.  The kernels are compiled at first use,
 with K5's, into one shared library (``ops/build.py``).
+
+A launch covers at most :data:`MAX_LAUNCH_ROWS` output rows (the kernel
+takes its row from ``blockIdx.y``).  A gang's batch of S·B rows
+(``train/gang.py``) can pass that: K1, K3 and K4 then launch once per
+chunk of rows (K1 without a row index through its explicit-row form), and
+K2, whose partner indices address the whole batch, raises naming the limit.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from pcgmix_tpu_torch.ops.piecewise import piecewise_mix_f32
 from pcgmix_tpu_torch.ops.spline import cubic_spline_basis, spline_envelope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_LAUNCH_ROWS = 65535  # gridDim.y: the output rows of one K1–K4 launch
 _basis_cache: dict = {}
 
 
@@ -112,6 +119,12 @@ def _warp_vector_width(T: int, dtype: torch.dtype, *tensors) -> int:
     return 1
 
 
+def _chunks(n: int):
+    """(start, stop) of each launch's rows: one launch up to
+    :data:`MAX_LAUNCH_ROWS` rows, else chunks of at most that many."""
+    return [(a, min(a + MAX_LAUNCH_ROWS, n)) for a in range(0, n, MAX_LAUNCH_ROWS)]
+
+
 def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
     """Launch wrapper ``name``'s kernel (:func:`build.launch`) unless the
     batch is empty; returns ``out``."""
@@ -154,11 +167,17 @@ def _mix_pairs(data, idx1, idx2, n, k, pieces, alpha, base_is_d1):
     """Launch K1 (``idx1`` None: row i is output row i's base row)."""
     B, C, T = data.shape
     out = torch.empty((n, C, T), dtype=data.dtype, device=data.device)
-    return _launch(
-        "piecewise_mix_pairs", out, data, out, idx1, idx2, *pieces, alpha, B, n,
-        C, T, k, int(base_is_d1), _warp_vector_width(T, data.dtype, data, out),
-        _DTYPE_CODES[data.dtype],
-    )
+    if n > MAX_LAUNCH_ROWS and idx1 is None:  # chunks name their base rows
+        idx1 = torch.arange(n, dtype=torch.int32, device=data.device)
+    for a, b in _chunks(n):
+        o = out[a:b]
+        _launch(
+            "piecewise_mix_pairs", o, data, o, None if idx1 is None else idx1[a:b],
+            idx2[a:b], *(p[a:b] for p in pieces), alpha[a:b], B, b - a, C, T, k,
+            int(base_is_d1), _warp_vector_width(T, data.dtype, data, o),
+            _DTYPE_CODES[data.dtype],
+        )
+    return out
 
 
 def piecewise_mix_pairs(data, idx1, idx2, dst, src, length, sel, alpha,
@@ -216,12 +235,14 @@ def piecewise_mix_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
         )
     _, C, T = d1_rows.shape
     out = torch.empty_like(d1_rows)
-    return _launch(
-        "piecewise_mix_prepaired", out, d1_rows, d2_rows, out, dst, src, length,
-        sel, alpha, n, C, T, k, int(base_is_d1),
-        _warp_vector_width(T, d1_rows.dtype, d1_rows, d2_rows, out),
-        _DTYPE_CODES[d1_rows.dtype],
-    )
+    for a, b in _chunks(n):
+        d1, d2, o = d1_rows[a:b], d2_rows[a:b], out[a:b]
+        _launch(
+            "piecewise_mix_prepaired", o, d1, d2, o, dst[a:b], src[a:b], length[a:b],
+            sel[a:b], alpha[a:b], b - a, C, T, k, int(base_is_d1),
+            _warp_vector_width(T, d1_rows.dtype, d1, d2, o), _DTYPE_CODES[d1_rows.dtype],
+        )
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -272,6 +293,11 @@ def pcgmix_plus_fused(data, mix, dst, src, length, sel, alpha, knots):
     _check_knots(knots, B, C, data.device)
     if is_plain(data):
         return pcgmix_plus_fused_plain(data, mix, dst, src, length, sel, alpha, knots)
+    if B > MAX_LAUNCH_ROWS:
+        raise ValueError(
+            f"pcgmix_plus_fused takes at most {MAX_LAUNCH_ROWS} rows per launch (the "
+            f"kernel's row is blockIdx.y, and its partners address the whole batch); "
+            f"got {B}: train a smaller gang")
     basis = warp_basis(T, knots.shape[1] - 2, data.device,
                        columns=WARP_BASIS_CHUNK)
     out = torch.empty_like(data)
@@ -302,9 +328,12 @@ def pcgmix_plus_fused_prepaired(d1_rows, d2_rows, dst, src, length, sel, alpha,
     basis = warp_basis(T, knots.shape[1] - 2, d1_rows.device,
                        columns=WARP_BASIS_CHUNK)
     out = torch.empty_like(d1_rows)
-    return _launch(
-        "pcgmix_plus_fused_prepaired", out, d1_rows, d2_rows, out, dst, src,
-        length, sel, alpha, knots, basis, n, C, T, k, knots.shape[1],
-        _warp_vector_width(T, d1_rows.dtype, d1_rows, d2_rows, out),
-        _DTYPE_CODES[d1_rows.dtype],
-    )
+    for a, b in _chunks(n):
+        d1, d2, o = d1_rows[a:b], d2_rows[a:b], out[a:b]
+        _launch(
+            "pcgmix_plus_fused_prepaired", o, d1, d2, o, dst[a:b], src[a:b],
+            length[a:b], sel[a:b], alpha[a:b], knots[a:b], basis, b - a, C, T, k,
+            knots.shape[1], _warp_vector_width(T, d1_rows.dtype, d1, d2, o),
+            _DTYPE_CODES[d1_rows.dtype],
+        )
+    return out

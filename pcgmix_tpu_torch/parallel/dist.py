@@ -90,18 +90,19 @@ def _entry(rank: int, world_size: int, backend: str, tmp: str,
     init_group(backend, rank, world_size, os.path.join(tmp, "store"))
     try:
         out = fn(*args)
-        if rank == 0:
-            with open(os.path.join(tmp, "result.pkl"), "wb") as f:
-                pickle.dump(out, f)
+        with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world_size: int, backend: str, args: tuple = ()) -> Any:
+def spawn(fn: Callable, world_size: int, backend: str, args: tuple = (),
+          all_ranks: bool = False) -> Any:
     """Run ``fn(*args)`` in ``world_size`` spawned processes, each a rank of
     a fresh default group (rank r on ``cuda:r`` under NCCL); returns rank 0's
-    result.  ``fn`` must be importable by name: a spawned child imports
-    ``fn``'s module and nothing of the caller's."""
+    result, or with ``all_ranks`` every rank's in rank order.  ``fn`` must
+    be importable by name: a spawned child imports ``fn``'s module and
+    nothing of the caller's."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="pcgmix_dist_") as tmp:
@@ -109,8 +110,11 @@ def spawn(fn: Callable, world_size: int, backend: str, args: tuple = ()) -> Any:
             _entry, args=(world_size, backend, tmp, fn, args),
             nprocs=world_size, join=True, start_method="spawn",
         )
-        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
-            return pickle.load(f)
+        outs = []
+        for rank in range(world_size if all_ranks else 1):
+            with open(os.path.join(tmp, f"result_{rank}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+        return outs if all_ranks else outs[0]
 
 
 @dataclasses.dataclass(frozen=True)

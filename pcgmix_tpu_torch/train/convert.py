@@ -158,6 +158,22 @@ def jax_to_torch(name: str, params: Mapping,
     return sd
 
 
+def _member(tree: Mapping, s: int) -> dict:
+    """Member ``s``'s slice of a tree stacked on a leading member axis."""
+    return {k: _member(v, s) if isinstance(v, Mapping) else np.asarray(v)[s]
+            for k, v in tree.items()}
+
+
+def jax_gang_to_torch(name: str, params: Mapping,
+                      batch_stats: Optional[Mapping] = None) -> list:
+    """A JAX gang's stacked variables (numpy leaves, a leading member axis,
+    ``pcgmix_tpu/train/gang.py``) → one ``build_model(name)`` state_dict
+    per member, each member's slice through :func:`jax_to_torch`."""
+    members = len(np.asarray(next(v for _, v in _leaves(params))))
+    return [jax_to_torch(name, _member(params, s), _member(batch_stats or {}, s))
+            for s in range(members)]
+
+
 def seeded_init(model: nn.Module, seed: int = 4) -> nn.Module:
     """Re-draw the model's Conv1d/Conv2d/Linear parameters as a fresh reference
     model built under ``torch.manual_seed(seed)`` would hold them

@@ -146,6 +146,8 @@ class TrainConfig:
     device_cache: bool = True  # reuse the device tensors of an equal corpus
                                # across train_model calls in one process
                                # (data/device_cache.py)
+    conv_impl: str = "xla"  # "matmul": the ResNet9 and Potes presets' 1-D
+                            # convolutions as shifted matmuls
 
     @property
     def spectrogram(self) -> bool:
@@ -352,7 +354,8 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
 
     model = seeded_init(
         build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed,
-                    dataset=cfg.dataset, freq=F or None), cfg.seed_fix
+                    dataset=cfg.dataset, freq=F or None, conv_impl=cfg.conv_impl),
+        cfg.seed_fix
     )
     model.to(device)
     if dp is not None:
@@ -632,17 +635,28 @@ def evaluate(model, staged, perf: PerformanceTracker, class_majority=False,
              dp: Optional[DataParallel] = None) -> None:
     """Recording-level test pass (reference train_model.py:591-670); sharded
     batches' probabilities and losses are gathered from the ranks."""
-    probs, loss_sum, n = [], 0.0, 0
+    outs = []
     for data, target, _, sharded in staged:
         p, l = eval_step(model, data, target)
         if sharded:
             p, l = dp.gather(p), dp.gather(l)
-        probs.append(p.cpu().numpy())
+        outs.append((p.cpu().numpy(), l))
+    add_eval(perf, outs, [b for _, _, b, _ in staged], class_majority)
+
+
+def add_eval(perf: PerformanceTracker, outs: list, batches: list,
+             class_majority=False) -> None:
+    """Add the test loss and the recording-level metrics of eval batches
+    ``batches`` (host dicts), given each batch's probabilities (host) and
+    per-sample losses (a tensor, summed where it lies)."""
+    loss_sum, n = 0.0, 0
+    for _, l in outs:
         loss_sum += float(l.sum())
         n += len(l)
-    labels = np.concatenate([b["label"] for _, _, b, _ in staged])
-    wavs = np.concatenate([b["wav"] for _, _, b, _ in staged])
+    labels = np.concatenate([b["label"] for b in batches])
+    wavs = np.concatenate([b["wav"] for b in batches])
     perf.add("test_loss", loss_sum / max(n, 1))
-    metrics = recording_level_eval(np.concatenate(probs), labels, wavs, class_majority)
+    probs = np.concatenate([p for p, _ in outs])
+    metrics = recording_level_eval(probs, labels, wavs, class_majority)
     for k, v in metrics.items():
         perf.add(k, v)

@@ -340,33 +340,39 @@ class ScalarFedUpdate:
     @torch.no_grad()
     def apply(self, s: torch.Tensor) -> None:
         """Update the parameters from their gradients; ``s`` holds the three
-        scalars of :meth:`host_scalars` on the parameters' device."""
+        scalars of :meth:`host_scalars` on the parameters' device, or one
+        row of them per gang member, (S, 3), for parameters stacked on a
+        leading member axis (``train/gang.py``)."""
         params = [p for p in self.params if p.grad is not None]
         grads = [p.grad for p in params]
         wd = self.group["weight_decay"]
         if wd:
             grads = torch._foreach_add(grads, params, alpha=wd)
         state = [self.opt.state[p] for p in params]
+
+        def col(j, like):  # scalar j, broadcast over ``like``'s member axis
+            return s[j] if s.dim() == 1 else s[:, j].view(-1, *(1,) * (like.dim() - 1))
+
         if self.adam:
             beta2, eps = self.group["betas"][1], self.group["eps"]
             ms = [st["exp_avg"] for st in state]
             vs = [st["exp_avg_sq"] for st in state]
             for m, g in zip(ms, grads):
-                m.lerp_(g, s[0])
+                m.lerp_(g, col(0, m))
             torch._foreach_mul_(vs, beta2)
             torch._foreach_addcmul_(vs, grads, grads, value=1.0 - beta2)
             den = torch._foreach_sqrt(vs)
             for d in den:
-                d.div_(s[2])
+                d.div_(col(2, d))
             torch._foreach_add_(den, eps)
             upd = torch._foreach_div(ms, den)
         else:
             upd = [st["momentum_buffer"] for st in state]
             for b in upd:
-                b.mul_(s[0])
+                b.mul_(col(0, b))
             torch._foreach_add_(upd, grads)
         for p, u in zip(params, upd):
-            p.addcmul_(u, s[1])
+            p.addcmul_(u, col(1, p))
 
 
 class MultiStep:
@@ -407,7 +413,7 @@ class MultiStep:
         self.step, self.k = step, k
         self.device = step.train_data.device
         self.graph = self.device.type == "cuda"
-        if self.graph:
+        if self.graph and step.fed is None:  # a gang's step brings its own
             step.fed = ScalarFedUpdate(step.opt)
         self._layout: Optional[dict] = None  # field → (np dtype, per-step shape)
         self._draws: Optional[list] = None  # the host draws of one step
@@ -466,12 +472,6 @@ class MultiStep:
                      if self.graph else self._host[0])
         self._layout, self._offsets = layout, offsets
         self.views = {name: self._view(self._dev, name) for name in layout}
-        if self.out is None:
-            B = layout["idx"][1][0]
-            self.out = {
-                "loss": torch.zeros(self.k, device=self.device),
-                "preds": torch.zeros(self.k, B, dtype=torch.int64, device=self.device),
-                "target": torch.zeros(self.k, B, dtype=torch.int64, device=self.device)}
 
     def _view(self, buf: torch.Tensor, name: str) -> torch.Tensor:
         """Field ``name`` of a staging buffer as a (K, …) tensor."""
@@ -517,6 +517,8 @@ class MultiStep:
         with feed_draws(draws) if draws is not None else contextlib.nullcontext():
             out = self.step.run(v["idx"][j], plan or None, epoch,
                                 scalars=v["scalars"][j] if self.graph else None)
+        if self.out is None:  # the K steps' output slots, shaped as a step's
+            self.out = {name: t.new_zeros((self.k, *t.shape)) for name, t in out.items()}
         for name, t in out.items():
             self.out[name][j].copy_(t)
 

@@ -7,6 +7,8 @@ without JAX run them as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -833,3 +835,114 @@ def test_serving_artifact_on_the_card(dev, tmp_path, name):
     assert exported.header["platforms"] == ["cuda"]
     np.testing.assert_allclose(exported.predict_proba(x), live.predict_proba(x),
                                rtol=0, atol=1e-5)
+
+
+# ---- gang training on the card: one vmapped program over S members ---------
+
+
+def _gang(method, model="resnet9-5k", n=3, **kw):
+    from pcgmix_tpu_torch.train import TrainConfig
+
+    kw = {"n_fraction": 0.5, **kw}
+    return [TrainConfig(model=model, method=method, num_epochs=3, batch_size=8,
+                        save_artifacts=False, seed_data=1100001 + s, seed=s + 1, **kw)
+            for s in range(n)]
+
+
+def _gang_corpus():
+    return synthetic_physionet_dict(num_wavs_train=16, num_wavs_test=6, segments_per_wav=4,
+                                    sig_len=512, seed=1)
+
+
+@pytest.mark.parametrize("model,method,kernel", [
+    (model, method, kernel) for model in ("resnet9-5k", "Potes")
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+                           ("durratiomixup", "piecewise_mix_pairs"),
+                           ("durmixmagwarp(0.2,4)+0.5", "pcgmix_plus_fused"),
+                           ("latentmixup", None))
+] + [("resnet9-5k", "manifold-cutmix", "piecewise_mix_pairs")])
+def test_gang_members_equal_their_runs_on_the_card(dev, model, method, kernel):
+    """Frozen weights: each member within 1e-6 relative of its own
+    train_model run on the card; K1/K2 once a gang step (the S·B rows in
+    one launch), unequal members (the ragged path) included."""
+    from pcgmix_tpu_torch.train import train_model
+    from pcgmix_tpu_torch.train.gang import train_gang
+
+    ds = _gang_corpus()
+    cfgs = _gang(method, model, lr_max=0.0)
+    reset_launch_counts()
+    perfs = train_gang(cfgs, ds)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    for perf, cfg in zip(perfs, cfgs):
+        ref = train_model(cfg, ds)
+        np.testing.assert_allclose(perf["train_loss"], ref["train_loss"], rtol=1e-6)
+        np.testing.assert_allclose(perf["test_loss"], ref["test_loss"], rtol=1e-6)
+    if kernel and "+0.5" not in method:
+        assert set(counts) == {kernel}
+        assert counts[kernel] >= max(p["steps"][-1] for p in perfs)
+    elif kernel is None:
+        assert counts == {}
+
+
+def test_gang_graph_equals_the_eager_gang_on_the_card(dev, monkeypatch):
+    from pcgmix_tpu_torch.train.gang import train_gang
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ds = _graph_corpus()
+    cfgs = _gang("durmixmagwarp(0.2,4)", "Potes", n=2, n_fraction=1.0)
+    runs = {}
+    for k in (1, 4):
+        reset_launch_counts()
+        runs[k] = (train_gang([dataclasses.replace(c, steps_per_dispatch=k) for c in cfgs],
+                              ds), launch_counts())
+    (one, n1), (four, n4) = runs[1], runs[4]
+    for a, b in zip(one, four):
+        np.testing.assert_allclose(b["train_loss"], a["train_loss"], rtol=1e-6, atol=0)
+        assert a["lr_per_step"] == b["lr_per_step"]
+    assert n1["pcgmix_plus_fused"] == n4["pcgmix_plus_fused"] == one[0]["steps"][-1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_over_the_row_limit_match_plain(dev, dtype):
+    """70,000 output rows: K1 (without and with a row index), K3 and K4
+    launch once per chunk of at most 65,535 rows and equal their plain
+    versions; K2, whose partners address the whole batch, raises naming
+    the limit."""
+    n, c, t, k = 70_000, 1, 64, 3
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(n, c, t, generator=g).to(dev, dtype)
+    mix = torch.randint(0, n, (n,), generator=g, dtype=torch.int32).to(dev)
+    dst = torch.randint(0, t, (n, k), generator=g, dtype=torch.int32)
+    length = torch.minimum(torch.randint(0, t, (n, k), generator=g, dtype=torch.int32),
+                           t - dst)
+    src = torch.randint(0, t, (n, k), generator=g, dtype=torch.int32)
+    sel = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int32)
+    alpha = torch.rand(n, k, generator=g)
+    pieces = [a.to(dev) for a in (dst, src, length, sel, alpha)]
+    knots = (1 + 0.1 * torch.randn(n, 6, c, generator=g)).to(dev)
+    d2 = x.index_select(0, mix.long()).contiguous()
+    idx1 = torch.arange(n, dtype=torch.int32, device=dev).flip(0).contiguous()
+    cases = [
+        (lambda: piecewise_mix_batch(x, mix, *pieces),
+         lambda: piecewise_mix_batch_plain(x, mix, *pieces), "piecewise_mix_pairs"),
+        (lambda: piecewise_mix_pairs(x, idx1, mix, *pieces, base_is_d1=False),
+         lambda: piecewise_mix_pairs_plain(x, idx1, mix, *pieces, base_is_d1=False),
+         "piecewise_mix_pairs"),
+        (lambda: piecewise_mix_prepaired(x, d2, *pieces),
+         lambda: piecewise_mix_prepaired_plain(x, d2, *pieces), "piecewise_mix_prepaired"),
+        (lambda: pcgmix_plus_fused_prepaired(x, d2, *pieces, knots),
+         lambda: pcgmix_plus_fused_prepaired_plain(x, d2, *pieces, knots),
+         "pcgmix_plus_fused_prepaired"),
+    ]
+    for kernel, plain, name in cases:
+        reset_launch_counts()
+        got = kernel()
+        assert launch_counts()[name] == 2
+        ref = plain()
+        tol = 1e-5 if "plus" in name else 1e-6
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=0, atol=tol)
+        else:
+            torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7, atol=1e-2)
+    with pytest.raises(ValueError, match="65535"):
+        pcgmix_plus_fused(x, mix, *pieces, knots)

@@ -45,6 +45,7 @@ def test_port_sources_exist():
                      "pcgmix_tpu_torch/bench/conv_bn_fused.py",
                      "pcgmix_tpu_torch/models/potes.py",
                      "pcgmix_tpu_torch/train/loop.py",
+                     "pcgmix_tpu_torch/train/gang.py",
                      "pcgmix_tpu_torch/parallel/dist.py",
                      "pcgmix_tpu_torch/exp/runner.py", "pcgmix_tpu_torch/exp/replicate.py",
                      "pcgmix_tpu_torch/exp/results.py", "pcgmix_tpu_torch/exp/paper.py",
