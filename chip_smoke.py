@@ -135,8 +135,8 @@ Phases (any failure exits non-zero):
    float32 rounding, and at most 1e-6 (both routes feed the update the
    same float32 scalars).  SGD's OneCycle momentum cycles 0.95 → 0.85 → 0.95.
    Steps/s of both routes with PCGmix+, each over the epochs after the
-   first of a 20-epoch (ResNet9, 171 steps) or 25-epoch (Potes, 216
-   steps) run, the routes alternated eager, graph, graph, eager.  The
+   first of a 25-epoch Potes run (216 steps), the routes alternated
+   eager, graph, graph, eager (ResNet9's routes are timed in phase 3h).  The
    host ms per step of the eager route's uploads against the chunk's
    staging, each call timed after the card's queue is drained.  Exact
    resume (``resnet9-5k``, 5 steps an epoch, ``checkpoint_every=1``,
@@ -178,6 +178,29 @@ Phases (any failure exits non-zero):
    geometry, 256 × 4 × 2500 under four members' concatenated plans, and
    the kernels line carries it as ``gang`` with the gang runs' launches;
    two profiled gang calls (ResNet9, Potes) give the busy share.
+3h. The bf16 compute mode (``TrainConfig.compute_dtype="bfloat16"``):
+   full-width ResNet9, batch 64, 4 × 2500, PCGmix+ and PCGmix in bf16,
+   16 steps each (K2/K1 once a step, no other kernel, finite losses), and
+   as a CUDA graph of 8 steps (the JAX package's production config) with
+   the weights frozen: every plot epoch within 1e-5 of one step per
+   dispatch, the launches equal.  ``manifold-cutmix`` in bf16: K1 once a
+   step on the bf16 latent (phase 2 holds K1 on the bf16 depth-2 latent,
+   64 × 512 × 312, bit-equal to its plain version, and phase 4 K3 on its
+   rows).  ResNet9-2D (PCGmix) and Potes (PCGmix+, PCGmix) in bf16, 16
+   steps; each dtype-honoring zoo architecture (InceptionTime,
+   XceptionTime, XResNet1d18, gMLP, XCM, mWDN, OmniScaleCNN) with PCGmix+,
+   8 steps.  A bf16 gang of 4 ResNet9 members with frozen weights against
+   their four sequential bf16 runs (relative bar 2e-3: the vmapped
+   convolutions round their bf16 outputs elsewhere).  A bf16
+   ``torch.export`` artifact of ResNet9 answering a batch within 1e-5 of
+   the live model, and the card's bf16 forward of one set of weights
+   against the CPU's, within the CPU tests' 3e-2 of the largest logit.
+   Steps/s of ResNet9 with PCGmix+, fp32 against bf16, eager and the graph
+   of 8, each over 207 steps after the first epoch, alternated fp32, bf16
+   (eager, then graph) and back; a bf16 gang's member-steps/s at S = 1
+   and 4 against sequential bf16 runs, alternated, with each member's peak
+   memory beside ``estimate_gang_max_size``.  A profiled bf16 call stands
+   beside phase 3's fp32 one.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -337,6 +360,180 @@ GRID_METHODS = (
 # Cutout, Mixup, ManifoldMixup, PCGmix, named as exp/robust.py names them;
 # and the 2-D CutMix baselines
 SPEC = "PhysioNet(spec128)"
+# phase 3h: the bf16 compute mode (TrainConfig.compute_dtype="bfloat16")
+BF16 = {"compute_dtype": "bfloat16"}
+BF16_K = 8  # steps_per_dispatch of the JAX package's production config
+# the CPU tests' bar (tests/test_torch_bf16*.py): bf16 logits within 3e-2
+# of their largest magnitude
+BF16_LOGIT_BAR = 3e-2
+# a full-width bf16 gang member against its own run, frozen weights: the
+# vmapped (grouped) convolutions round their bf16 outputs where the dense
+# ones do not (measured 5.3e-4 on an NVIDIA H100 80GB HBM3, 700 W)
+BF16_GANG_BAR = 2e-3
+BF16_RATE_STEPS = 200  # timed steps of each steps/s run, after the first epoch
+
+
+def bf16_phase(np, torch, card, mk, drive, ds, spec_ds):
+    """Phase 3h: the bf16 compute mode.  Full-width ResNet9 with PCGmix+ and
+    PCGmix in bf16, eager (K2/K1 once a step) and as a CUDA graph of 8
+    steps (frozen weights: equal to eager); manifold-cutmix (K1 on the bf16
+    latent); ResNet9-2D, Potes and each dtype-honoring zoo architecture; a
+    bf16 gang of 4 against its members' sequential runs (frozen); a bf16
+    ``torch.export`` artifact; the bf16 forward on the card against the
+    CPU's; steps/s of fp32 and bf16, eager and graph, alternated; a bf16
+    gang's member-steps/s and peak memory per member beside the estimate.
+    Returns the bf16 path's K1/K2 launches and a bf16 call to profile."""
+    from pcgmix_tpu_torch import serve
+    from pcgmix_tpu_torch.data import physionet_split, synthetic_physionet_dict
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.models.registry import COMPUTE_DTYPE_FAMILIES
+    from pcgmix_tpu_torch.train import TrainConfig, gang, train_model
+    from pcgmix_tpu_torch.train.convert import seeded_init
+
+    t_phase = time.time()
+    launches = {}
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+                           ("durratiomixup", "piecewise_mix_pairs")):
+        launches[kernel], _ = drive(method, kernel, "bf16", **BF16)
+    # the graph of 8 steps against eager, frozen weights; 9 steps an epoch:
+    # one chunk of 8 and a partial one
+    rt_ds = synthetic_physionet_dict(num_wavs_train=80, num_wavs_test=12,
+                                     segments_per_wav=8, sig_len=T, seed=12)
+    run = lambda **kw: rt_train(torch, mk, TrainConfig, train_model, rt_ds, **kw)  # noqa: E731
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+                           ("durratiomixup", "piecewise_mix_pairs")):
+        e, g = (run(method=method, k=k, lr_max=0.0, **BF16) for k in (1, BF16_K))
+        d = float(np.max(np.abs(np.subtract(g.perf["train_loss"], e.perf["train_loss"]))))
+        n_steps = g.perf["steps"][-1]
+        print(f"bf16 graph resnet9 {method}: K={BF16_K}, frozen weights, {n_steps} steps, "
+              f"plot-epoch max |diff| to one step per dispatch {d:.3e}; {kernel} launches "
+              f"{g.launches[kernel]} (graph, replays counted) / {e.launches[kernel]} "
+              f"(eager), losses {np.round(g.perf['train_loss'], 5).tolist()} on {card}")
+        others = {k: n for k, n in {**g.launches, **e.launches}.items() if k != kernel and n}
+        if not (d < 1e-5 and g.launches[kernel] == e.launches[kernel] == n_steps
+                and not others and np.isfinite(g.perf["train_loss"]).all()):
+            raise AssertionError(f"bf16 graph {method}: differs from one step per dispatch")
+        launches["graph", kernel] = g.launches[kernel]
+    # K1 on the bf16 latent (phase 2 holds it bit-equal to its plain version)
+    launches["bf16-latent"], _ = drive("manifold-cutmix", "piecewise_mix_pairs", "bf16",
+                                       **BF16)
+    drive("durratiomixup", "piecewise_mix_pairs", "bf16 spec2d", data=spec_ds, dataset=SPEC,
+          **BF16)
+    for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+                           ("durratiomixup", "piecewise_mix_pairs")):
+        drive(method, kernel, "bf16", model="Potes", **BF16)
+    # the zoo's families that honor the dtype; the others run float32
+    for name in COMPUTE_DTYPE_FAMILIES:
+        drive("durmixmagwarp(0.2,4)", "pcgmix_plus_fused", f"bf16 zoo {name}", model=name,
+              epochs=ZOO_EPOCHS, **BF16)
+
+    # a bf16 gang of 4 against its members' sequential bf16 runs, frozen
+    cfgs = gang_members(TrainConfig, "resnet9", "durmixmagwarp(0.2,4)", GANG_S, 2,
+                        lr_max=0.0, **BF16)
+    mk.reset_launch_counts()
+    perfs = gang.train_gang(cfgs, ds)
+    counts = {k: n for k, n in mk.launch_counts().items() if n}
+    gap = gang_gap(np, perfs, cfgs, ds, train_model)
+    steps = perfs[0]["steps"][-1]
+    print(f"bf16 gang frozen resnet9 durmixmagwarp(0.2,4): S={GANG_S}, {steps} gang steps, "
+          f"launches {counts}; members against their sequential runs: max relative gap "
+          f"{gap:.3e} (bar {BF16_GANG_BAR:g}) on {card}")
+    if counts != {"pcgmix_plus_fused": steps} or not gap <= BF16_GANG_BAR:
+        raise AssertionError("the bf16 gang differs from its members' runs")
+
+    # one set of weights: a bf16 torch.export artifact, and the card's bf16
+    # forward against the CPU's (plain kernels, oneDNN)
+    model = seeded_init(build_model("resnet9", 2, C, T, **BF16), 4)
+    cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+    rows = physionet_split(ds, "test").data[:B]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        live = serve.Classifier(model, batch_size=B)
+        art = os.path.join(tmp, "resnet9_bf16.pcgt")
+        live.export_artifact(art, (C, T), model_name="resnet9")
+        d_art = float(np.abs(serve.ExportedClassifier(art).predict_proba(rows)
+                             - live.predict_proba(rows)).max())
+    print(f"bf16 serve resnet9: artifact against live max |diff| {d_art:.3e} over "
+          f"{len(rows)} rows on {card}")
+    if not d_art <= 1e-5:
+        raise AssertionError("the bf16 artifact and the live bf16 model disagree")
+    cpu = build_model("resnet9", 2, C, T, **BF16)
+    card_model = build_model("resnet9", 2, C, T, **BF16).to("cuda")
+    cpu.load_state_dict(cpu_state)
+    card_model.load_state_dict(cpu_state)
+    x16 = torch.from_numpy(rows[:16])
+    with torch.no_grad():
+        ref = cpu.train()(x16)
+        got = card_model.train()(x16.to("cuda")).cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    print(f"bf16 forward resnet9 (train mode, 16 rows): card against CPU {rel:.3e} of the "
+          f"largest |logit| (bar {BF16_LOGIT_BAR:g}); logits {got.dtype} / {ref.dtype} "
+          f"on {card}")
+    if not (rel < BF16_LOGIT_BAR and got.dtype == ref.dtype == torch.float32):
+        raise AssertionError("the bf16 forward on the card disagrees with the CPU's")
+
+    # steps/s: fp32 and bf16, eager and the graph of 8, alternated, each over
+    # BF16_RATE_STEPS steps or more after its first epoch
+    rate_ds = synthetic_physionet_dict(num_wavs_train=100, num_wavs_test=4,
+                                       segments_per_wav=16, sig_len=T, seed=13)
+    spe = len(physionet_split(rate_ds, "train")) // B
+    epochs = 1 + -(-BF16_RATE_STEPS // spe)
+    routes = [("fp32", 1), ("bf16", 1), ("fp32", BF16_K), ("bf16", BF16_K)]
+    rates: dict = {}
+    for dtype, k in routes + routes[::-1]:
+        r = rt_train(torch, mk, TrainConfig, train_model, rate_ds, epochs=epochs, k=k,
+                     compute_dtype="bfloat16" if dtype == "bf16" else "float32")
+        rates.setdefault((dtype, k), []).append(steady_rate(r.perf))
+    for k in (1, BF16_K):
+        f32, b16 = rates["fp32", k], rates["bf16", k]
+        route = "eager" if k == 1 else f"graph K={k}"
+        print(f"steps/s resnet9 durmixmagwarp(0.2,4) {route}: fp32 {f32[0]:.3f}, {f32[1]:.3f}; "
+              f"bf16 {b16[0]:.3f}, {b16[1]:.3f}; bf16 against fp32 {sum(b16) / sum(f32):.3f}x, "
+              f"over {(epochs - 1) * spe} steps each (alternated fp32, bf16 eager, then graph, "
+              f"and back) on {card}")
+
+    # a bf16 gang of 4 against sequential bf16 runs, member-steps/s, and each
+    # member's peak memory beside the estimate
+    g_rates: dict = {}
+    peaks: dict = {}
+    for s in ("seq", 1, GANG_S, GANG_S, 1, "seq"):
+        n = 1 if s == "seq" else s
+        g_epochs = 1 + max(1, -(-GANG_RATE_MEMBER_STEPS // (n * spe)))
+        cfgs = gang_members(TrainConfig, "resnet9", "durmixmagwarp(0.2,4)", n, g_epochs,
+                            **BF16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        perfs = ([train_model(cfgs[0], rate_ds)] if s == "seq"
+                 else gang.train_gang(cfgs, rate_ds))
+        torch.cuda.synchronize()
+        g_rates.setdefault(s, []).append(n * steady_rate(perfs[0]))
+        peaks[s] = torch.cuda.max_memory_allocated()
+    seq = sum(g_rates["seq"]) / 2
+    rows_n = len(physionet_split(rate_ds, "train"))
+    cfg = gang_members(TrainConfig, "resnet9", "durmixmagwarp(0.2,4)", 1, 1, **BF16)[0]
+    saved = gang.activation_bytes(build_model("resnet9", 2, C, T, **BF16), (B, C, T))
+    s_max = gang.estimate_gang_max_size(cfg, rows_n, corpus_bytes=rows_n * C * T * 4,
+                                        sample_shape=(C, T))
+    marginal = (peaks[GANG_S] - peaks[1]) / (GANG_S - 1)
+    for s in (1, GANG_S):
+        r = g_rates[s]
+        print(f"bf16 gang rate resnet9 durmixmagwarp(0.2,4) S={s}: {r[0]:.3f}, {r[1]:.3f} "
+              f"member-steps/s (sequential bf16 {g_rates['seq'][0]:.3f}, "
+              f"{g_rates['seq'][1]:.3f}); gang against sequential {sum(r) / 2 / seq:.3f}x; "
+              f"peak memory {peaks[s] / s / 2**20:.1f} MiB a member ({peaks[s] / 2**30:.3f} "
+              f"GiB) on {card}")
+    print(f"bf16 gang estimate resnet9: autograd saves {saved / 2**20:.1f} MiB a member, "
+          f"each member past the first adds {marginal / 2**20:.1f} MiB to the peak (S=1 to "
+          f"{GANG_S}), {marginal / saved:.3f}x the saved bytes (reuse {gang.REUSE['bfloat16']} "
+          f"assumed); S_max {s_max} on {card}")
+    if not all(np.isfinite(v).all() for v in (*rates.values(), *g_rates.values())):
+        raise AssertionError("bf16 rates: not finite")
+
+    profiled = TrainConfig(model="resnet9", method="durmixmagwarp(0.2,4)", num_epochs=2,
+                           batch_size=B, num_channels=C, save_artifacts=False, **BF16)
+    print(f"bf16 phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return launches, (lambda: train_model(profiled, ds))
+
+
 SPEC_SIZE = 128
 GRID_METHODS_2D = ("base", "freqmask(0.1)", "timemask(0.1)", "cutout(0.25,0.25)",
                    "mixup(same)", "latentmixup", "durratiomixup", "cutmix", "durratiocutmix")
@@ -803,7 +1000,10 @@ def runtime_phase(np, torch, card, mk):
         raise AssertionError("SGD: momentum not cycled")
 
     # speed: the routes alternated, each timed over the epochs after its first
+    # (ResNet9's are timed in phase 3h, beside its bf16 routes)
     for model, epochs in RT_RATE_EPOCHS.items():
+        if model == "resnet9":
+            continue
         print_rates(f"{model} durmixmagwarp(0.2,4)", route_rates(run, epochs, model=model),
                     (epochs - 1) * per_epoch, card)
 
@@ -1201,7 +1401,8 @@ def gang_phase(np, torch, card, mk):
         print(f"gang estimate {model}: autograd saves {saved / 2**20:.1f} MiB a member, "
               f"state {state / 2**20:.1f} MiB; each member past the first adds "
               f"{marginal / 2**20:.1f} MiB to the peak (S={s_lo} to {s_hi}), "
-              f"{marginal / saved:.3f}x the saved bytes (reuse 1.5 assumed); S_max "
+              f"{marginal / saved:.3f}x the saved bytes (reuse {gang.REUSE['float32']} "
+              "assumed); S_max "
               f"{s_max} (timed windows of {GANG_RATE_MEMBER_STEPS} member-steps or more, "
               f"{spe} steps an epoch) on {card}")
         if not all(np.isfinite(v).all() for v in rates.values()):
@@ -1213,6 +1414,59 @@ def gang_phase(np, torch, card, mk):
         for model in ("resnet9", "Potes")}
     print(f"gang phase: {time.time() - t_phase:.3f} s wall on {card}")
     return launches, profiled
+
+
+def make_drive(np, torch, mk, card, ds):
+    """``drive(method, kernel, route, ...)``: one main-path ``train_model``
+    call on the card with its launches checked and its rates printed
+    (phases 3–4 and 3h; ``ds`` is the default corpus)."""
+    from pcgmix_tpu_torch.timing import host_times, reset_host_times
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    def drive(method, kernel, route, model="resnet9", data=ds, sig_len=T, epochs=4,
+              **overrides):
+        """One main-path run of ``epochs`` epochs of 4 steps (16 steps; on
+        the spectrogram corpus ``spec_ds`` with ``dataset=SPEC``, on a UMC
+        dict with ``dataset="UMC"``); the counts are set to 0 just before it
+        and read just after.  ``kernel`` must launch once per step, no other
+        kernel at all (``kernel`` None: nothing).  Returns (launches of
+        ``kernel``, losses)."""
+        cfg = TrainConfig(model=model, method=method, num_epochs=epochs, batch_size=B,
+                          num_channels=C, save_artifacts=False, **overrides)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launch_counts()
+        reset_host_times()
+        t0 = time.time()
+        perf = train_model(cfg, data)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = mk.launch_counts()
+        host = {k: round(ms / perf["steps"][-1], 3) for k, (ms, _) in host_times().items()}
+        steps = perf["steps"][-1]
+        if steps != 4 * epochs or any(n != (steps if k == kernel else 0)
+                                      for k, n in counts.items()):
+            raise AssertionError(f"{route} {method}: {steps} steps but launches {counts}")
+        if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
+            raise AssertionError(f"{route} {method}: non-finite loss or no eval")
+        # steady state: plot epochs after the first (cuDNN picks algorithms
+        # in epoch 1); `times` is cumulative and synced at plot epochs
+        d_steps = perf["steps"][-1] - perf["steps"][0]
+        d_time = perf["times"][-1] - perf["times"][0]
+        shape = f"1x{SPEC_SIZE}x{SPEC_SIZE}" if cfg.spectrogram else f"{C}x{sig_len}"
+        print(f"{route} {method}: {model} batch {B} x {shape}, {steps} steps, "
+              f"launches {counts}, losses {perf['train_loss']}, "
+              f"test_accuracy {perf['test_accuracy'][-1]}")
+        print(f"{route} {method}: {d_steps / d_time:.3f} steps/s, "
+              f"{B * d_steps / d_time:.1f} samples/s (epochs 2-{epochs}), "
+              f"{steps / wall:.3f} steps/s over the whole call incl. eval "
+              f"({wall:.3f} s), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
+        if host:
+            print(f"{route} {method}: host ms per step {json.dumps(host)} on {card}")
+        return counts.get(kernel, 0), perf["train_loss"]
+
+    return drive
 
 
 def main() -> int:
@@ -1243,7 +1497,6 @@ def main() -> int:
             saliency_maps,
             training_saliency_raw,
         )
-        from pcgmix_tpu_torch.timing import host_times, reset_host_times
         from pcgmix_tpu_torch.train import TrainConfig, train_model
         from pcgmix_tpu_torch.train.convert import seeded_init
     except ImportError as e:
@@ -1340,7 +1593,7 @@ def main() -> int:
             bf16_ok = bool(((got16.float() - ref16.float()).abs() <= ulp).all())
         shape = "x".join(map(str, x.shape)) + (f"->{n_out}" if n_out != n else "")
         label = f"{name} {geometry} {shape}"
-        print(f"{label}: max_abs_err fp32 "
+        print(f"{label}: max_abs_err {str(x.dtype).replace('torch.', '')} "
               f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}); bf16 "
               f"{'ok' if bf16_ok else 'MISMATCH'}, {n_diff16} of {got16.numel()} "
               f"elements differ from the plain version")
@@ -1352,10 +1605,10 @@ def main() -> int:
         # zero base only the steps the pieces read), the output written
         # once, the row indices and the five piece arrays (and the warp's
         # knots and basis) read once
-        K = a["dst"].shape[1]
-        reads = (source_steps(np, a, t, row_reads == 2) * c * 4 if zero_base
-                 else row_reads * x.numel() * 4)
-        nbytes = reads + n_out * c * t * 4 + idx_bytes * n_out + n_out * K * 5 * 4
+        K, es = a["dst"].shape[1], x.element_size()  # es: 2 for a bf16 latent
+        reads = (source_steps(np, a, t, row_reads == 2) * c * es if zero_base
+                 else row_reads * x.numel() * es)
+        nbytes = reads + n_out * c * t * es + idx_bytes * n_out + n_out * K * 5 * 4
         nflops = 4 * int(a["len"].sum().item()) * c
         if warp:  # K2/K4 (n_out = n)
             k2n = a["knots"].shape[1]
@@ -1408,6 +1661,11 @@ def main() -> int:
     manifold = plan("manifold-cutmix")
     with torch.no_grad():
         latent = build_model("resnet9", 2, C, T).to(dev).eval()(x32, depth=2, part="first")
+        # the same latent of the bf16 compute mode (phase 3h's path), bf16 rows
+        latent16 = build_model("resnet9", 2, C, T, compute_dtype="bfloat16").to(
+            dev).eval()(x32, depth=2, part="first")
+    if latent16.dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 model's latent is {latent16.dtype}")
     past = int(((manifold["dst"] + manifold["len"] > latent.shape[-1])
                 & (manifold["len"] > 0)).sum())
     print(f"manifold-cutmix on a latent {tuple(latent.shape)}: {past} of "
@@ -1443,6 +1701,11 @@ def main() -> int:
          None, True),
         ("piecewise_mix_pairs", k1z, "fcn-latent", fcn_latent, fcn_manifold, 1e-6, 8, 1,
          False, None, True),
+        # bf16 rows: the check is bit-equality (tolerance 0)
+        ("piecewise_mix_pairs", k1z, "bf16-latent", latent16, manifold, 0.0, 8, 1, False,
+         None, True),
+        ("piecewise_mix_prepaired", k3z, "bf16-latent", latent16, manifold, 0.0, 0, 2, False,
+         None, True),
         *[("piecewise_mix_pairs", k1z, m, x32, live[m], 1e-6, 8, 1, False, None, True)
           for m in live],
     ):
@@ -1494,48 +1757,7 @@ def main() -> int:
                 raise AssertionError(f"{model} {method}: card and CPU loss traces "
                                      "disagree")
 
-    def drive(method, kernel, route, model="resnet9", data=ds, sig_len=T, epochs=4,
-              **overrides):
-        """One main-path run of ``epochs`` epochs of 4 steps (16 steps; on
-        the spectrogram corpus ``spec_ds`` with ``dataset=SPEC``, on a UMC
-        dict with ``dataset="UMC"``); the counts are set to 0 just before it
-        and read just after.  ``kernel`` must launch once per step, no other
-        kernel at all (``kernel`` None: nothing).  Returns (launches of
-        ``kernel``, losses)."""
-        cfg = TrainConfig(model=model, method=method, num_epochs=epochs, batch_size=B,
-                          num_channels=C, save_artifacts=False, **overrides)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mk.reset_launch_counts()
-        reset_host_times()
-        t0 = time.time()
-        perf = train_model(cfg, data)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = mk.launch_counts()
-        host = {k: round(ms / perf["steps"][-1], 3) for k, (ms, _) in host_times().items()}
-        steps = perf["steps"][-1]
-        if steps != 4 * epochs or any(n != (steps if k == kernel else 0)
-                                      for k, n in counts.items()):
-            raise AssertionError(f"{route} {method}: {steps} steps but launches {counts}")
-        if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
-            raise AssertionError(f"{route} {method}: non-finite loss or no eval")
-        # steady state: plot epochs after the first (cuDNN picks algorithms
-        # in epoch 1); `times` is cumulative and synced at plot epochs
-        d_steps = perf["steps"][-1] - perf["steps"][0]
-        d_time = perf["times"][-1] - perf["times"][0]
-        shape = f"1x{SPEC_SIZE}x{SPEC_SIZE}" if cfg.spectrogram else f"{C}x{sig_len}"
-        print(f"{route} {method}: {model} batch {B} x {shape}, {steps} steps, "
-              f"launches {counts}, losses {perf['train_loss']}, "
-              f"test_accuracy {perf['test_accuracy'][-1]}")
-        print(f"{route} {method}: {d_steps / d_time:.3f} steps/s, "
-              f"{B * d_steps / d_time:.1f} samples/s (epochs 2-{epochs}), "
-              f"{steps / wall:.3f} steps/s over the whole call incl. eval "
-              f"({wall:.3f} s), peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
-        if host:
-            print(f"{route} {method}: host ms per step {json.dumps(host)} on {card}")
-        return counts.get(kernel, 0), perf["train_loss"]
+    drive = make_drive(np, torch, mk, card, ds)
 
     launches, single_losses = {}, {}
     for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
@@ -1643,6 +1865,10 @@ def main() -> int:
     for name, n in gang_launches.items():
         launches_concat[name, "gang"] = n
 
+    # ---- 3h. the bf16 compute mode ------------------------------------------
+    bf16_launches, bf16_profiled = bf16_phase(np, torch, card, mk, drive, ds, spec_ds)
+    launches_concat["piecewise_mix_pairs", "bf16-latent"] = bf16_launches.pop("bf16-latent")
+
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
     def host_ms(fn, n=16):
@@ -1669,6 +1895,7 @@ def main() -> int:
     profile_breakdown(
         torch, lambda: train_model(dataclasses.replace(profiled, steps_per_dispatch=RT_K),
                                    ds), card, label="profile graph")
+    profile_breakdown(torch, bf16_profiled, card, label="profile bf16")
     profile_breakdown(
         torch, lambda: train_model(dataclasses.replace(profiled, model="Potes"), ds),
         card, label="profile Potes")
@@ -1760,6 +1987,20 @@ def main() -> int:
             if not d_frozen < 1e-5:
                 raise AssertionError("data-parallel ResCNN: loss differs from the "
                                      "single-device route")
+            # K3 on the bf16 latent's rows that idx1 and idx2 name, as the JAX
+            # package's mesh route mixes a latent (train steps on a split
+            # batch refuse the latent methods: ROADMAP items 5, 6 and 9)
+            torch.cuda.synchronize()
+            mk.reset_launch_counts()
+            k3_latent = k3z(latent16, manifold)()
+            torch.cuda.synchronize()
+            n_k3 = mk.launch_counts()["piecewise_mix_prepaired"]
+            same = torch.equal(k3_latent, k1z(latent16, manifold, plain=True)())
+            print(f"data-parallel bf16 latent {tuple(latent16.shape)}: K3 launches {n_k3}, "
+                  f"bit-equal to K1's plain version: {same}, on {card}")
+            if n_k3 != 1 or not same:
+                raise AssertionError("K3 on the bf16 latent differs from K1's plain version")
+            launches_concat["piecewise_mix_prepaired", "bf16-latent"] = n_k3
             # the spectrogram path's PCGmix splits its batch too: K3
             launches_2d["piecewise_mix_prepaired"], _ = drive(
                 "durratiomixup", "piecewise_mix_prepaired", "data-parallel spec2d",
@@ -1805,9 +2046,16 @@ def main() -> int:
          "floor_ms": floor_ms, "graph_launches": graph_launches.get(name)}
         for (name, geometry), r in report.items() if geometry == "main"
     ]
+    # the bf16 compute mode's launches of K1/K2 (phase 3h): 16-step eager
+    # runs, and the graph of 8 steps (replays counted)
+    for k in kernels:
+        if k["name"] in bf16_launches:
+            k["bf16_launches"] = bf16_launches[k["name"]]
+            k["bf16_graph_launches"] = bf16_launches["graph", k["name"]]
     # K1 and K3 on the spectrogram path and at the concat family's
     # geometries, each in a field of its own: their launches in the 16-step
-    # runs of those paths (single-device, data-parallel)
+    # runs of those paths (single-device, data-parallel; K3's bf16 latent:
+    # the call in the 1-rank group of phase 4)
     for k in kernels:
         for (name, geometry), r in report.items():
             if name != k["name"] or geometry == "main":

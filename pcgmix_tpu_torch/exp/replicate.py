@@ -16,11 +16,17 @@ Grid (the reference campaign's mechanics, read_experiments.py:20-59):
   where the effect lives;
 * n_fraction 1.0: seed_data 1100001, seeds 1..5 — where it should fade;
 * model: 1-D ResNet9, reference config (50 epochs, Adam, OneCycle 0.01,
-  batch 64, grad-clip 0.1, train_balance), fp32.
+  batch 64, grad-clip 0.1, train_balance), fp32; ``--compute-dtype
+  bfloat16`` trains it in the bf16 compute mode, as the JAX script does
+  (``scripts/replicate_synthetic.py:146``), into run dirs of its own
+  (``replication_runs_torch_bf16``: a run dir's name does not encode the
+  dtype).
 
 Usage:
     python -m pcgmix_tpu_torch.exp.replicate                      # on the card
     python -m pcgmix_tpu_torch.exp.replicate --mini --device cpu  # CPU smoke
+    python -m pcgmix_tpu_torch.exp.replicate --compute-dtype bfloat16 \
+        --out artifacts/replication_synthetic_torch_bf16.md       # the JAX run's dtype
 
 Writes ``artifacts/replication_synthetic_torch.md`` (+ the raw per-run JSON,
 with the JAX script's keys) and exits 1 if the effect is absent (paired
@@ -113,6 +119,8 @@ def main(argv=None):
     ap.add_argument("--noise-amp", type=float, default=0.25)
     ap.add_argument("--model", default=None,
                     help="override the grid model (resnet9 | Potes)")
+    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="bfloat16: the bf16 compute mode the JAX script runs")
     args = ap.parse_args(argv)
 
     from pcgmix_tpu_torch.data import synthetic_effect_dict
@@ -142,11 +150,14 @@ def main(argv=None):
         confounder_amp=args.confounder_amp, noise_amp=args.noise_amp,
         **corpus_kw)
 
+    bf16 = args.compute_dtype == "bfloat16"
     root = args.experiments_root or str(
-        REPO / "artifacts" / ("replication_runs_torch" + ("_mini" if args.mini else "")))
+        REPO / "artifacts" / ("replication_runs_torch" + ("_bf16" if bf16 else "")
+                              + ("_mini" if args.mini else "")))
     base_cfg = TrainConfig(
         dataset="PhysioNet", model=model, experiments_root=root,
         loader_parity="numpy", save_artifacts=True, device=args.device,
+        compute_dtype=args.compute_dtype,
     )
     if args.mini:
         base_cfg.num_epochs = 12
@@ -206,7 +217,7 @@ def main(argv=None):
         "Generated by `python -m pcgmix_tpu_torch.exp.replicate` "
         f"({epochs_note} config; corpus `synthetic_effect_dict` "
         f"murmur={args.murmur_amp} confounder={args.confounder_amp} "
-        f"noise={args.noise_amp}; model {model}, fp32; "
+        f"noise={args.noise_amp}; model {model}, {'bf16' if bf16 else 'fp32'}; "
         f"{len(low_sds)} subset draws at n_frac {low_nf}, "
         f"{len(full_seeds)} seeds at n_frac {full_nf}; sequential runs).",
         "",

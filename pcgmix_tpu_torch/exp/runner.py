@@ -43,8 +43,10 @@ over :func:`~pcgmix_tpu_torch.train.gang.estimate_gang_max_size`, 0: no
 chunks), ``--gang-devices N`` splits each gang's members over N ranks, and
 a gang that fails is retrained member by member unless
 ``--no-gang-fallback`` is given.  ``--conv-impl matmul`` computes the
-ResNet9 and Potes convolutions as shifted matmuls.  The classical dumps
-and bf16 compute are not ported yet and raise.
+ResNet9 and Potes convolutions as shifted matmuls.  ``--compute-dtype
+bfloat16`` trains in the bf16 compute mode (``TrainConfig.compute_dtype``;
+float32, the default, is the parity route); a gang's auto-size is reckoned
+per dtype.  The classical dumps are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -268,7 +270,8 @@ def _run_gangs(points, dataset, run_one, executed, skip_done, progress, gang_dev
     def max_size(cfg):
         if gang_max_size is not None:
             return gang_max_size
-        key = (cfg.model, cfg.dataset, cfg.batch_size, cfg.op, cfg.num_channels, cfg.conv_impl)
+        key = (cfg.model, cfg.dataset, cfg.batch_size, cfg.op, cfg.num_channels,
+               cfg.conv_impl, cfg.compute_dtype)
         if key not in sizes:
             # a member's input row, read from the corpus: (1, F, T) or (C, T)
             d = _train_rows(dataset)
@@ -279,7 +282,8 @@ def _run_gangs(points, dataset, run_one, executed, skip_done, progress, gang_dev
                 cfg, rows, corpus_bytes=rows * int(np.prod(sample)) * 4, sample_shape=sample)
             if progress:
                 print(f"gang auto-size: S_max={sizes[key]} ({cfg.model}, batch "
-                      f"{cfg.batch_size}, {cfg.op}) — override with --gang-max-size")
+                      f"{cfg.batch_size}, {cfg.op}, {cfg.compute_dtype}) — override with "
+                      "--gang-max-size")
         return sizes[key]
 
     for full in group_gangable(pending):
@@ -328,7 +332,6 @@ def _refuse(args) -> None:
     naming the ROADMAP queue 1 item each waits for."""
     refused = [
         (args.classical_space, "--classical-space: classical feature dumps", 13),
-        (args.compute_dtype != "float32", "--compute-dtype bfloat16", 3),
     ]
     for hit, what, item in refused:
         if hit:
@@ -387,9 +390,9 @@ def main(argv=None):
                         "members one by one")
     p.add_argument("--conv-impl", default="xla", choices=["xla", "matmul"],
                    help="'matmul': the ResNet9 and Potes convolutions as shifted matmuls")
+    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16: the bf16 compute mode; float32 keeps the parity route")
     # the JAX runner's options that wait for later slices: they raise
-    p.add_argument("--compute-dtype", default="float32",
-                   choices=["float32", "bfloat16"])
     p.add_argument("--classical-space", action="store_true")
     args = p.parse_args(argv)
     _refuse(args)
@@ -416,6 +419,7 @@ def main(argv=None):
         checkpoint_every=args.checkpoint_every,
         device_cache=not args.no_device_cache,
         conv_impl=args.conv_impl,
+        compute_dtype=args.compute_dtype,
     )
     run_grid(
         base_cfg,

@@ -57,6 +57,7 @@ def latent_pretrain_config(cfg):
         n_devices=cfg.n_devices,
         eval_batch_size=cfg.eval_batch_size,
         device=cfg.device,
+        compute_dtype=cfg.compute_dtype,
         save_artifacts=True,  # the checkpoint is the artifact
         **LATENT_PRETRAIN_OVERRIDES,
     )

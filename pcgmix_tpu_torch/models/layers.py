@@ -13,10 +13,24 @@
 - :class:`MatmulConv1d` and :func:`conv1d`: ``nn.Conv1d`` computed as K
   shifted matmuls, the ``conv_impl="matmul"`` path of the ResNet9 and
   Potes presets.
+- :class:`Conv2d`, :class:`Linear` and :class:`LayerNorm`: torch's, with
+  the compute dtype below.
 - :func:`gap_1d`: the global average pool over time.
 - :func:`host_uniform`: a module's uniform draws from its CPU generator
   (Potes' dropout masks), which a captured train step takes from
   buffers drawn ahead (:func:`record_draws`, :func:`feed_draws`).
+
+The compute dtype (``TrainConfig.compute_dtype``, JAX ``layers.py``'s
+``dtype``): a convolution or linear layer built with ``compute_dtype=
+torch.bfloat16`` casts its input, weight and bias to bf16 at use, as flax's
+``promote_dtype`` does, and adds the bias in bf16 after the product, as
+flax does; its parameters stay float32, and autograd returns their
+gradients in float32.  Without one (None, the default and the parity
+route) a layer computes in the promotion of its input's dtype and its
+weight's: float32 for a bf16 activation, as a flax ``Dense`` built
+without a dtype promotes it (the heads of ResNet9, Potes and the zoo).
+BatchNorm and LayerNorm reduce and normalize in float32 at least and cast
+their output once, to the compute dtype where there is one.
 
 Inits are torch's defaults, which the JAX package draws too
 (kaiming-uniform(a=√5), i.e. U(±1/√fan_in), for conv and linear weights
@@ -84,6 +98,31 @@ def feed_draws(tensors):
         _draws = prev
 
 
+#: ``TrainConfig.compute_dtype``'s names → the layers' compute dtype (None:
+#: float32, no casts); None is the float32 default
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """The layers' compute dtype for a compute-dtype name, resolved once at
+    an entry point (``TrainConfig``, ``build_model``); any name but float32
+    or bfloat16 raises."""
+    try:
+        return COMPUTE_DTYPES[name]
+    except (KeyError, TypeError):
+        raise ValueError("compute_dtype must be 'float32' or 'bfloat16', got "
+                         f"{name!r}") from None
+
+
+def promote(compute_dtype: Optional[torch.dtype], x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor] = None):
+    """flax's ``promote_dtype``: (x, weight, bias) cast to ``compute_dtype``,
+    or without one to the promotion of x's dtype and the weight's.  A tensor
+    already of that dtype passes as it is (no cast, no copy)."""
+    dt = compute_dtype or torch.promote_types(x.dtype, weight.dtype)
+    return x.to(dt), weight.to(dt), None if bias is None else bias.to(dt)
+
+
 #: the ``part`` values of a model with a split forward (latentmixup and the
 #: manifold methods); a model without one takes None and "latent_space"
 SPLIT_PARTS = (None, "first", "second", "latent_space")
@@ -125,9 +164,23 @@ class _BiasedBatchNorm:
     backward sums the ranks' equal statistics gradients, but the count it
     divides by grew by the same factor); skipping it saves a collective per
     layer and computes what the JAX package's replicated step computes.
+
+    ``compute_dtype`` (flax's ``nn.BatchNorm(dtype=...)``): a bf16 input is
+    upcast to float32 for the statistics, the running buffers' update and
+    the normalization, and the output is cast once, to ``compute_dtype``
+    where there is one, else to the promotion of the input's dtype and the
+    weight's (float32).  The buffers and parameters stay float32.
     """
 
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return self._normalize(x.to(torch.promote_types(x.dtype, torch.float32))).to(out)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight,
@@ -149,25 +202,26 @@ class _BiasedBatchNorm:
         self.num_batches_tracked.add_(1)
 
     def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's normalization of ``x`` (float32 at least, so the
+        all-reduced Σx and Σx² are never taken on bf16 values)."""
         from torch.distributed.nn.functional import all_reduce
 
-        xf = x.float()
         dims = _reduced(x)
         c = x.shape[1]
-        count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
         # one collective per layer: [Σx (C), Σx² (C), count]; its backward
         # all-reduces the statistics' gradients, so each rank's parameter
         # gradients are its share of the global batch's
-        sums = all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        sums = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
         n = sums[2 * c]
         mean = sums[:c] / n
         var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
         scale = torch.rsqrt(var + self.eps) * self.weight
         shape = (1, c) + (1,) * (x.dim() - 2)
-        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
         with torch.no_grad():
             self._update_running(mean, var)
-        return y.to(x.dtype)
+        return y
 
 
 def _reduced(x: torch.Tensor) -> tuple:
@@ -189,16 +243,52 @@ def same_padding(kernel_size: int) -> tuple[int, int]:
     return (kernel_size - 1) // 2, kernel_size // 2
 
 
-class Conv1d(nn.Conv1d):
+class _CastConv:
+    """A torch convolution (mixed in before ``nn.Conv1d``/``nn.Conv2d``) that
+    computes in ``compute_dtype``: flax's ``nn.Conv(dtype=...)``, the product
+    in the compute dtype, then the bias added in it.  Without one, and on
+    operands of one dtype, it is torch's convolution as it is."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def _conv_forward(self, x, weight, bias):
+        if self.compute_dtype is None and x.dtype == weight.dtype:
+            return super()._conv_forward(x, weight, bias)
+        x, weight, bias = promote(self.compute_dtype, x, weight, bias)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            # oneDNN's bf16 convolution, torch's CPU route, returns wrong
+            # values for some shapes (4 channels under a 40- or 64-step
+            # kernel, as in XCM; 8 under 8 steps or more); the float32
+            # product of the bf16 operands, rounded once, is a bf16
+            # convolution that accumulates in float32, as cuDNN's and XLA's
+            y = super()._conv_forward(x.float(), weight.float(), None).to(x.dtype)
+        else:
+            y = super()._conv_forward(x, weight, None)
+        # flax's ``y += bias``: rounded in the compute dtype after the product
+        return y if bias is None else y + bias.view(-1, *(1,) * (y.dim() - 2))
+
+
+class TorchConv1d(_CastConv, nn.Conv1d):
+    """``nn.Conv1d`` with a compute dtype (torch's own padding)."""
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype (flax ``Conv2d``/``nn.Conv`` over
+    an image)."""
+
+
+class Conv1d(_CastConv, nn.Conv1d):
     """``nn.Conv1d`` on (B, C, T) that pads explicitly: ``padding`` is
     "same" (XLA's split, :func:`same_padding`), an int on both sides, or a
-    (lo, hi) pair."""
+    (lo, hi) pair; with a compute dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: Union[str, int, Sequence[int]] = "same", stride: int = 1,
-                 bias: bool = True, groups: int = 1):
+                 bias: bool = True, groups: int = 1, compute_dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=0, bias=bias, groups=groups)
+                         padding=0, bias=bias, groups=groups, compute_dtype=compute_dtype)
         if padding == "same":
             if stride != 1:
                 raise ValueError("'same' padding is defined here at stride 1 only")
@@ -213,13 +303,13 @@ class Conv1d(nn.Conv1d):
         return super().forward(x)
 
 
-class MatmulConv1d(nn.Conv1d):
+class MatmulConv1d(_CastConv, nn.Conv1d):
     """``nn.Conv1d`` (same parameters, same state_dict keys) computed as K
     shifted matmuls, ``y = Σ_k W[:, :, k] @ x_pad[..., k::stride] + b``
     (``pcgmix_tpu/models/layers.py::_MatmulConv1d``): under ``vmap`` over
     stacked weights each product is a batched matmul, where a convolution
     becomes a grouped one.  The terms are summed in k order, then the bias,
-    as the JAX package sums them."""
+    as the JAX package sums them, each in the compute dtype."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -228,39 +318,70 @@ class MatmulConv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (k,), (stride,), (pad,) = self.kernel_size, self.stride, self.padding
+        x, weight, bias = promote(self.compute_dtype, x, self.weight, self.bias)
         xp = F.pad(x, (pad, pad)) if pad else x
         t_out = (xp.shape[-1] - k) // stride + 1
         span = (t_out - 1) * stride + 1
         y = None
         for i in range(k):
-            yi = torch.matmul(self.weight[:, :, i], xp[..., i:i + span:stride])
+            yi = torch.matmul(weight[:, :, i], xp[..., i:i + span:stride])
             y = yi if y is None else y + yi
-        return y if self.bias is None else y + self.bias[:, None]
+        return y if bias is None else y + bias[:, None]
 
 
 CONV_IMPLS = ("xla", "matmul")
 
 
 def conv1d(in_channels: int, out_channels: int, kernel_size: int, padding: int = 0,
-           impl: str = "xla") -> nn.Conv1d:
-    """``nn.Conv1d(..., padding=padding)``, or with ``impl="matmul"`` its
-    :class:`MatmulConv1d` (the JAX ``Conv1d.impl``; "xla" names the
-    library convolution, as there)."""
+           impl: str = "xla", compute_dtype=None) -> nn.Conv1d:
+    """``nn.Conv1d(..., padding=padding)`` (:class:`TorchConv1d`), or with
+    ``impl="matmul"`` its :class:`MatmulConv1d` (the JAX ``Conv1d.impl``;
+    "xla" names the library convolution, as there); either computes in
+    ``compute_dtype``."""
     if impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {impl!r}")
-    cls = MatmulConv1d if impl == "matmul" else nn.Conv1d
-    return cls(in_channels, out_channels, kernel_size, padding=padding)
+    cls = MatmulConv1d if impl == "matmul" else TorchConv1d
+    return cls(in_channels, out_channels, kernel_size, padding=padding,
+               compute_dtype=compute_dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with a compute dtype (flax ``Dense``): with one, the
+    product in it, then the bias added in it; without one, in the promotion
+    of the input's dtype and the weight's, so a bf16 activation meets a
+    float32 head in float32 and the logits are float32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = promote(self.compute_dtype, x, self.weight, self.bias)
+        if self.compute_dtype is None or bias is None:
+            return F.linear(x, weight, bias)
+        return F.linear(x, weight) + bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` as flax's, built without a dtype: statistics and
+    output in the promotion of the input's dtype and the weight's (float32
+    for a bf16 activation)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
 
 
 class ConvBNAct(nn.Module):
     """tsai's ConvBlock: Conv1d(SAME, no bias) → BatchNorm1d → ``act``
-    (ReLU unless given; None: no activation)."""
+    (ReLU unless given; None: no activation), in ``compute_dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 act: Union[nn.Module, None, str] = "relu"):
+                 act: Union[nn.Module, None, str] = "relu", compute_dtype=None):
         super().__init__()
-        self.conv = Conv1d(in_channels, out_channels, kernel_size, bias=False)
-        self.bn = BatchNorm1d(out_channels)
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, bias=False,
+                           compute_dtype=compute_dtype)
+        self.bn = BatchNorm1d(out_channels, compute_dtype=compute_dtype)
         self.act = nn.ReLU() if act == "relu" else act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

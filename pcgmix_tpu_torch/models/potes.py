@@ -26,6 +26,11 @@ single-device one.  The draws go through
 :func:`pcgmix_tpu_torch.models.layers.host_uniform`, so a train step
 captured as a CUDA graph takes them from buffers drawn ahead in the same
 order (``train/steps.py::MultiStep``).
+
+``compute_dtype=torch.bfloat16`` (JAX ``PotesCNN.dtype``): the branch's
+convolutions compute in bf16; ``dimreduc`` and ``linear`` are built without
+a dtype, as in the JAX package, so the features and logits are float32.
+The dropout masks are the same draws in either dtype.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pcgmix_tpu_torch.models.layers import check_part, conv1d, host_uniform
+from pcgmix_tpu_torch.models.layers import Linear, check_part, conv1d, host_uniform
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
 
 HIDDEN = 20  # dimreduc's width (models.py:379)
@@ -50,19 +55,21 @@ def potes_features(sig_len: int) -> int:
 
 class Potes(nn.Module):
     """Input (B, C, T) channel-first; returns (B, num_classes) logits.
-    ``conv_impl="matmul"``: the branch's convolutions as shifted matmuls."""
+    ``conv_impl="matmul"``: the branch's convolutions as shifted matmuls;
+    ``compute_dtype`` their dtype."""
 
     def __init__(self, num_classes: int = 2, layers: Sequence[int] = (8, 4),
                  dropout: float = 0.25, num_channels: int = 4, sig_len: int = 2500,
-                 seed: int = 0, conv_impl: str = "xla"):
+                 seed: int = 0, conv_impl: str = "xla", compute_dtype=None):
         super().__init__()
         l0, l1 = layers
+        dt = compute_dtype
         self.cnn1 = nn.Sequential(
-            nn.Sequential(conv1d(1, l0, 5, 1, conv_impl), nn.ReLU(), nn.MaxPool1d(2)),
-            nn.Sequential(conv1d(l0, l1, 5, 1, conv_impl), nn.ReLU(), nn.MaxPool1d(2)),
+            nn.Sequential(conv1d(1, l0, 5, 1, conv_impl, dt), nn.ReLU(), nn.MaxPool1d(2)),
+            nn.Sequential(conv1d(l0, l1, 5, 1, conv_impl, dt), nn.ReLU(), nn.MaxPool1d(2)),
         )
-        self.dimreduc = nn.Linear(num_channels * l1 * potes_features(sig_len), HIDDEN)
-        self.linear = nn.Linear(HIDDEN, num_classes)
+        self.dimreduc = Linear(num_channels * l1 * potes_features(sig_len), HIDDEN)
+        self.linear = Linear(HIDDEN, num_classes)
         self.dropout = dropout
         self.generator = torch.Generator().manual_seed(seed)
 

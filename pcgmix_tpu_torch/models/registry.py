@@ -13,6 +13,7 @@ from typing import Optional
 from torch import nn
 
 from pcgmix_tpu_torch.models.fcn import FCN
+from pcgmix_tpu_torch.models.layers import resolve_compute_dtype
 from pcgmix_tpu_torch.models.potes import POTES_PRESETS, Potes
 from pcgmix_tpu_torch.models.rescnn import ResCNN
 from pcgmix_tpu_torch.models.resnet9 import RESNET9_PRESETS, ResNet9_1D
@@ -45,10 +46,16 @@ ALIASES = {"FCNPlus": "FCN", "ResNetPlus": "ResNet", "InceptionTimePlus": "Incep
            "XceptionTimePlus": "XceptionTime", "XResNet1d18Plus": "XResNet1d18",
            "XCMPlus": "XCM"}
 
+#: the families that honor ``compute_dtype`` (after ALIASES); the others
+#: (FCN, ResCNN, ResNet, Singstad_d*, RNN, LSTM, GRU) take it and stay float32
+COMPUTE_DTYPE_FAMILIES = ("InceptionTime", "XceptionTime", "XResNet1d18", "gMLP",
+                          "XCM", "mWDN", "OmniScaleCNN")
+
 
 def build_model(name: str, num_classes: int = 2, num_channels: int = 4,
                 sig_len: int = 2500, *, seed: int = 0, dataset: str = "PhysioNet",
-                freq: Optional[int] = None, conv_impl: str = "xla") -> nn.Module:
+                freq: Optional[int] = None, conv_impl: str = "xla",
+                compute_dtype: Optional[str] = None) -> nn.Module:
     """Instantiate a model by its reference name; ``seed`` seeds the
     model's own random draws (Potes' dropout masks).  A spectrogram
     ``dataset`` selects the 2-D variant of ``"resnet9"`` for inputs of
@@ -56,20 +63,31 @@ def build_model(name: str, num_classes: int = 2, num_channels: int = 4,
     OmniScaleCNN and mWDN are sized for inputs of ``sig_len`` steps.
     ``conv_impl="matmul"`` computes the 1-D convolutions of the ResNet9 and
     Potes presets as shifted matmuls; the other models ignore it, as in
-    the JAX registry (``pcgmix_tpu/models/registry.py:85-115``)."""
+    the JAX registry (``pcgmix_tpu/models/registry.py:85-115``).
+
+    ``compute_dtype`` (None or ``"float32"``, or ``"bfloat16"``;
+    ``TrainConfig.compute_dtype``) names the layers' compute dtype, honored as
+    the JAX registry honors it (``registry.py:90-95``): by the ResNet9 (1-D
+    and 2-D) and Potes presets and the families of
+    :data:`COMPUTE_DTYPE_FAMILIES`; the others take it and stay float32.
+    Parameters and running statistics are float32 either way."""
+    dt = resolve_compute_dtype(compute_dtype)
     if dataset in SPECTROGRAM_DATASETS:
         if name != "resnet9":
             raise ValueError(f"2-D dataset {dataset!r} supports model 'resnet9' only")
         return ResNet9_2D(num_classes, RESNET9_PRESETS[name],
-                          sig_len if freq is None else freq, sig_len)
+                          sig_len if freq is None else freq, sig_len, compute_dtype=dt)
     if name in RESNET9_PRESETS:
         return ResNet9_1D(num_classes, RESNET9_PRESETS[name], num_channels, sig_len,
-                          conv_impl=conv_impl)
+                          conv_impl=conv_impl, compute_dtype=dt)
     if name in POTES_PRESETS:
         return Potes(num_classes, num_channels=num_channels, sig_len=sig_len,
-                     seed=seed, conv_impl=conv_impl, **POTES_PRESETS[name])
+                     seed=seed, conv_impl=conv_impl, compute_dtype=dt,
+                     **POTES_PRESETS[name])
     name = ALIASES.get(name, name)
     c = dict(num_channels=num_channels)
+    if name in COMPUTE_DTYPE_FAMILIES:
+        c["compute_dtype"] = dt
     t = dict(c, sig_len=sig_len)
     if name == "FCN":
         return FCN(num_classes, **c)

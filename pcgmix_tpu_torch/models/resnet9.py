@@ -16,6 +16,11 @@ The split forward of latentmixup and the manifold methods
 flattened features, (B, D)), ``part="second"`` runs the rest from there;
 first ∘ second is the full forward.  The activations are laid out as the
 JAX package returns them after its transposes back to channel-first.
+
+``compute_dtype=torch.bfloat16`` (JAX ``ResNet9_1D.dtype``): every conv
+block computes in bf16 (the BatchNorm in float32, cast back once), so the
+split forward's latents and the residual adds are bf16; the ``linear`` head
+is built without a dtype, as in the JAX package, and gives float32 logits.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from pcgmix_tpu_torch.models.layers import (  # noqa: F401
     BatchNorm1d,
     BatchNorm2d,
+    Linear,
     check_part,
     conv1d,
 )
@@ -81,8 +87,10 @@ class ResNet9Stages(nn.Module):
         return self.linear(h)
 
 
-def conv_block(ci: int, co: int, pool: bool = False, conv_impl: str = "xla") -> nn.Sequential:
-    layers = [conv1d(ci, co, 3, 1, conv_impl), BatchNorm1d(co), nn.ReLU()]
+def conv_block(ci: int, co: int, pool: bool = False, conv_impl: str = "xla",
+               compute_dtype=None) -> nn.Sequential:
+    layers = [conv1d(ci, co, 3, 1, conv_impl, compute_dtype),
+              BatchNorm1d(co, compute_dtype=compute_dtype), nn.ReLU()]
     if pool:
         layers.append(nn.MaxPool1d(2))
     return nn.Sequential(*layers)
@@ -91,15 +99,17 @@ def conv_block(ci: int, co: int, pool: bool = False, conv_impl: str = "xla") -> 
 class ResNet9_1D(ResNet9Stages):
     """Input (B, C, T) channel-first; returns (B, num_classes) logits.
     ``conv_impl="matmul"``: the convolutions as shifted matmuls
-    (:class:`pcgmix_tpu_torch.models.layers.MatmulConv1d`)."""
+    (:class:`pcgmix_tpu_torch.models.layers.MatmulConv1d`); ``compute_dtype``
+    the conv blocks' dtype."""
 
     def __init__(self, num_classes: int = 2, filters=(64, 128, 256, 512),
-                 num_channels: int = 4, sig_len: int = 2500, conv_impl: str = "xla"):
+                 num_channels: int = 4, sig_len: int = 2500, conv_impl: str = "xla",
+                 compute_dtype=None):
         super().__init__()
         f = filters
 
         def block(ci, co, pool=False):
-            return conv_block(ci, co, pool, conv_impl)
+            return conv_block(ci, co, pool, conv_impl, compute_dtype)
 
         # construction order = the reference's, which seeded init relies on
         self.conv1 = block(num_channels, f[0])
@@ -109,7 +119,7 @@ class ResNet9_1D(ResNet9Stages):
         self.conv4 = block(f[2], f[3], pool=True)
         self.res2 = nn.Sequential(block(f[3], f[3]), block(f[3], f[3]))
         self.pool = nn.MaxPool1d(4)
-        self.linear = nn.Linear(f[3] * (sig_len // 2 // 2 // 2 // 4), num_classes)
+        self.linear = Linear(f[3] * (sig_len // 2 // 2 // 2 // 4), num_classes)
 
 
 # Width presets (reference train_model.py:341-358).

@@ -17,6 +17,12 @@ torch, and the "Plus" names map to the same classes, as there.
 
 No split forward; ``part="latent_space"`` gives the features before the
 head.
+
+``compute_dtype=torch.bfloat16`` (JAX ``dtype``): every convolution and
+BatchNorm of both trunks and XceptionTime's head computes in bf16;
+InceptionTime's ``fc`` is built without a dtype (float32 logits), and
+XceptionTime's pooled head output is cast to float32, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from pcgmix_tpu_torch.models.layers import (
     BatchNorm1d,
     Conv1d,
     ConvBNAct,
+    Linear,
     check_part,
     gap_1d,
 )
@@ -53,10 +60,11 @@ def max_pool_same_1d(x: torch.Tensor) -> torch.Tensor:
 class SeparableConv1d(nn.Module):
     """Depthwise (groups = channels) then pointwise 1×1, both bias-free."""
 
-    def __init__(self, ni: int, nf: int, kernel_size: int):
+    def __init__(self, ni: int, nf: int, kernel_size: int, compute_dtype=None):
         super().__init__()
-        self.depthwise = Conv1d(ni, ni, kernel_size, bias=False, groups=ni)
-        self.pointwise = Conv1d(ni, nf, 1, bias=False)
+        dt = compute_dtype
+        self.depthwise = Conv1d(ni, ni, kernel_size, bias=False, groups=ni, compute_dtype=dt)
+        self.pointwise = Conv1d(ni, nf, 1, bias=False, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
@@ -66,15 +74,16 @@ class InceptionModule(nn.Module):
     """Bottleneck → convs k = 39, 19, 9 ∥ max-pool → 1×1, concat →
     BatchNorm → ReLU; 4·nf channels out."""
 
-    def __init__(self, ni: int, nf: int, ks: int = 40):
+    def __init__(self, ni: int, nf: int, ks: int = 40, compute_dtype=None):
         super().__init__()
+        dt = compute_dtype
         if ni > 1:
-            self.bottleneck = Conv1d(ni, nf, 1, bias=False)
+            self.bottleneck = Conv1d(ni, nf, 1, bias=False, compute_dtype=dt)
         nb = nf if ni > 1 else ni
         for i, k in enumerate(_odd_ks(ks)):
-            self.add_module(f"conv{i}", Conv1d(nb, nf, k, bias=False))
-        self.mp_conv = Conv1d(ni, nf, 1, bias=False)
-        self.bn = BatchNorm1d(4 * nf)
+            self.add_module(f"conv{i}", Conv1d(nb, nf, k, bias=False, compute_dtype=dt))
+        self.mp_conv = Conv1d(ni, nf, 1, bias=False, compute_dtype=dt)
+        self.bn = BatchNorm1d(4 * nf, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.bottleneck(x) if hasattr(self, "bottleneck") else x
@@ -88,20 +97,21 @@ class InceptionTime(nn.Module):
     Input (B, C, T); returns (B, num_classes) logits."""
 
     def __init__(self, num_classes: int = 2, nf: int = 32, depth: int = 6,
-                 num_channels: int = 4):
+                 num_channels: int = 4, compute_dtype=None):
         super().__init__()
         self.depth = depth
+        dt = compute_dtype
         width = num_channels
         for d in range(depth):
-            self.add_module(f"inception{d}", InceptionModule(width, nf))
+            self.add_module(f"inception{d}", InceptionModule(width, nf, compute_dtype=dt))
             if d % 3 == 2:
                 res = num_channels if d == 2 else 4 * nf
                 self.add_module(
                     f"shortcut{d // 3}",
-                    BatchNorm1d(4 * nf) if res == 4 * nf
-                    else ConvBNAct(res, 4 * nf, 1, act=None))
+                    BatchNorm1d(4 * nf, compute_dtype=dt) if res == 4 * nf
+                    else ConvBNAct(res, 4 * nf, 1, act=None, compute_dtype=dt))
             width = 4 * nf
-        self.fc = nn.Linear(4 * nf, num_classes)
+        self.fc = Linear(4 * nf, num_classes)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:
@@ -119,12 +129,13 @@ class XceptionModule(nn.Module):
     """Bottleneck → separable convs k = 39, 19, 9 ∥ max-pool → 1×1, concat
     (no BatchNorm or activation inside); 4·nf channels out."""
 
-    def __init__(self, ni: int, nf: int, ks: int = 40):
+    def __init__(self, ni: int, nf: int, ks: int = 40, compute_dtype=None):
         super().__init__()
-        self.bottleneck = Conv1d(ni, nf, 1, bias=False)
+        dt = compute_dtype
+        self.bottleneck = Conv1d(ni, nf, 1, bias=False, compute_dtype=dt)
         for i, k in enumerate(_odd_ks(ks)):
-            self.add_module(f"sepconv{i}", SeparableConv1d(nf, nf, k))
-        self.mp_conv = Conv1d(ni, nf, 1, bias=False)
+            self.add_module(f"sepconv{i}", SeparableConv1d(nf, nf, k, compute_dtype=dt))
+        self.mp_conv = Conv1d(ni, nf, 1, bias=False, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.bottleneck(x)
@@ -137,20 +148,22 @@ class XceptionTime(nn.Module):
     num_classes) logits."""
 
     def __init__(self, num_classes: int = 2, nf: int = 16, depth: int = 4,
-                 num_channels: int = 4):
+                 num_channels: int = 4, compute_dtype=None):
         super().__init__()
         self.depth = depth
+        dt = compute_dtype
         width = res = num_channels
         for d in range(depth):
-            self.add_module(f"xception{d}", XceptionModule(width, nf * 2**d))
+            self.add_module(f"xception{d}", XceptionModule(width, nf * 2**d, compute_dtype=dt))
             width = 4 * nf * 2**d
             if d % 2 == 1:
-                self.add_module(f"shortcut{d // 2}", ConvBNAct(res, width, 1, act=None))
+                self.add_module(f"shortcut{d // 2}",
+                                ConvBNAct(res, width, 1, act=None, compute_dtype=dt))
                 res = width
         head_nf = nf * 4 * 2 ** (depth - 1)  # 512 at nf=16
-        self.head1 = ConvBNAct(width, head_nf // 2, 1)
-        self.head2 = ConvBNAct(head_nf // 2, head_nf // 4, 1)
-        self.head3 = ConvBNAct(head_nf // 4, num_classes, 1)
+        self.head1 = ConvBNAct(width, head_nf // 2, 1, compute_dtype=dt)
+        self.head2 = ConvBNAct(head_nf // 2, head_nf // 4, 1, compute_dtype=dt)
+        self.head3 = ConvBNAct(head_nf // 4, num_classes, 1, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:
@@ -163,4 +176,5 @@ class XceptionTime(nn.Module):
         h = self.head2(self.head1(F.adaptive_avg_pool1d(h, 50)))
         if part == "latent_space":
             return gap_1d(h)
-        return gap_1d(self.head3(h))
+        # float32 logits, as every Dense-headed model's
+        return gap_1d(self.head3(h)).float()

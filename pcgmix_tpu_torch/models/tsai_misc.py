@@ -24,6 +24,12 @@
 
 No split forward; ``part="latent_space"`` gives the features before the
 head.
+
+``compute_dtype=torch.bfloat16`` follows the JAX modules layer by layer:
+XCM's and OmniScaleCNN's convolutions and BatchNorms compute in bf16 and
+their heads (``head``, ``hidden``) are built without a dtype (float32
+logits); mWDN's wave linears stay float32 (built without a dtype there) and
+its InceptionTime trunk takes the dtype.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from pcgmix_tpu_torch.models.layers import (
     BatchNorm1d,
     BatchNorm2d,
     Conv1d,
+    Conv2d,
+    Linear,
     check_part,
     gap_1d,
     same_padding,
@@ -51,19 +59,20 @@ class XCM(nn.Module):
     C, T) with T = ``sig_len``; returns (B, num_classes) logits."""
 
     def __init__(self, num_classes: int = 2, nf: int = 128, window_perc: float = 1.0,
-                 num_channels: int = 4, sig_len: int = 2500):
+                 num_channels: int = 4, sig_len: int = 2500, compute_dtype=None):
         super().__init__()
         window = max(1, int(round(sig_len * window_perc)))
+        dt = compute_dtype
         self.pad = same_padding(window)
-        self.conv2d = nn.Conv2d(1, nf, (1, window))
-        self.bn2d = BatchNorm2d(nf)
-        self.conv2d_1x1 = nn.Conv2d(nf, 1, 1)
-        self.conv1d = Conv1d(num_channels, nf, window)
-        self.bn1d = BatchNorm1d(nf)
-        self.conv1d_1x1 = Conv1d(nf, 1, 1)
-        self.conv1d_top = Conv1d(num_channels + 1, nf, window)
-        self.bn_top = BatchNorm1d(nf)
-        self.head = nn.Linear(nf, num_classes)
+        self.conv2d = Conv2d(1, nf, (1, window), compute_dtype=dt)
+        self.bn2d = BatchNorm2d(nf, compute_dtype=dt)
+        self.conv2d_1x1 = Conv2d(nf, 1, 1, compute_dtype=dt)
+        self.conv1d = Conv1d(num_channels, nf, window, compute_dtype=dt)
+        self.bn1d = BatchNorm1d(nf, compute_dtype=dt)
+        self.conv1d_1x1 = Conv1d(nf, 1, 1, compute_dtype=dt)
+        self.conv1d_top = Conv1d(num_channels + 1, nf, window, compute_dtype=dt)
+        self.bn_top = BatchNorm1d(nf, compute_dtype=dt)
+        self.head = Linear(nf, num_classes)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:
@@ -112,12 +121,14 @@ def omniscale_layer_parameters(seq_len: int, c_in: int) -> list[list[tuple[int, 
 class OmniScaleLayer(nn.Module):
     """Parallel conv + BatchNorm branches, concatenated, ReLU."""
 
-    def __init__(self, params: Sequence[tuple[int, int, int]]):
+    def __init__(self, params: Sequence[tuple[int, int, int]], compute_dtype=None):
         super().__init__()
         self.n = len(params)
+        dt = compute_dtype
         for i, (ic, oc, ks) in enumerate(params):
-            self.add_module(f"conv{i}", Conv1d(ic, oc, ks, padding=same_padding(ks)))
-            self.add_module(f"bn{i}", BatchNorm1d(oc))
+            self.add_module(f"conv{i}", Conv1d(ic, oc, ks, padding=same_padding(ks),
+                                               compute_dtype=dt))
+            self.add_module(f"bn{i}", BatchNorm1d(oc, compute_dtype=dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(torch.cat(
@@ -129,13 +140,14 @@ class OmniScaleCNN(nn.Module):
     """tsai OmniScaleCNN(c_in, c_out, seq_len).  Input (B, C, T) with T =
     ``sig_len``; returns (B, num_classes) logits."""
 
-    def __init__(self, num_classes: int = 2, num_channels: int = 4, sig_len: int = 2500):
+    def __init__(self, num_classes: int = 2, num_channels: int = 4, sig_len: int = 2500,
+                 compute_dtype=None):
         super().__init__()
         layers = omniscale_layer_parameters(sig_len, num_channels)
         self.n = len(layers)
         for li, layer in enumerate(layers):
-            self.add_module(f"layer{li}", OmniScaleLayer(layer))
-        self.hidden = nn.Linear(sum(oc for _, oc, _ in layers[-1]), num_classes)
+            self.add_module(f"layer{li}", OmniScaleLayer(layer, compute_dtype))
+        self.hidden = Linear(sum(oc for _, oc, _ in layers[-1]), num_classes)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:
@@ -212,14 +224,15 @@ class MWDN(nn.Module):
     logits."""
 
     def __init__(self, num_classes: int = 2, levels: int = 3, num_channels: int = 4,
-                 sig_len: int = 2500):
+                 sig_len: int = 2500, compute_dtype=None):
         super().__init__()
         self.levels = levels
         p = sig_len
         for i in range(levels):
             self.add_module(f"wdn{i + 1}", WaveBlock(p))
             p //= 2
-        self.base = InceptionTime(num_classes, num_channels=num_channels)
+        self.base = InceptionTime(num_classes, num_channels=num_channels,
+                                  compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:

@@ -31,6 +31,12 @@ multiplies.  flax's LayerNorm has eps 1e-6 (torch's default is 1e-5).
 
 No split forward; ``part="latent_space"`` gives the features before the
 head.
+
+``compute_dtype=torch.bfloat16`` (JAX ``GMLP.dtype``): the patch embedding,
+``proj_in``, ``spatial_proj`` and ``proj_out`` compute in bf16; the
+LayerNorms are built without a dtype (float32 statistics and output, as
+flax's), so are ``head`` (float32 logits) and the recurrent models, which
+ignore the dtype.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcgmix_tpu_torch.models.layers import Conv1d, check_part
+from pcgmix_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, check_part
 
 #: gates per cell, in torch's (and flax's) order
 GATES = {"rnn": 1, "gru": 3, "lstm": 4}
@@ -110,7 +116,7 @@ class TsaiRNN(nn.Module):
         return last if part == "latent_space" else self.fc(last)
 
 
-class SpatialProjection(nn.Linear):
+class SpatialProjection(Linear):
     """The gating unit's (T, T) linear along time: weight N(0, 1e-4),
     bias ones."""
 
@@ -126,10 +132,10 @@ class SpatialProjection(nn.Linear):
 
 
 class SpatialGatingUnit(nn.Module):
-    def __init__(self, d_ffn: int, seq_len: int):
+    def __init__(self, d_ffn: int, seq_len: int, compute_dtype=None):
         super().__init__()
-        self.norm = nn.LayerNorm(d_ffn // 2, eps=1e-6)
-        self.spatial_proj = SpatialProjection(seq_len, seq_len)
+        self.norm = LayerNorm(d_ffn // 2, eps=1e-6)
+        self.spatial_proj = SpatialProjection(seq_len, seq_len, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, d_ffn)
         u, v = x.chunk(2, dim=-1)
@@ -138,12 +144,13 @@ class SpatialGatingUnit(nn.Module):
 
 
 class GMLPBlock(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int, seq_len: int):
+    def __init__(self, d_model: int, d_ffn: int, seq_len: int, compute_dtype=None):
         super().__init__()
-        self.norm = nn.LayerNorm(d_model, eps=1e-6)
-        self.proj_in = nn.Linear(d_model, d_ffn)
-        self.sgu = SpatialGatingUnit(d_ffn, seq_len)
-        self.proj_out = nn.Linear(d_ffn // 2, d_model)
+        dt = compute_dtype
+        self.norm = LayerNorm(d_model, eps=1e-6)
+        self.proj_in = Linear(d_model, d_ffn, compute_dtype=dt)
+        self.sgu = SpatialGatingUnit(d_ffn, seq_len, compute_dtype=dt)
+        self.proj_out = Linear(d_ffn // 2, d_model, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, d_model)
         h = F.gelu(self.proj_in(self.norm(x)), approximate="tanh")
@@ -155,13 +162,14 @@ class GMLP(nn.Module):
     512, six blocks.  Input (B, C, T); returns (B, num_classes) logits."""
 
     def __init__(self, num_classes: int = 2, d_model: int = 256, d_ffn: int = 512,
-                 depth: int = 6, num_channels: int = 4, sig_len: int = 2500):
+                 depth: int = 6, num_channels: int = 4, sig_len: int = 2500,
+                 compute_dtype=None):
         super().__init__()
         self.depth = depth
-        self.patcher = Conv1d(num_channels, d_model, 1, padding=0)
+        self.patcher = Conv1d(num_channels, d_model, 1, padding=0, compute_dtype=compute_dtype)
         for i in range(depth):
-            self.add_module(f"block{i}", GMLPBlock(d_model, d_ffn, sig_len))
-        self.head = nn.Linear(d_model, num_classes)
+            self.add_module(f"block{i}", GMLPBlock(d_model, d_ffn, sig_len, compute_dtype))
+        self.head = Linear(d_model, num_classes)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:

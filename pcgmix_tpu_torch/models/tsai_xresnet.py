@@ -9,6 +9,10 @@ stage's entry but the first; a BasicBlock is conv-BN-ReLU(3, stride) →
 conv-BN(3), added to its shortcut (ResNet-D: AvgPool(2, ceil) where it
 strides, a 1×1 ConvBlock where the width changes), then ReLU; global
 average pool, linear head ``fc``.  No split forward.
+
+``compute_dtype=torch.bfloat16`` (JAX ``XResNet1d18.dtype``): every
+convolution and BatchNorm computes in bf16; ``fc`` is built without a
+dtype, so the logits are float32.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from pcgmix_tpu_torch.models.layers import (
     BatchNorm1d,
     Conv1d,
     ConvBNAct,
+    Linear,
     check_part,
     gap_1d,
 )
@@ -35,14 +40,16 @@ def _avg_pool_ceil(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, ni: int, nf: int, stride: int):
+    def __init__(self, ni: int, nf: int, stride: int, compute_dtype=None):
         super().__init__()
         self.stride = stride
-        self.convpath1_conv = Conv1d(ni, nf, 3, padding=1, stride=stride, bias=False)
-        self.convpath1_bn = BatchNorm1d(nf)
-        self.convpath2 = ConvBNAct(nf, nf, 3, act=None)
+        dt = compute_dtype
+        self.convpath1_conv = Conv1d(ni, nf, 3, padding=1, stride=stride, bias=False,
+                                     compute_dtype=dt)
+        self.convpath1_bn = BatchNorm1d(nf, compute_dtype=dt)
+        self.convpath2 = ConvBNAct(nf, nf, 3, act=None, compute_dtype=dt)
         if ni != nf:
-            self.idpath = ConvBNAct(ni, nf, 1, act=None)
+            self.idpath = ConvBNAct(ni, nf, 1, act=None, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.convpath2(torch.relu(self.convpath1_bn(self.convpath1_conv(x))))
@@ -56,21 +63,24 @@ class XResNet1d18(nn.Module):
     """Input (B, C, T); returns (B, num_classes) logits."""
 
     def __init__(self, num_classes: int = 2, widths: Sequence[int] = (64, 128, 256, 512),
-                 blocks_per_stage: int = 2, num_channels: int = 4):
+                 blocks_per_stage: int = 2, num_channels: int = 4, compute_dtype=None):
         super().__init__()
-        self.stem0_conv = Conv1d(num_channels, 32, 3, padding=1, stride=2, bias=False)
-        self.stem0_bn = BatchNorm1d(32)
-        self.stem1 = ConvBNAct(32, 32, 3)
-        self.stem2 = ConvBNAct(32, 64, 3)
+        dt = compute_dtype
+        self.stem0_conv = Conv1d(num_channels, 32, 3, padding=1, stride=2, bias=False,
+                                 compute_dtype=dt)
+        self.stem0_bn = BatchNorm1d(32, compute_dtype=dt)
+        self.stem1 = ConvBNAct(32, 32, 3, compute_dtype=dt)
+        self.stem2 = ConvBNAct(32, 64, 3, compute_dtype=dt)
         self.blocks = []
         ni = 64
         for s, nf in enumerate(widths):
             for b in range(blocks_per_stage):
                 name = f"stage{s}_block{b}"
-                self.add_module(name, BasicBlock(ni, nf, 2 if (s > 0 and b == 0) else 1))
+                self.add_module(name, BasicBlock(ni, nf, 2 if (s > 0 and b == 0) else 1,
+                                                 compute_dtype=dt))
                 self.blocks.append(name)
                 ni = nf
-        self.fc = nn.Linear(ni, num_classes)
+        self.fc = Linear(ni, num_classes)
 
     def forward(self, x: torch.Tensor, depth: int = 0,
                 part: Optional[str] = None) -> torch.Tensor:

@@ -106,9 +106,11 @@
 //      source loads stay scalar, but are coalesced, since t + off is
 //      contiguous inside a piece.
 // Edges: the vector path needs T % V == 0 and every row on a 16-byte
-// boundary.  Otherwise the wrapper (`mix_kernels.py::_warp_vector_width`)
-// takes the V = 1 instantiation of the same kernel (T = 509, T = 1, a bf16
-// row of odd length, an offset view).  In a last partial tile the threads
+// boundary; the wrapper also wants T ≥ kWarpThreads·V, since a short row's
+// one wide tile leaves most of its block idle.  Otherwise the wrapper
+// (`mix_kernels.py::_warp_vector_width`) takes the V = 1 instantiation of
+// the same kernel (T = 509, T = 1, a bf16 row of odd length, an offset
+// view, ResNet9's 312-step latent).  In a last partial tile the threads
 // past T take part in the barrier and store nothing.
 //
 // The blend uses explicitly rounded fp32 operations (__fmul_rn, __fadd_rn)

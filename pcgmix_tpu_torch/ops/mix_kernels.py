@@ -15,9 +15,9 @@ wrapper counts its kernel launches (:func:`launch_counts`), so a run can
 show that its main path went through the kernels.
 
 K1–K4 are one kernel body, in which each thread owns 16 bytes of
-consecutive steps in every channel where the rows allow it
-(:func:`_warp_vector_width`), else one step (the kernel's scalar edge
-path); K2/K4 add the envelope.  :func:`piecewise_mix_batch` is K1 with
+consecutive steps in every channel where the rows allow it and are long
+enough to fill a block (:func:`_warp_vector_width`), else one step (the
+kernel's scalar edge path); K2/K4 add the envelope.  :func:`piecewise_mix_batch` is K1 with
 row i of the batch as each output row's base (the main path's PCGmix),
 launched without a row index.  The kernels are compiled at first use,
 with K5's, into one shared library (``ops/build.py``).
@@ -111,10 +111,18 @@ def _check_knots(knots, n, C, device):
 
 def _warp_vector_width(T: int, dtype: torch.dtype, *tensors) -> int:
     """Time steps per thread of K1–K4: 16 bytes of ``dtype`` where T is a
-    multiple of that and every tensor's data starts on a 16-byte boundary
-    (so does every row), else 1, the kernel's scalar edge path."""
+    multiple of that, a block's tile of WARP_THREADS·V steps fits in a row,
+    and every tensor's data starts on a 16-byte boundary (so does every
+    row); else 1, the kernel's scalar edge path.
+
+    A block takes one tile of one row and walks all its channels, so on a
+    short row a wide tile leaves most of the block idle and the grid on a
+    few SMs: ResNet9's depth-2 latent (64 × 512 × 312) in bf16 takes one
+    1024-step tile a row at V = 8 (39 of 128 threads busy, 64 blocks), and
+    three 128-step tiles at V = 1."""
     v = 16 // (torch.finfo(dtype).bits // 8)
-    if T % v == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+    if (T % v == 0 and T >= WARP_THREADS * v
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
         return v
     return 1
 

@@ -109,7 +109,10 @@ def make_pretrained_saliency_fn(
     'durratiomixup' / 'durmixmagwarp(0.2,4)' run; saliency.py:26-37).  Its
     ``model.pth`` loads once per provider (raising, with the path, when it
     is missing); the model is built for the first batch's shape on the
-    batch's device and kept in eval mode."""
+    batch's device and kept in eval mode.  It is built without the run's
+    ``compute_dtype``, as the JAX package builds it (``saliency.py:122``):
+    float32 whatever the run computes in.  The live saliency of
+    ``saliency-cutmix`` uses the run's own model."""
     from pcgmix_tpu_torch.models import build_model
 
     @functools.lru_cache(maxsize=4)

@@ -35,6 +35,7 @@ import dataclasses
 import io
 import json
 import struct
+from typing import Optional
 
 import numpy as np
 import torch
@@ -126,15 +127,19 @@ class Classifier(_BatchedPredictor):
     def from_checkpoint(cls, path: str, model_name: str = "resnet9",
                         dataset: str = "PhysioNet", num_channels: int = 4,
                         sig_len: int = 2500, num_classes: int = 2,
-                        device: str = "cuda", **kw) -> "Classifier":
+                        device: str = "cuda", compute_dtype: Optional[str] = None, **kw) -> "Classifier":
         """A ``model.pth`` that ``train_model`` wrote, into the registry's
         ``model_name`` built for ``dataset`` inputs (``sig_len`` is the 1-D
-        cycle length; a spectrogram dataset takes its size from its name)."""
+        cycle length; a spectrogram dataset takes its size from its name)
+        and ``compute_dtype`` (the weights are float32 in either dtype, so a
+        checkpoint serves in both; its :meth:`export_artifact` exports the
+        model in that dtype)."""
         from pcgmix_tpu_torch.models import build_model
 
         shape = sample_input_shape(dataset, num_channels, sig_len)
         model = build_model(model_name, num_classes, shape[1], shape[-1], dataset=dataset,
-                            freq=shape[-2] if len(shape) == 4 else None)
+                            freq=shape[-2] if len(shape) == 4 else None,
+                            compute_dtype=compute_dtype)
         model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
         return cls(model, num_classes=num_classes, device=device, **kw)
 

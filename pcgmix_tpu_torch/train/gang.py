@@ -593,7 +593,7 @@ def _model_for(cfg: TrainConfig, sample_shape: tuple) -> nn.Module:
     return build_model(cfg.model, cfg.num_classes, sample_shape[0], sample_shape[-1],
                        dataset=cfg.dataset,
                        freq=sample_shape[-2] if cfg.spectrogram else None,
-                       conv_impl=cfg.conv_impl)
+                       conv_impl=cfg.conv_impl, compute_dtype=cfg.compute_dtype)
 
 
 def variable_bytes(model: nn.Module) -> int:
@@ -630,8 +630,13 @@ def activation_bytes(model: nn.Module, input_shape: tuple) -> int:
     return sum(t.numel() * t.element_size() for t in saved.values())
 
 
+#: autograd's saved bytes → a member's share of a gang's peak memory, per
+#: compute dtype (see :func:`estimate_gang_max_size`)
+REUSE = {"float32": 1.5, "bfloat16": 1.6}
+
+
 def estimate_gang_max_size(cfg: TrainConfig, train_size: int, corpus_bytes: int = 0,
-                           hbm_bytes: Optional[int] = None, reuse: float = 1.5,
+                           hbm_bytes: Optional[int] = None, reuse: Optional[float] = None,
                            safety: float = 0.8, sample_shape: Optional[tuple] = None) -> int:
     """The largest gang the device holds (the JAX package's budget model):
     per member the state (:func:`gang_state_bytes`) and the activations
@@ -639,15 +644,20 @@ def estimate_gang_max_size(cfg: TrainConfig, train_size: int, corpus_bytes: int 
     ``S_max = (hbm × safety − corpus) // per_member``, at least 1.
     ``hbm_bytes`` defaults to the card's memory, 8 GiB on the CPU.
 
-    ``reuse`` is 1.5 here where the JAX package takes 0.25 for XLA's
-    buffer reuse: on an NVIDIA H100 (``chip_smoke.py`` phase 3g, batch 64)
-    each member past the first added 1.38× the bytes autograd saves to the
-    gang's peak memory for ResNet9 (2.10 GiB against 1.52 GiB) and 1.20×
-    for Potes (the vmapped convolutions' transposes and workspaces); the
-    costs every gang pays once (corpus, eval, workspaces: up to 3.4 GiB)
-    fall within ``safety``."""
+    ``reuse`` defaults to the dtype's :data:`REUSE`, 1.5 in float32 where
+    the JAX package takes 0.25 for XLA's buffer reuse: on an NVIDIA H100
+    (``chip_smoke.py`` phase 3g, batch 64) each member past the first added
+    1.38× the bytes autograd saves to the gang's peak memory for ResNet9
+    (2.10 GiB against 1.52 GiB) and 1.20× for Potes (the vmapped
+    convolutions' transposes and workspaces); the costs every gang pays
+    once (corpus, eval, workspaces: up to 3.4 GiB) fall within ``safety``.  In bf16 (``compute_dtype="bfloat16"``, phase
+    3h) a ResNet9 member added 1.576× its saved bytes (1.74 GiB against
+    1.10 GiB: the BatchNorm's float32 upcast is saved too), so bf16 takes
+    1.6."""
     shape = _sample_shape(cfg, sample_shape)
     model = _model_for(cfg, shape)
+    if reuse is None:
+        reuse = REUSE[cfg.compute_dtype]
     per_member = (gang_state_bytes(cfg, train_size, shape)
                   + activation_bytes(model, (cfg.batch_size, *shape)) * reuse)
     if hbm_bytes is None:
@@ -764,7 +774,8 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
 
     def member_model(cfg):
         return build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed,
-                           dataset=cfg.dataset, freq=F_ or None, conv_impl=cfg.conv_impl)
+                           dataset=cfg.dataset, freq=F_ or None, conv_impl=cfg.conv_impl,
+                           compute_dtype=cfg.compute_dtype)
 
     template = seeded_init(member_model(cfg0), cfg0.seed_fix)
     # each member's generators as its own run seeds them

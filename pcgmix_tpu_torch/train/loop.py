@@ -51,6 +51,13 @@ the plan RNG so that later plans are the uninterrupted run's;
 (``data/device_cache.py``); ``track_variability`` writes
 ``variability.pkl``; ``profile_dir`` takes a ``torch.profiler`` trace of
 epoch 2.
+
+``compute_dtype="bfloat16"`` (JAX ``loop.py:79``, ``:242-249``) builds the
+model with bf16 layers (``models/layers.py``); the JAX package's train and
+eval models are the port's one model in its two modes.  Parameters, Adam's
+moments, the BatchNorm buffers, the SELC table and the loss stay float32,
+and the logits come out float32, so nothing past the model changes; a
+latent method's latent is bf16, which the mix kernels take as it is.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from pcgmix_tpu_torch.data.datasets import load_cvd_map
 from pcgmix_tpu_torch.data.device_cache import device_tensor
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
 from pcgmix_tpu_torch.models import SPECTROGRAM_DATASETS, build_model
+from pcgmix_tpu_torch.models.layers import resolve_compute_dtype
 from pcgmix_tpu_torch.parallel import DataParallel, spawn
 from pcgmix_tpu_torch.train.checkpoint import CheckpointManager
 from pcgmix_tpu_torch.train.convert import seeded_init
@@ -148,6 +156,14 @@ class TrainConfig:
                                # (data/device_cache.py)
     conv_impl: str = "xla"  # "matmul": the ResNet9 and Potes presets' 1-D
                             # convolutions as shifted matmuls
+    compute_dtype: str = "float32"  # "bfloat16": the layers of the families
+                                    # that honor it compute in bf16 (params,
+                                    # optimizer state, BatchNorm buffers and
+                                    # loss stay float32); float32 is the
+                                    # parity route
+
+    def __post_init__(self):
+        resolve_compute_dtype(self.compute_dtype)  # raises for another name
 
     @property
     def spectrogram(self) -> bool:
@@ -354,7 +370,8 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
 
     model = seeded_init(
         build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed,
-                    dataset=cfg.dataset, freq=F or None, conv_impl=cfg.conv_impl),
+                    dataset=cfg.dataset, freq=F or None, conv_impl=cfg.conv_impl,
+                    compute_dtype=cfg.compute_dtype),
         cfg.seed_fix
     )
     model.to(device)

@@ -19,6 +19,7 @@ from pcgmix_tpu_torch.data import (
     synthetic_physionet_dict,
     synthetic_spectrogram_dict,
 )
+from pcgmix_tpu_torch.models.registry import COMPUTE_DTYPE_FAMILIES
 from pcgmix_tpu_torch.ops import mix_kernels
 from pcgmix_tpu_torch.ops.mix_kernels import (
     launch_counts,
@@ -946,3 +947,153 @@ def test_kernels_over_the_row_limit_match_plain(dev, dtype):
             torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7, atol=1e-2)
     with pytest.raises(ValueError, match="65535"):
         pcgmix_plus_fused(x, mix, *pieces, knots)
+
+
+# ---- the bf16 compute mode on the card (TrainConfig.compute_dtype) ------------
+
+BF16 = dict(compute_dtype="bfloat16")
+BF16_SERVED = ["resnet9", "Potes", *COMPUTE_DTYPE_FAMILIES, "resnet9-2d"]
+# the bars of the CPU tests (tests/test_torch_bf16*.py): the port's bf16
+# logits against the JAX package's, relative to their largest magnitude
+BF16_LOGIT_BAR = 3e-2
+# a bf16 gang member against its own run, frozen weights, at resnet9-5k's and
+# Potes' widths (measured 1.7e-7 on an NVIDIA H100 80GB HBM3; chip_smoke.py
+# phase 3h holds the full-width gang at 2e-3, where the vmapped convolutions
+# round their bf16 outputs in other places: 5.3e-4)
+BF16_GANG_BAR = 1e-6
+
+
+@pytest.mark.parametrize("model,method,kernel", [
+    ("resnet9-5k", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+    ("resnet9-5k", "durratiomixup", "piecewise_mix_pairs"),
+    ("resnet9-5k", "manifold-cutmix", "piecewise_mix_pairs"),
+    ("Potes", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
+    ("Potes", "durratiomixup", "piecewise_mix_pairs"),
+])
+def test_bf16_training_on_the_card_launches_the_kernels(dev, model, method, kernel):
+    """bf16 training on the card: K1/K2 once a step (manifold-cutmix's K1
+    on the bf16 latent), finite losses, float32 parameters."""
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    ds = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4, segments_per_wav=2,
+                                  sig_len=512, seed=3)
+    reset_launch_counts()
+    perf = train_model(TrainConfig(model=model, method=method, num_epochs=3, batch_size=8,
+                                   save_artifacts=False, **BF16), ds)
+    assert {k: v for k, v in launch_counts().items() if v} == {kernel: 3}
+    assert np.isfinite(perf["train_loss"]).all()
+
+
+@pytest.mark.parametrize("model", ["resnet9-5k", "Potes"])
+@pytest.mark.parametrize("method", ["durmixmagwarp(0.2,4)", "durratiomixup"])
+def test_bf16_graph_chunks_equal_eager_steps_with_frozen_weights(dev, model, method):
+    """steps_per_dispatch=8 (a CUDA graph of 8 steps, the JAX package's
+    production config) against one step per dispatch in bf16, weights
+    frozen: the same losses within 1e-5, K1/K2 once per step."""
+    from pcgmix_tpu_torch.train import TrainConfig, train_model
+
+    ds = _graph_corpus()
+    runs = {}
+    for k in (1, 8):
+        reset_launch_counts()
+        runs[k] = (train_model(TrainConfig(model=model, method=method, num_epochs=3,
+                                           batch_size=8, lr_max=0.0, save_artifacts=False,
+                                           steps_per_dispatch=k, **BF16), ds),
+                   launch_counts())
+    (one, n1), (eight, n8) = runs[1], runs[8]
+    print(f"bf16 graph {model} {method}: max |diff| "
+          f"{np.max(np.abs(np.subtract(eight['train_loss'], one['train_loss']))):.3e}")
+    np.testing.assert_allclose(eight["train_loss"], one["train_loss"], rtol=0, atol=1e-5)
+    kernel = "pcgmix_plus_fused" if "magwarp" in method else "piecewise_mix_pairs"
+    assert n8[kernel] == n1[kernel] == one["steps"][-1]
+
+
+def test_bf16_latent_k1_k3_equal_plain_on_the_card(batch, dev):
+    """K1 with a zero base on a full-width ResNet9's bf16 latent at depth 2
+    (16 × 512 × 312) under a manifold-cutmix plan, bit-equal to its plain
+    version; K3 on the rows idx1 and idx2 name, bit-equal to K1."""
+    from pcgmix_tpu_torch.models import build_model
+
+    data, frames, labels = batch
+    arrays = AugmentEngine(AugmentConfig("manifold-cutmix", B, C, T)).plan(
+        3, frames, labels).arrays
+    a = AugmentEngine.device_arrays(arrays, dev)
+    net = build_model("resnet9", 2, C, T, **BF16).to(dev).eval()
+    with torch.no_grad():
+        latent = net(torch.from_numpy(data).to(dev), depth=2, part="first")
+    assert latent.dtype == torch.bfloat16 and latent.shape == (B, 512, 312)
+    reset_launch_counts()
+    k1 = piecewise_mix_pairs(latent, a["idx1"], a["idx2"], *_args(a), base_is_d1=False)
+    d1, d2 = (latent.index_select(0, a[k].long()).contiguous() for k in ("idx1", "idx2"))
+    k3 = piecewise_mix_prepaired(d1, d2, *_args(a), base_is_d1=False)
+    torch.cuda.synchronize()
+    assert launch_counts()["piecewise_mix_pairs"] == launch_counts()[
+        "piecewise_mix_prepaired"] == 1
+    plain = piecewise_mix_pairs_plain(latent, a["idx1"], a["idx2"], *_args(a),
+                                      base_is_d1=False)
+    assert torch.equal(k1, plain) and torch.equal(k3, k1)
+
+
+@pytest.mark.parametrize("name", ["resnet9-5k", "resnet9", "Potes", "InceptionTime", "gMLP"])
+def test_bf16_forward_on_the_card_equals_the_cpu(dev, name):
+    """A bf16 train-mode forward of one set of weights on the card and on
+    the CPU: logits float32 on both, within the CPU tests' bar of their
+    largest magnitude."""
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.train.convert import seeded_init
+
+    cpu = seeded_init(build_model(name, 2, C, T, **BF16), 4)
+    card = build_model(name, 2, C, T, **BF16)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(8, C, T)).astype(np.float32))
+    with torch.no_grad():
+        ref = cpu.train()(x)
+        got = card.train()(x.to(dev)).cpu()
+    assert got.dtype == ref.dtype == torch.float32
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    print(f"bf16 {name} card against CPU: {rel:.3e} of max |logit|")
+    assert rel < BF16_LOGIT_BAR
+
+
+@pytest.mark.parametrize("model,method", [("resnet9-5k", "durmixmagwarp(0.2,4)"),
+                                          ("Potes", "durratiomixup"),
+                                          ("resnet9-5k", "manifold-cutmix")])
+def test_bf16_gang_members_equal_their_runs_on_the_card(dev, model, method):
+    from pcgmix_tpu_torch.train import train_model
+    from pcgmix_tpu_torch.train.gang import train_gang
+
+    ds = _gang_corpus()
+    cfgs = _gang(method, model, lr_max=0.0, **BF16)
+    perfs = train_gang(cfgs, ds)
+    worst = 0.0
+    for perf, cfg in zip(perfs, cfgs):
+        ref = train_model(cfg, ds)
+        for key in ("train_loss", "test_loss"):
+            a, b = np.asarray(perf[key], np.float64), np.asarray(ref[key], np.float64)
+            worst = max(worst, float((np.abs(a - b) / np.abs(b)).max()))
+    print(f"bf16 gang {model} {method}: {worst:.3e} relative to the members' runs")
+    assert worst < BF16_GANG_BAR
+
+
+@pytest.mark.parametrize("name", BF16_SERVED)
+def test_bf16_serving_artifact_on_the_card(dev, tmp_path, name):
+    """Every architecture that honors the bf16 compute dtype exports its
+    bf16 forward on the card, and the artifact answers as the live model."""
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.serve import Classifier, ExportedClassifier
+
+    if name == "resnet9-2d":
+        shape = (1, 128, 128)
+        model = build_model("resnet9", 2, 1, 128, dataset="PhysioNet(spec128)", freq=128,
+                            **BF16)
+    else:
+        shape = (C, T)
+        model = build_model(name, 2, C, T, **BF16)
+    x = np.random.default_rng(0).normal(size=(21, *shape)).astype(np.float32)
+    live = Classifier(model, batch_size=16)
+    live.export_artifact(str(tmp_path / "m.pcgt"), shape, model_name=name)
+    exported = ExportedClassifier(str(tmp_path / "m.pcgt"))
+    d = float(np.abs(exported.predict_proba(x) - live.predict_proba(x)).max())
+    print(f"bf16 artifact {name}: {d:.3e} from the live model")
+    assert d <= 1e-5

@@ -133,7 +133,8 @@ def test_runner_flags_reach_the_runs(grid, tmp_path, monkeypatch, capsys):
     pytest.param(["--classical-space"], 13, id="option6-13"),
     # --latent-space is taken (no item): the runner goes on to read the file
     pytest.param(["--latent-space"], None, id="option7-6"),
-    pytest.param(["--compute-dtype", "bfloat16"], 3, id="option8-3"),
+    # --compute-dtype is taken (no item): the runner goes on to read the file
+    pytest.param(["--compute-dtype", "bfloat16"], None, id="option8-3"),
     pytest.param(["--conv-impl", "matmul"], None, id="option9-12"),
 ])
 def test_unported_options_raise(option, item):

@@ -395,6 +395,21 @@ def test_warp_vector_width_takes_16_bytes_only_where_rows_are_aligned(
     assert mix_kernels._warp_vector_width(T, dtype, out, rows) == want
 
 
+@pytest.mark.parametrize("dtype,T,want", [
+    (torch.bfloat16, 312, 1),   # ResNet9's depth-2 latent: a 1024-step tile
+    (torch.float32, 312, 1),    # a 512-step tile on 312 steps
+    (torch.float32, 128, 1),    # the 2-D path's 128-step rows
+    (torch.float32, 512, 4),    # one full tile
+    (torch.bfloat16, 1016, 1),  # a multiple of 8, short of one tile
+    (torch.bfloat16, 2048, 8),
+])
+def test_warp_vector_width_takes_16_bytes_only_where_a_row_fills_a_block(dtype, T, want):
+    """A block takes one tile of WARP_THREADS·V steps of a row: rows
+    shorter than that take V = 1 and more, fuller blocks."""
+    rows = torch.zeros(2, C, T, dtype=dtype)
+    assert mix_kernels._warp_vector_width(T, dtype, rows) == want
+
+
 @pytest.mark.parametrize("dtype,T,offset,want", [
     (torch.float32, 2500, 0, 4),   # the main path
     (torch.float32, 2500, 1, 1),   # an offset view
