@@ -215,6 +215,20 @@ Phases (any failure exits non-zero):
    once per step, K1 never, and with the weights frozen every plot epoch's
    loss within 1e-5 of the single-device route's; and so does ResCNN
    with PCGmix, a zoo model whose BatchNorm takes the global statistics.
+   Then every other method on this route (``DP_METHODS``), 12 steps each
+   with the weights frozen, each against the same run on the
+   single-device route under cuDNN's deterministic algorithms: ``mixup``,
+   ``timemask``, ``magnitudewarp``, ``gaussiannoise``, 2-D ``mixup`` and
+   ``freqmask``, ``latentmixup``, ``manifold-cutout``, ``manifold-cutmix``
+   in fp32 and in bf16, ``(saloptenv)durratiomixup`` on phase 3e's
+   pretrained base run, ``(closestknn=8)durmixmagwarp(0.2,4)`` on its
+   canonical embedder, ``lc-nointrusion`` and ``saliency-cutmix`` on
+   Potes: every plot epoch's loss within 1e-5 (bf16: 2e-3 relative, the
+   global BatchNorm's sums under bf16 casts), the plans (and
+   ``lc_select``'s picks) bit-equal, K3 once a step on the kernel methods
+   (twice on ``lc-nointrusion``: its block of the pool, then of the
+   picked rows), K4 on the closest PCGmix+ blend, nothing on the others;
+   each method's data-parallel steps/s beside the single-device route's.
 4b. The experiment grid: a ``synthetic_effect_dict`` corpus (240 train
    recordings × 4 cycles, 40 test recordings, 4 × 2500, seed 7) with a
    ``cvds_map.csv`` for its recordings goes through
@@ -256,9 +270,11 @@ without the package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -677,12 +693,13 @@ MIL_METHODS = ("(saloptenv)durratiomixup", "(saloptsum-2)durmixmagwarp(0.2,4)",
 
 def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
                      n_train=240, n_test=40, segments=4, seed_data=1010001,
-                     methods=MIL_METHODS):
+                     methods=MIL_METHODS, keep=None):
     """Phase 3e's runner part: ``methods`` through the runner CLI in a
     subprocess under the robust schedules, twice; the first call must train
     each method's dependency before it, each run launching its kernel once
-    per step, the second nothing.  Returns {run dir: (steps/s, host ms per
-    step)}."""
+    per step, the second nothing.  The run dirs go under ``keep`` (a
+    directory the caller removes) or a temporary one.  Returns {run dir:
+    (steps/s, host ms per step)}."""
     from pcgmix_tpu_torch import utils
     from pcgmix_tpu_torch.data import synthetic_effect_dict
 
@@ -692,7 +709,7 @@ def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=
                                        segments_per_wav=segments, sig_len=sig_len, seed=7)
         dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(corpus, dat)
-        root = os.path.join(tmp, "experiments")
+        root = os.path.join(keep or tmp, "experiments")
         cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
                "--device", device, "--model", model, "--batch-size", str(batch),
                "--n-fractions", "0.1", "--seed-datas", str(seed_data),
@@ -1199,6 +1216,140 @@ def runtime_dp_phase(np, torch, card, mk):
     return launches
 
 
+# phase 4: the methods the single-device route trains, on the data-parallel
+# route (the batch split over the ranks of the 1-rank NCCL group): method,
+# model, corpus, the kernel a step of each route launches (None: none) and
+# how often a data-parallel step launches it (lc-nointrusion: its block of
+# the pool, then its block of the picked rows), config overrides ("salopt":
+# phase 3e's pretrained saliency run; "deps": its experiments root, where
+# the canonical embedder lies)
+K1, K2 = "piecewise_mix_pairs", "pcgmix_plus_fused"
+K3, K4 = "piecewise_mix_prepaired", "pcgmix_plus_fused_prepaired"
+DP_METHODS = (
+    ("mixup(mix)", "resnet9", "1d", None, None, 0, {}),
+    ("timemask(0.2)", "resnet9", "1d", None, None, 0, {}),
+    ("magnitudewarp(0.2,4)", "resnet9", "1d", None, None, 0, {}),
+    ("gaussiannoise", "resnet9", "1d", None, None, 0, {}),
+    ("mixup(same)", "resnet9", "2d", None, None, 0, {"dataset": SPEC}),
+    ("freqmask(0.1)", "resnet9", "2d", None, None, 0, {"dataset": SPEC}),
+    ("latentmixup", "resnet9", "1d", None, None, 0, {}),
+    ("manifold-cutout", "resnet9", "1d", None, None, 0, {}),
+    ("manifold-cutmix", "resnet9", "1d", K1, K3, 1, {}),
+    ("manifold-cutmix", "resnet9", "1d", K1, K3, 1, BF16),
+    ("(saloptenv)durratiomixup", "resnet9", "1d", K1, K3, 1, {"salopt": True}),
+    ("(closestknn=8)durmixmagwarp(0.2,4)", "resnet9", "1d", K2, K4, 1, {"deps": True}),
+    ("lc-nointrusion", "Potes", "1d", K1, K3, 2, {}),
+    ("saliency-cutmix", "Potes", "1d", K1, K3, 1, {}),
+)
+DP_EPOCHS = 3  # 12 steps a run
+DP_BAR = 1e-5  # frozen weights: every plot epoch's loss against the single-device route's
+# in bf16, relative: the group route's BatchNorm takes its statistics from
+# all-reduced sums (E[x²] − E[x]², flax's formula), the single-device route
+# from torch's batch_norm; the fp32 results part by ~1e-7, and the bf16 cast
+# of BatchNorm's output turns that into whole bf16 ulps here and there
+# (4.1e-5 on the CPU at resnet9-5k; 0 with local statistics), as the gang's
+# vmapped convolutions do for BF16_GANG_BAR
+DP_BF16_BAR = BF16_GANG_BAR
+
+
+@contextlib.contextmanager
+def recorded_plans(plans):
+    """Within: the arrays of every plan the engine builds (None for a
+    gated-off step) and every ``lc_select`` pick, appended to ``plans``."""
+    import numpy as np
+
+    from pcgmix_tpu_torch.augment import AugmentEngine
+
+    plan, select = AugmentEngine.plan, AugmentEngine.lc_select
+
+    def recorded_plan(self, *args, **kw):
+        p = plan(self, *args, **kw)
+        if not kw.get("_force"):
+            plans.append(None if p is None else
+                         {k: np.array(v, copy=True) for k, v in p.arrays.items()})
+        return p
+
+    def recorded_select(*args):
+        sel = select(*args)
+        plans.append({"lc_select": sel.copy()})
+        return sel
+
+    AugmentEngine.plan, AugmentEngine.lc_select = recorded_plan, staticmethod(recorded_select)
+    try:
+        yield plans
+    finally:
+        AugmentEngine.plan, AugmentEngine.lc_select = plan, staticmethod(select)
+
+
+def dp_method_runs(torch, drive, corpora, deps, route):
+    """Each of ``DP_METHODS`` through ``drive`` on ``route`` ("single" or
+    "data-parallel"), weights frozen, under cuDNN's deterministic
+    algorithms (the live and pretrained saliency maps that plans are built
+    from then repeat bit for bit); ``deps`` holds phase 3e's experiments
+    root and the pretrained saliency provider.  Returns {(method, dtype):
+    (losses, plans, steps/s, launches)}."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for method, model, corpus, k_one, k_dp, per_step, over in DP_METHODS:
+            over, hooks = dict(over), None
+            if over.pop("salopt", False):
+                hooks = {"saliency_model_provider": deps["provider"]}
+            if over.pop("deps", False):
+                over["experiments_root"] = deps["root"]
+            kernel, n = (k_one, 1) if route == "single" else (k_dp, per_step)
+            with recorded_plans([]) as plans:
+                launches, losses = drive(method, kernel, f"{route} frozen", model=model,
+                                         data=corpora[corpus], epochs=DP_EPOCHS, per_step=n,
+                                         hooks=hooks, lr_max=0.0, **over)
+            out[method, over.get("compute_dtype", "float32")] = (
+                losses, plans, drive.last[1], launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def same_plans(np, a, b):
+    """True when two runs' recorded plans are equal, bit for bit."""
+    if len(a) != len(b):
+        return False
+    for p, q in zip(a, b):
+        if (p is None) != (q is None):
+            return False
+        if p is not None and (sorted(p) != sorted(q) or not all(
+                p[k].dtype == q[k].dtype and np.array_equal(p[k], q[k]) for k in p)):
+            return False
+    return True
+
+
+def dp_methods_check(np, card, single, dp):
+    """Phase 4's methods: each data-parallel run's loss at every plot epoch
+    within ``DP_BAR`` of the single-device run's (bf16: ``DP_BF16_BAR``
+    relative) and its plans bit-equal, with both routes' steps/s.  Returns
+    {(kernel, method): launches}."""
+    launches = {}
+    for (method, dtype), (losses, plans, rate, n) in dp.items():
+        ref_losses, ref_plans, ref_rate, _ = single[method, dtype]
+        d = np.abs(np.subtract(losses, ref_losses))
+        if dtype == "float32":
+            d, bar, what = float(d.max()), DP_BAR, "|diff|"
+        else:
+            d, bar, what = float((d / np.abs(ref_losses)).max()), DP_BF16_BAR, "relative diff"
+        same = same_plans(np, plans, ref_plans)
+        print(f"data-parallel {method} ({dtype}): frozen weights max {what} {d:.3e} over "
+              f"{len(losses)} plot epochs (bar {bar:g}); {len(plans)} plans bit-equal to "
+              f"the single-device route's: {same}; {rate:.3f} steps/s against single-device "
+              f"{ref_rate:.3f} steps/s ({rate / ref_rate:.3f}x) on {card}")
+        if not (d < bar and same):
+            raise AssertionError(f"data-parallel {method} ({dtype}): differs from the "
+                                 "single-device route")
+        kernel = next(k_dp for m, _, _, _, k_dp, _, o in DP_METHODS
+                      if m == method and o.get("compute_dtype", "float32") == dtype)
+        if kernel:
+            launches[kernel, method if dtype == "float32" else f"{method} {dtype}"] = n
+    return launches
+
+
 # phase 3g: gang training
 GANG_S = 4  # members of the correctness gangs
 GANG_METHODS = (("base", None), ("durratiomixup", "piecewise_mix_pairs"),
@@ -1424,13 +1575,14 @@ def make_drive(np, torch, mk, card, ds):
     from pcgmix_tpu_torch.train import TrainConfig, train_model
 
     def drive(method, kernel, route, model="resnet9", data=ds, sig_len=T, epochs=4,
-              **overrides):
+              per_step=1, hooks=None, **overrides):
         """One main-path run of ``epochs`` epochs of 4 steps (16 steps; on
         the spectrogram corpus ``spec_ds`` with ``dataset=SPEC``, on a UMC
         dict with ``dataset="UMC"``); the counts are set to 0 just before it
-        and read just after.  ``kernel`` must launch once per step, no other
-        kernel at all (``kernel`` None: nothing).  Returns (launches of
-        ``kernel``, losses)."""
+        and read just after.  ``kernel`` must launch ``per_step`` times a
+        step, no other kernel at all (``kernel`` None: nothing).  ``hooks``
+        go to ``train_model``.  Returns (launches of ``kernel``, losses);
+        ``drive.last`` is the run's (perf, steps/s after the first epoch)."""
         cfg = TrainConfig(model=model, method=method, num_epochs=epochs, batch_size=B,
                           num_channels=C, save_artifacts=False, **overrides)
         torch.cuda.synchronize()
@@ -1438,13 +1590,13 @@ def make_drive(np, torch, mk, card, ds):
         mk.reset_launch_counts()
         reset_host_times()
         t0 = time.time()
-        perf = train_model(cfg, data)
+        perf = train_model(cfg, data, **(hooks or {}))
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = mk.launch_counts()
         host = {k: round(ms / perf["steps"][-1], 3) for k, (ms, _) in host_times().items()}
         steps = perf["steps"][-1]
-        if steps != 4 * epochs or any(n != (steps if k == kernel else 0)
+        if steps != 4 * epochs or any(n != (per_step * steps if k == kernel else 0)
                                       for k, n in counts.items()):
             raise AssertionError(f"{route} {method}: {steps} steps but launches {counts}")
         if not (np.isfinite(perf["train_loss"]).all() and perf["test_accuracy"]):
@@ -1464,6 +1616,7 @@ def make_drive(np, torch, mk, card, ds):
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
         if host:
             print(f"{route} {method}: host ms per step {json.dumps(host)} on {card}")
+        drive.last = perf, d_steps / d_time
         return counts.get(kernel, 0), perf["train_loss"]
 
     return drive
@@ -1494,6 +1647,7 @@ def main() -> int:
         from pcgmix_tpu_torch.parallel import init_group
         from pcgmix_tpu_torch.saliency import (
             bin_training_saliency,
+            make_pretrained_saliency_fn,
             saliency_maps,
             training_saliency_raw,
         )
@@ -1855,7 +2009,9 @@ def main() -> int:
     for method in ("lc-nointrusion", "saliency-cutmix"):
         n, _ = drive(method, "piecewise_mix_pairs", "model-in-the-loop")
         launches_concat["piecewise_mix_pairs", method] = n
-    dependency_phase(np, card)
+    # the dependency runs stay for phase 4's (salopt…) and (closestknn…) runs
+    deps_dir = tempfile.mkdtemp(prefix="chip_smoke_deps_")
+    dep_runs = dependency_phase(np, card, keep=deps_dir)
 
     # ---- 3f. the runtime extras -----------------------------------------
     graph_launches = runtime_phase(np, torch, card, mk)
@@ -1945,6 +2101,16 @@ def main() -> int:
     # a zoo model on this route: ResCNN's BatchNorm takes global statistics
     _, ref["ResCNN", "frozen"] = drive("durratiomixup", "piecewise_mix_pairs", "frozen",
                                        model="ResCNN", epochs=ZOO_EPOCHS, lr_max=0.0)
+    # every other method on this route, held against the single-device route
+    # with the weights frozen: (salopt…) on phase 3e's pretrained base run,
+    # (closestknn…) on its canonical embedder
+    base_dir = next(d for d in dep_runs if os.path.basename(d).split("_")[1:3]
+                    == ["resnet9", "base"])
+    deps = {"root": os.path.join(deps_dir, "experiments"),
+            "provider": make_pretrained_saliency_fn(TrainConfig(model="resnet9"),
+                                                    lambda method: base_dir)}
+    corpora = {"1d": ds, "2d": spec_ds}
+    single_methods = dp_method_runs(torch, drive, corpora, deps, "single")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         init_group("nccl", 0, 1, os.path.join(tmp, "store"))
         try:
@@ -1988,8 +2154,8 @@ def main() -> int:
                 raise AssertionError("data-parallel ResCNN: loss differs from the "
                                      "single-device route")
             # K3 on the bf16 latent's rows that idx1 and idx2 name, as the JAX
-            # package's mesh route mixes a latent (train steps on a split
-            # batch refuse the latent methods: ROADMAP items 5, 6 and 9)
+            # package's mesh route mixes a latent (manifold-cutmix in bf16
+            # below trains through it)
             torch.cuda.synchronize()
             mk.reset_launch_counts()
             k3_latent = k3z(latent16, manifold)()
@@ -2005,6 +2171,11 @@ def main() -> int:
             launches_2d["piecewise_mix_prepaired"], _ = drive(
                 "durratiomixup", "piecewise_mix_prepaired", "data-parallel spec2d",
                 data=spec_ds, dataset=SPEC)
+            # every other method on this route (baselines, mixup, the masks,
+            # the latent methods, the model in the loop)
+            launches_dp = dp_methods_check(
+                np, card, single_methods, dp_method_runs(torch, drive, corpora, deps,
+                                                         "data-parallel"))
             # phase 3f on this route: the step with its collectives in a graph
             graph_launches.update(runtime_dp_phase(np, torch, card, mk))
             # the same profiled PCGmix+ call as phase 3, on this route
@@ -2012,6 +2183,7 @@ def main() -> int:
                               label="profile data-parallel")
         finally:
             dist.destroy_process_group()
+    shutil.rmtree(deps_dir)
 
     # ---- 4b. the experiment grid: the runner CLI on the card ----------------
     grid_phase(np, card)
@@ -2063,6 +2235,12 @@ def main() -> int:
             n = (launches_2d[name] if geometry == "spec2d"
                  else launches_concat.get((name, geometry), 0))
             k[geometry] = {**r, "launches": n}
+    # K3/K4 on phase 4's methods: their launches in each 12-step
+    # data-parallel run (lc-nointrusion: twice a step)
+    for k in kernels:
+        runs = {m: n for (name, m), n in launches_dp.items() if name == k["name"]}
+        if runs:
+            k["data_parallel_methods"] = runs
     # K5 at res2a, conv3 in a field of its own: ms is K5 without stats and
     # library_ms cuDNN's conv, the same function; the fused kernel stands
     # beside cuDNN's conv plus its statistics pass

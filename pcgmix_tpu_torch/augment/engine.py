@@ -30,13 +30,22 @@
   ``lc-nointrusion`` plans a pool of 4B candidate joins (K1 with ``idx1``
   and a zero base, N = 4B output rows) that the trainer scores with the
   live model and thins with :meth:`AugmentEngine.lc_select`.
-- ``apply_prepaired(d1, d2, target1, target2, arrays)`` is the data-parallel
-  counterpart for the per-row bases (JAX ``engine.py:877-953``): a rank
-  passes its block of the batch (or, for the concat family, the rows
-  ``idx1`` names), its partners' rows gathered beforehand and its block of
-  the plan, and the rows go through K3 (``piecewise_mix_prepaired``, base
-  d1 or zero) or K4 (``pcgmix_plus_fused_prepaired``).  ``cutmix(ch)``
-  takes K3 on both routes, on the (B·C, 1, T) view of its rows.
+- Under data parallelism a rank mixes its block of the global batch (JAX
+  ``engine.py:877-953``, GSPMD over the global batch).  A base that reads a
+  partner row goes through ``apply_prepaired(d1, d2, target1, target2,
+  arrays)``: the rank passes its rows (for a concat join, the rows ``idx1``
+  names), its partners' rows gathered beforehand and its block of the plan;
+  the keep-duration blends and cut go through K3
+  (``piecewise_mix_prepaired``, base d1) or K4
+  (``pcgmix_plus_fused_prepaired``), the concat family and the live-model
+  joins through K3 with a zero base, ``cutmix(ch)`` through K3 on the
+  (N·C, 1, T) view of its rows, and ``mixup``/``latentmixup`` blend in
+  tensor code.  The bases that read their own row alone (the masks, the
+  warps, the respiratory sinusoid, Gaussian noise) go through ``apply`` on
+  the rank's block and its block of the plan; the batch-shared arrays
+  (:data:`SHARED_ARRAYS`) pass whole, and ``gaussiannoise``'s noise is the
+  global batch's draw, of which the rank keeps its rows
+  (``train/steps.py``).
 
 Spectrograms (``AugmentConfig.spectrogram``; batches (B, 1, F, T)) parse
 methods with the 2-D ladder.  Their blends, cuts and concat joins run on
@@ -55,9 +64,8 @@ and ``+cutout``), ``mixup``, ``latentmixup``, ``timemask``,
 ``cutout`` (with ``(ch)``), ``s1s2mask``, ``manifold-cutout`` and
 ``manifold-cutmix``, ``lc-nointrusion`` (with ``+cutout``) and
 ``saliency-cutmix``; every 2-D base; every pairing, and the ``(rand)``,
-``(alpha=…)``, ``(salopt…)`` and ``+p`` modifiers.  A batch split over
-data-parallel ranks refuses the model-in-the-loop methods, naming ROADMAP
-queue 1 item 9 (:meth:`AugmentEngine.check_prepaired`).
+``(alpha=…)``, ``(salopt…)`` and ``+p`` modifiers; each on one device and
+on a batch split over data-parallel ranks.
 
 One deviation from the JAX engine: ``gaussiannoise`` draws its noise
 tensor from ``jax.random`` there, which torch cannot reproduce (as with
@@ -108,9 +116,6 @@ PORTED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES + LIVE_MODEL_BAS
     "mixup", "latentmixup", "timemask", "freqmask", "respiratoryscale",
     "magnitudewarp", "timewarp", "gaussiannoise", "cutout", "s1s2mask",
 )
-# the bases a data-parallel rank mixes on its block (every row's pieces
-# read only its own row and one partner)
-PREPAIRED_BASES = KEEPDUR_BASES + KEEPDUR_CUT_BASES + CONCAT_BASES
 LC_MULT = 4  # lc-nointrusion's candidates per batch row (augmentations.py:1230)
 # plan arrays that are not batch-leading: a data-parallel rank takes them
 # whole (the frequency band is shared by the batch, the sinusoid by its rows)
@@ -179,11 +184,14 @@ def _per_row(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _blend(data, mix_idx, lam):
-    """Whole-signal mixup: data·λ + data[mix]·(1−λ) (augmentations.py:849);
-    λ a scalar or one per row."""
-    mixed = data.index_select(0, mix_idx.long())
-    lam = _per_row(torch.as_tensor(lam, dtype=data.dtype, device=data.device), data)
-    return data * lam + mixed * (1.0 - lam)
+    """Whole-signal mixup: data·λ + data[mix]·(1−λ) (augmentations.py:849)."""
+    return _lerp_rows(data, data.index_select(0, mix_idx.long()), lam)
+
+
+def _lerp_rows(d1, d2, lam):
+    """d1·λ + d2·(1−λ), λ a scalar or one per row."""
+    lam = _per_row(torch.as_tensor(lam, dtype=d1.dtype, device=d1.device), d1)
+    return d1 * lam + d2 * (1.0 - lam)
 
 
 def _smooth_join(out, x1, x2, a):
@@ -1005,25 +1013,6 @@ class AugmentEngine:
         noise = a["noise"] if "noise" in a else a["noise_seed"]
         return _gaussian_noise(data, a["snr"], a["end"], noise), target_ohe
 
-    def check_prepaired(self) -> None:
-        """Raise unless :meth:`apply_prepaired` takes this method: the
-        data-parallel route splits a batch over the ranks for the
-        keep-duration blends and cut and the concat family (the latent
-        methods, the masks and the other baselines run on a replicated
-        batch, or on one device).  The model-in-the-loop methods refuse
-        the data-parallel route, naming the ROADMAP item they wait for."""
-        if self.model_in_the_loop:
-            raise NotImplementedError(
-                f"{self.cfg.method!r} takes a model in the loop, which the "
-                "data-parallel route does not run yet (ROADMAP queue 1 item 9); "
-                "run it on one device"
-            )
-        if self.spec.base not in PREPAIRED_BASES or self.spec.latent:
-            raise NotImplementedError(
-                f"{self.spec.base!r} on a data-parallel batch split over the "
-                "ranks is not ported yet; run it on one device"
-            )
-
     def apply_prepaired(self, d1: torch.Tensor, d2: torch.Tensor,
                         target1: torch.Tensor, target2: torch.Tensor,
                         arrays: dict):
@@ -1031,15 +1020,20 @@ class AugmentEngine:
         beforehand: row i of ``d1`` (its base row: ``idx1``'s for the concat
         family) mixes with row i of ``d2``, and its one-hot target with row
         i of ``target2``.  ``arrays`` holds the block's rows of every
-        batch-leading plan array.  Returns (data, target_ohe)."""
-        self.check_prepaired()
+        batch-leading plan array.  Returns (data, target_ohe).  The bases
+        that read no partner row take :meth:`apply` on the block instead."""
         a = self.device_arrays(arrays, d1.device)
         return self._gated(self._apply_prepaired(d1, d2, target1, target2, a), d1,
                            target1, a)
 
     def _apply_prepaired(self, d1, d2, target1, target2, a: dict):
         base = self.spec.base
-        if base in CONCAT_BASES:
+        if base in ("mixup", "latentmixup"):
+            out = _lerp_rows(d1, d2, a["lam"])
+            if self.spec.mix_all_targets:
+                target1 = _lerp_targets(target1, target2, a["lam"])
+            return out, target1
+        if base in CONCAT_BASES + LIVE_MODEL_BASES:
             if self.spec.per_channel:
                 out = _cutmix_per_channel(d1, d2, a)
             else:

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import argparse
 import copy
-import dataclasses
+import functools
 import json
 import time
 
@@ -73,9 +73,7 @@ from pcgmix_tpu_torch.ops import launch_counts, reset_launch_counts
 from pcgmix_tpu_torch.timing import host_times, reset_host_times
 from pcgmix_tpu_torch.train.loop import (
     TrainConfig,
-    check_single_device,
     resolve_device,
-    run_world,
     train_model,
 )
 
@@ -97,6 +95,13 @@ def _salopt_dependency(cfg: TrainConfig, robust: bool) -> TrainConfig | None:
         dep = hyperparameters_robust(dep)
     dep.save_artifacts = True  # the dependency's checkpoint is the artifact
     return dep
+
+
+def _salopt_checkpoint_dir(cfg: TrainConfig, robust: bool, method: str) -> str:
+    """The run dir of ``cfg``'s salopt dependency (``method`` is the one its
+    salopt model names): a module-level function, so that the provider
+    pickles into spawned ranks."""
+    return experiment_dir(_salopt_dependency(cfg, robust))
 
 
 def _latent_dependency(cfg: TrainConfig) -> TrainConfig | None:
@@ -139,9 +144,6 @@ def run_grid(
     ``gang_devices`` ranks where they divide, and with ``gang_fallback`` a
     failed gang's members retrained one by one."""
     resolve_device(base_cfg.device)
-    world = run_world(base_cfg)
-    for method in methods:
-        check_single_device(dataclasses.replace(base_cfg, method=method), world)
     if base_cfg.dataset.startswith("UMC") and not (
             seed_datas and all(s in FOLDS for s in seed_datas)):
         raise ValueError("a UMC grid takes its train folds as data seeds: "
@@ -170,7 +172,7 @@ def run_grid(
         from pcgmix_tpu_torch.saliency import make_pretrained_saliency_fn
 
         return make_pretrained_saliency_fn(
-            cfg, lambda method: experiment_dir(_salopt_dependency(cfg, robust)))
+            cfg, functools.partial(_salopt_checkpoint_dir, cfg, robust))
 
     def run_one(cfg):
         """Train ``cfg`` after its dependencies; a point that one of them

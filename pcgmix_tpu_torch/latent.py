@@ -79,7 +79,11 @@ def latent_space_for(cfg, sig_len: int) -> "LatentSpace":
 
 class LatentSpace:
     """A frozen embedder: ``model_name``'s split forward at its embedding
-    depth (ResCNN: the pooled depth-5 features, (B, 128)), in eval mode."""
+    depth (ResCNN: the pooled depth-5 features, (B, 128)), in eval mode.
+
+    It pickles as what builds it, with its device's type: a spawned
+    data-parallel rank loads the checkpoint onto its own card.  Embeddings
+    are per row, so a rank embeds its block of a batch."""
 
     def __init__(self, checkpoint_path: str, model_name: str = "ResCNN",
                  num_channels: int = 4, sig_len: int = 2500, num_classes: int = 2,
@@ -87,11 +91,15 @@ class LatentSpace:
         from pcgmix_tpu_torch.models import build_model
         from pcgmix_tpu_torch.saliency import load_weights
 
+        self._args = (checkpoint_path, model_name, num_channels, sig_len, num_classes)
         self.model = build_model(model_name, num_classes, num_channels, sig_len)
         self.model.load_state_dict(load_weights(checkpoint_path))
         self.model.to(device).eval()
         self.device = torch.device(device)
         self.depth = EMBED_DEPTH.get(model_name, 5)
+
+    def __reduce__(self):
+        return type(self), (*self._args, self.device.type)
 
     @torch.no_grad()
     def generate(self, data) -> np.ndarray:

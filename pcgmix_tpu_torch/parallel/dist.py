@@ -22,6 +22,16 @@ hand, one process per device:
   this process holds: BatchNorm takes local statistics on a replicated
   batch, and dropout draws the global batch's masks and keeps its rows.
 
+A mix that reads rows of other ranks (a partner row, a concat join's base
+row, a latent) takes them from the corpus every rank holds, or, for a
+latent, from :meth:`DataParallel.gather_grad`: the global batch's latent,
+whose backward all-reduces the whole gradient and keeps the rank's block,
+so that a rank's first part gets the gradient of every rank's use of its
+rows.  The per-row numbers a host plan is built from (saliency maps,
+candidate losses, embeddings) come from each rank's block and reach every
+rank through :meth:`DataParallel.gather_host`, so every rank builds the
+same plan from the same numbers.
+
 Groups are NCCL on CUDA and gloo on the CPU; the CPU route exists for the
 tests.  :func:`spawn` starts one worker per device and returns rank 0's
 result; the workers rendezvous through a ``FileStore`` in a temporary
@@ -184,3 +194,49 @@ class DataParallel:
         parts = [torch.empty_like(t) for _ in range(self.world)]
         dist.all_gather(parts, t.contiguous())
         return torch.cat(parts)
+
+    def gather_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`gather` with a backward: the global batch's gradient is
+        summed over the ranks and each rank keeps its own block (every
+        rank must run the backward)."""
+        return _GatherWithGrad.apply(t, self)
+
+    def _host_device(self) -> torch.device:
+        """Where a host array travels through the group: the rank's card
+        under NCCL, the CPU under gloo."""
+        if dist.get_backend() == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def gather_host(self, a) -> np.ndarray:
+        """Every rank's host array ``a`` (equal shapes) concatenated in rank
+        order, bit for bit: the per-row numbers of the global batch from
+        the ranks' blocks."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(self._host_device())
+        return self.gather(t).cpu().numpy()
+
+    def broadcast_host(self, a) -> np.ndarray:
+        """Rank 0's host array ``a`` on every rank (a replicated batch's
+        numbers: every rank computed them, rank 0's are kept)."""
+        t = torch.from_numpy(np.array(a, copy=True)).to(self._host_device())
+        dist.broadcast(t, src=0)
+        return t.cpu().numpy()
+
+
+class _GatherWithGrad(torch.autograd.Function):
+    """``all_gather`` in rank order; the backward all-reduces (sums) the
+    whole gradient and returns the rank's block of it.  Only ``all_gather``,
+    ``all_reduce`` and nothing that gloo lacks (``torch.distributed.nn``'s
+    gather takes reduce-scatter or all-to-all in its backward)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dp: "DataParallel") -> torch.Tensor:
+        ctx.dp, ctx.n = dp, t.shape[0]
+        return dp.gather(t)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        r = ctx.dp.rank
+        return grad[r * ctx.n:(r + 1) * ctx.n], None

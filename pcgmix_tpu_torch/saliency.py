@@ -20,7 +20,6 @@ smoothing and scaling run on the model's device; the binning is host work.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable
 
@@ -112,14 +111,40 @@ def make_pretrained_saliency_fn(
     batch's device and kept in eval mode.  It is built without the run's
     ``compute_dtype``, as the JAX package builds it (``saliency.py:122``):
     float32 whatever the run computes in.  The live saliency of
-    ``saliency-cutmix`` uses the run's own model."""
-    from pcgmix_tpu_torch.models import build_model
+    ``saliency-cutmix`` uses the run's own model.
 
-    @functools.lru_cache(maxsize=4)
-    def provider(salopt_model: int):
+    The provider pickles as ``cfg`` and ``checkpoint_dir_for`` (which must
+    pickle, a module-level function or a ``functools.partial`` of one), so
+    each spawned data-parallel rank loads the checkpoint itself; maps are
+    per row, so a rank takes its block of the batch."""
+    return _PretrainedSaliency(cfg, checkpoint_dir_for)
+
+
+class _PretrainedSaliency:
+    """See :func:`make_pretrained_saliency_fn`."""
+
+    def __init__(self, cfg, checkpoint_dir_for: Callable[[str], str]):
+        self.cfg, self.checkpoint_dir_for = cfg, checkpoint_dir_for
+        self._fns: dict = {}
+
+    def __getstate__(self) -> dict:
+        return {"cfg": self.cfg, "checkpoint_dir_for": self.checkpoint_dir_for}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__init__(state["cfg"], state["checkpoint_dir_for"])
+
+    def __call__(self, salopt_model: int) -> Callable:
+        if salopt_model not in self._fns:
+            self._fns[salopt_model] = self._load(salopt_model)
+        return self._fns[salopt_model]
+
+    def _load(self, salopt_model: int) -> Callable:
+        from pcgmix_tpu_torch.models import build_model
+
+        cfg = self.cfg
         method = SALOPT_PRETRAIN_METHODS[salopt_model]
         state = load_weights(require_checkpoint(
-            checkpoint_dir_for(method), f"(salopt…) with the {method!r} saliency model"))
+            self.checkpoint_dir_for(method), f"(salopt…) with the {method!r} saliency model"))
         built = {}
 
         def fn(data, target_ohe, frames):
@@ -134,8 +159,6 @@ def make_pretrained_saliency_fn(
                                  dim=2 if cfg.spectrogram else 1)
 
         return fn
-
-    return provider
 
 
 def _interp_downsample(x: np.ndarray, bins: int) -> np.ndarray:

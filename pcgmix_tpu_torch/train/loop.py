@@ -35,8 +35,16 @@ model under eval mode and trains on the lowest-loss ones.  With
 ``latent_space`` and a ``latent_space_model`` the embeddings of each
 augmented batch are dumped to ``latent_space/`` in the run directory.  The
 host time of each of these phases adds to :mod:`pcgmix_tpu_torch.timing`.
-They run on one device; the data-parallel route refuses them (ROADMAP
-queue 1 item 9).  The spectrogram datasets (``PhysioNet(spec128)``,
+Over data-parallel ranks (JAX ``loop.py:539-595``, ``:626``) each rank
+computes its block of the batch's saliency maps, saliency bins,
+embeddings or candidate losses and the ranks gather them, so every rank
+builds the same plan from the same numbers (on a batch replicated over the
+ranks rank 0's numbers are broadcast); ``lc-nointrusion``'s ranks each
+build and score a block of the pool and train on their block of the
+picked rows; the dumps hold the global batch's embeddings and rank 0
+writes them.  Hooks reach spawned ranks pickled
+(``make_pretrained_saliency_fn``'s provider and a ``LatentSpace`` pickle
+as what rebuilds them).  The spectrogram datasets (``PhysioNet(spec128)``,
 ``UMC(spec128)``, ``UMC(spec64)``) train the 2-D ResNet9 on (N, 1, F, T)
 mel spectrograms with the 2-D method ladder; the UMC datasets split by
 patient folds (``data/umc.py``).
@@ -64,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 import re
 import time
 from typing import Optional
@@ -73,8 +82,7 @@ import torch
 import torch.distributed as dist
 
 from pcgmix_tpu_torch import utils
-from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine, model_in_the_loop
-from pcgmix_tpu_torch.augment.methods import parse_method
+from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split, umc_split
 from pcgmix_tpu_torch.data.datasets import load_cvd_map
 from pcgmix_tpu_torch.data.device_cache import device_tensor
@@ -228,21 +236,6 @@ def run_world(cfg: TrainConfig) -> int:
     return torch.cuda.device_count() if resolve_device(cfg.device).type == "cuda" else 1
 
 
-def check_single_device(cfg: TrainConfig, world: int, hooks: Optional[dict] = None) -> None:
-    """Raise when a run of ``world`` ranks would need what runs on one device
-    only: a model-in-the-loop method (ROADMAP queue 1 item 9), or the
-    latent-space dumps of a ``latent_space_model`` (item 6)."""
-    if world <= 1:
-        return
-    if model_in_the_loop(parse_method(cfg.method, spectrogram=cfg.spectrogram)):
-        raise NotImplementedError(
-            f"{cfg.method!r} takes a model in the loop, which the data-parallel "
-            "route does not run yet (ROADMAP queue 1 item 9); run it on one device")
-    if hooks and hooks.get("latent_space_model") is not None:
-        raise NotImplementedError(
-            "the latent-space dumps run on one device only (ROADMAP queue 1 item 6)")
-
-
 def train_model(cfg: TrainConfig, dataset: dict, *, saliency_model_provider=None,
                 latent_feature_fn=None, latent_space_model=None) -> dict:
     """Train one configuration end to end; returns the performance dict.
@@ -275,42 +268,73 @@ def train_model(cfg: TrainConfig, dataset: dict, *, saliency_model_provider=None
             f"n_devices={world} but {torch.cuda.device_count()} CUDA devices"
         )
     if world > 1:
-        check_single_device(cfg, world, hooks)
         backend = "nccl" if device.type == "cuda" else "gloo"
-        return spawn(_train_rank, world, backend, (cfg, dataset))
+        return spawn(_train_rank, world, backend, (cfg, dataset, _picklable(hooks)))
     return _train(cfg, dataset, None, **hooks)
 
 
-def _train_rank(cfg: TrainConfig, dataset: dict) -> dict:
+def _picklable(hooks: dict) -> dict:
+    """The hooks a spawned rank receives: each must pickle (a module-level
+    function, ``make_pretrained_saliency_fn``'s provider, a ``LatentSpace``
+    or its ``generate``)."""
+    for name, hook in hooks.items():
+        try:
+            pickle.dumps(hook)
+        except Exception as e:
+            raise TypeError(
+                f"{name} must pickle to reach the spawned ranks of n_devices > 1 ({e}); "
+                "pass one that does, or call train_model inside an initialized process "
+                "group (torchrun), where the hooks stay as they are") from e
+    return hooks
+
+
+def _train_rank(cfg: TrainConfig, dataset: dict, hooks: Optional[dict] = None) -> dict:
     """A spawned rank's entry point (see :func:`pcgmix_tpu_torch.parallel.spawn`)."""
-    return _train(cfg, dataset, DataParallel.current())
+    return _train(cfg, dataset, DataParallel.current(), **(hooks or {}))
+
+
+def _ranks_share(dp: Optional[DataParallel], n: int):
+    """(whether a batch of ``n`` rows is split over the ranks, the slice of
+    it this process holds, ``share``): under data parallelism ``share(a)``
+    turns the host array of the rows a rank holds into the global batch's
+    on every rank, by gathering the ranks' blocks, or for a batch
+    replicated over the ranks by broadcasting rank 0's."""
+    if dp is None:
+        return False, slice(None), lambda a: a
+    if dp.divides(n):
+        return True, dp.block(n), dp.gather_host
+    return False, slice(None), dp.broadcast_host
 
 
 def _plan_hooks(step: TrainStep, batch: dict, model, saliency_model_provider,
-                latent_feature_fn) -> dict:
+                latent_feature_fn, dp: Optional[DataParallel] = None) -> dict:
     """The plan's model hooks for one batch (JAX ``loop.py:539-566``), each
-    on the batch's device tensors, gathered at the first call."""
+    on the device tensors of the rows this process holds, gathered at the
+    first call; their per-row numbers are shared over the ranks."""
+    _, sl, share = _ranks_share(dp, len(batch["indices"]))
+    frames = np.asarray(batch["frames"])[sl]
     cache = []
 
     def tensors():
         if not cache:
-            cache.append(step.batch(batch["indices"]))
+            cache.append(step.batch(np.asarray(batch["indices"])[sl]))
         return cache[0]
 
     def saliency_fn(mix_model):
         _, data, target = tensors()
         with timed("saliency"):
-            return saliency_model_provider(mix_model)(data, target, batch["frames"])
+            return share(np.asarray(saliency_model_provider(mix_model)(data, target, frames)))
 
     def saliency_bins_fn():
         _, data, target = tensors()
         with timed("saliency"):
-            return training_saliency_bins(model, data, target, batch["frames"])
+            values, bin_frames = training_saliency_bins(model, data, target, frames)
+            return share(values), share(bin_frames)
 
     def latent_fn():
         data = tensors()[1]
         with timed("latent embedding"):
-            return latent_feature_fn(data)
+            return share(np.asarray(latent_feature_fn(data)))
 
     return {"saliency_fn": saliency_fn if saliency_model_provider else None,
             "saliency_bins_fn": saliency_bins_fn,
@@ -321,14 +345,28 @@ def _lc_step(step: TrainStep, engine: AugmentEngine, plan, batch: dict, epoch: i
     """``lc-nointrusion`` (JAX ``loop.py:572-595``): the plan's 4B candidate
     joins (K1) scored by the live model under eval mode; a step on the
     lowest-loss ones, whose SELC rows are the batch's corpus rows mapped
-    through ``idx1``."""
-    _, data, target = step.batch(batch["indices"])
-    cands, cand_t = engine.apply(data, target, plan.arrays)
+    through ``idx1``.  On a batch split over data-parallel ranks each rank
+    joins and scores its block of the pool (K3, zero base), the losses are
+    gathered, every rank picks the same rows, and each trains on its block
+    of them, joined again from the plan rows the pick names (K3)."""
+    indices = np.asarray(batch["indices"])
+    sharded, _, share = _ranks_share(step.dp, len(indices))
+    idx = step.upload(indices)
+    if sharded:
+        cands, cand_t = step.mix_rows(idx, engine.device_arrays(plan.arrays, idx.device))
+    else:
+        _, data, target = step.batch(indices)
+        cands, cand_t = engine.apply(data, target, plan.arrays)
     with timed("candidate forward"):
-        losses = candidate_losses(step.model, cands, cand_t).cpu().numpy()
+        losses = share(candidate_losses(step.model, cands, cand_t).cpu().numpy())
     with timed("lc_select"):
         sel = engine.lc_select(losses, plan.aux["cand_labels"], plan.aux["n_per_class"])
-    rows = np.asarray(batch["indices"])[plan.arrays["idx1"][sel]]
+    rows = indices[plan.arrays["idx1"][sel]]
+    if sharded:
+        picked = {k: v[sel] if isinstance(v, np.ndarray) and v.ndim and
+                  len(v) == len(losses) else v for k, v in plan.arrays.items()}
+        data, target = step.mix_rows(idx, engine.device_arrays(picked, idx.device))
+        return step.train_on(data, target, rows, epoch)
     sel = torch.from_numpy(sel).to(cands.device)
     return step.train_on(cands.index_select(0, sel), cand_t.index_select(0, sel), rows, epoch)
 
@@ -337,15 +375,21 @@ def _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
                   results_dir) -> None:
     """The embeddings of the augmented batch, dumped per step (JAX
     ``loop.py:626-675``; train_model.py:508-518): the plan applied to the
-    input, or the batch itself for a latent method or lc-nointrusion."""
+    input, or the batch itself for a latent method or lc-nointrusion.  Over
+    data-parallel ranks each rank embeds the rows it holds, and rank 0
+    writes the global batch's (``results_dir`` None on the other ranks)."""
     from pcgmix_tpu_torch.latent import save_latent_space
 
-    _, data, target = step.batch(batch["indices"])
-    if plan is not None and plan.latent_depth is None and (
-            engine.spec.base != "lc-nointrusion"):
-        data, _ = engine.apply(data, target, plan.arrays)
-    save_latent_space({"fts": latent_space_model.generate(data), "target": batch["label"]},
-                      "train", step_count, results_dir)
+    sharded, _, share = _ranks_share(step.dp, len(batch["indices"]))
+    idx = step.upload(batch["indices"])
+    augmented = plan is not None and plan.latent_depth is None and (
+        engine.spec.base != "lc-nointrusion")
+    arrays = engine.device_arrays(plan.arrays, idx.device) if augmented else None
+    _, data, _ = step.inputs(idx, arrays, sharded)
+    fts = share(np.asarray(latent_space_model.generate(data)))
+    if results_dir is not None:
+        save_latent_space({"fts": fts, "target": batch["label"]}, "train", step_count,
+                          results_dir)
 
 
 def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
@@ -388,8 +432,6 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
         sample_rate=cfg.sample_rate, cvd_map=cvd_map, spectrogram=cfg.spectrogram,
         spec_freq=F, model=cfg.model, num_classes=cfg.num_classes,
     ))
-    if dp is not None:
-        check_single_device(cfg, dp.world, {"latent_space_model": latent_space_model})
     if engine.needs_latent_model and latent_feature_fn is None:
         # the reference's canonical frozen embedder (latent_space.py:27-29);
         # raises, naming its model.pth, when that run has not been trained
@@ -473,7 +515,7 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
             else:
                 if engine.enabled:
                     hooks = (_plan_hooks(step, batch, model, saliency_model_provider,
-                                         latent_feature_fn)
+                                         latent_feature_fn, dp)
                              if engine.model_in_the_loop else {})
                     plan = engine.plan(
                         step_count, batch["frames"], batch["label"], batch["wav"], **hooks
@@ -488,7 +530,8 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
                                plan.latent_depth if plan else None)
                 if cfg.latent_space and latent_space_model is not None:
                     _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
-                                  run_dir or cfg.experiments_root)
+                                  (run_dir or cfg.experiments_root)
+                                  if dp is None or dp.rank == 0 else None)
                 losses.append(out["loss"].reshape(1))
                 preds.append(out["preds"])
                 targets.append(out["target"])

@@ -12,18 +12,20 @@ backward → gradient value clipping → Adam with L2 weight decay → OneCycle
 
 Under data parallelism (the JAX package's mesh step) a rank runs the same
 step on its block of the global batch: it gathers its rows (for the concat
-family: the base rows its block of the plan names) and its partners'
-rows from the corpus it holds, mixes them through K3/K4, and averages the
-gradients over the ranks before clipping, so the update is
+family: the base rows its block of the plan names) and its partners' rows
+from the corpus it holds, mixes them through K3/K4 (the bases that read
+their own row alone, through the same tensor code on its block), and
+averages the gradients over the ranks before clipping, so the update is
 the global batch's.  Loss, predictions and targets come back global.  A
 global batch that does not divide over the ranks is replicated instead:
 every rank runs the single-device step on all of it (K1/K2), BatchNorm
 takes local statistics, and the gradients come out equal on every rank
 (the JAX package's unsharded fallback, ``pcgmix_tpu/augment/engine.py:
-914-916``, ``:943-944``).  A batch split over the ranks takes the
-per-row bases (the keep-duration blends and cut, the concat family); the
-1-D baselines and the latent methods raise there
-(``AugmentEngine.check_prepaired``).
+914-916``, ``:943-944``).  A latent method's first part runs on the rank's
+block, and a mix that reads other rows reads them from the global latent
+(``DataParallel.gather_grad`` for latentmixup, whose backward gives each
+rank the gradient of every rank's use of its rows; a plain gather for the
+manifold methods, whose first part takes no gradient).
 
 Latent methods (latentmixup, ``manifold-cutout``, ``manifold-cutmix``) split the forward at the
 plan's depth (JAX ``train/steps.py:192-224``): the model's first part gives
@@ -45,7 +47,9 @@ ResCNN, Singstad_d10); the others refuse ``part="first"``.
 than on corpus rows (JAX ``loop.py:572-595``): :func:`candidate_losses`
 scores the pool under eval mode, and :meth:`TrainStep.train_on` takes the
 picked rows' data, one-hot targets and the corpus rows their SELC entries
-belong to.
+belong to; under data parallelism a rank builds and scores its block of
+the pool and trains on its block of the picked rows
+(:meth:`TrainStep.mix_rows`).
 """
 
 from __future__ import annotations
@@ -158,7 +162,7 @@ class TrainStep:
         rows = self.upload(indices)
         return (rows, *self._gather(rows))
 
-    def _inputs(self, idx: torch.Tensor, plan: Optional[dict], sharded: bool):
+    def inputs(self, idx: torch.Tensor, plan: Optional[dict], sharded: bool):
         """This step's (rows, data, target): the whole batch, or when
         ``sharded`` this rank's block of it, mixed by the plan (device
         arrays)."""
@@ -167,29 +171,73 @@ class TrainStep:
             if plan is not None:
                 data, target = self.engine.apply(data, target, plan)
             return idx, data, target
-        n = len(idx)
-        rows = idx[self.dp.block(n)]
-        data, target = self._gather(rows)
-        if plan is not None:
-            block = self.dp.shard_arrays(plan, n, SHARED_ARRAYS)
-            self.engine.check_prepaired()
-            # the concat family names its base rows (idx1) and partners
-            # (idx2); the blends and the cut mix a row with block["mix"]
-            if "idx1" in block:
-                data, target = self._gather(idx.index_select(0, block["idx1"].long()))
-            d2, t2 = self._gather(
-                idx.index_select(0, block["idx2" if "idx2" in block else "mix"].long()))
-            data, target = self.engine.apply_prepaired(data, d2, target, t2, block)
-        return rows, data, target
+        rows = idx[self.dp.block(len(idx))]
+        if plan is None:
+            return (rows, *self._gather(rows))
+        return (rows, *self.mix_rows(idx, plan))
 
-    def _split_forward(self, data, target, plan_arrays: dict, depth: int):
-        """First part → the engine's apply on the latent → second part."""
-        if self.engine.spec.manifold:
+    def mix_rows(self, idx: torch.Tensor, plan: dict):
+        """(data, one-hot target) of this rank's block of a plan's output
+        rows: of the global batch ``idx`` (corpus rows), or of another
+        number of output rows that the plan's arrays lead with (an
+        ``lc-nointrusion`` pool of 4B candidates, or the B it picked)."""
+        n = len(plan["idx1"]) if "idx1" in plan else len(idx)
+        block = self._block_plan(plan, n, self.train_data)
+        return self._mix_block(lambda pos: self._gather(idx.index_select(0, pos.long())),
+                               lambda: self._gather(idx[self.dp.block(n)]), block)
+
+    def _block_plan(self, plan: dict, n: int, like: torch.Tensor) -> dict:
+        """This rank's block of a plan over ``n`` output rows (the shared
+        arrays whole); ``gaussiannoise``'s noise is the global batch's draw
+        from the plan's seed, its rows kept, as one device draws it."""
+        block = self.dp.shard_arrays(plan, n, SHARED_ARRAYS)
+        if "noise_seed" in block and "noise" not in block:
+            noise = gaussian_noise_draw(block.pop("noise_seed"), (n, *like.shape[1:]),
+                                        like.device, like.dtype)
+            block["noise"] = noise[self.dp.block(n)]
+        return block
+
+    def _mix_block(self, fetch, own, block: dict):
+        """Mix this rank's block: ``own()`` gives its rows' (data, target)
+        and ``fetch(positions)`` those of any rows of the global batch.  A
+        base that reads a partner row takes its base rows (its own, or
+        ``idx1``'s) and partners (``idx2``'s or ``mix``'s) through
+        ``apply_prepaired``; the others take ``apply`` on its own rows."""
+        pairs = "idx2" if "idx2" in block else "mix" if "mix" in block else None
+        if pairs is None:
+            return self.engine.apply(*own(), block)
+        data, target = fetch(block["idx1"]) if "idx1" in block else own()
+        d2, t2 = fetch(block[pairs])
+        return self.engine.apply_prepaired(data, d2, target, t2, block)
+
+    def _split_forward(self, data, target, plan_arrays: dict, depth: int,
+                       idx: Optional[torch.Tensor] = None):
+        """First part → the engine's apply on the latent → second part; with
+        the global batch ``idx``, this rank's block of it (a split batch)."""
+        manifold = self.engine.spec.manifold
+        if manifold:
             with torch.no_grad(), eval_mode(self.model):
                 latent = self.model(data, depth=depth, part="first")
         else:
             latent = self.model(data, depth=depth, part="first")
-        latent, target = self.engine.apply(latent, target, plan_arrays)
+        if idx is None:
+            latent, target = self.engine.apply(latent, target, plan_arrays)
+        else:
+            n = len(idx)
+            block = self._block_plan(plan_arrays, n, latent)
+            cache = []
+
+            def fetch(pos):  # rows of the global latent (gathered once)
+                if not cache:
+                    cache.append(self.dp.gather(latent) if manifold
+                                 else self.dp.gather_grad(latent))
+                    cache.append(F.one_hot(self.train_labels.index_select(0, idx),
+                                           self.num_classes).to(target.dtype))
+                pos = pos.long()
+                return cache[0].index_select(0, pos), cache[1].index_select(0, pos)
+
+            mixed = latent, target
+            latent, target = self._mix_block(fetch, lambda: mixed, block)
         return self.model(latent, depth=depth, part="second"), target
 
     def batch(self, indices):
@@ -198,12 +246,16 @@ class TrainStep:
 
     def train_on(self, data: torch.Tensor, target: torch.Tensor, indices, epoch: int) -> dict:
         """One step on given rows: ``data`` and its one-hot ``target``, whose
-        SELC entries are the corpus rows ``indices``; no plan."""
-        if self.dp is not None:
-            raise NotImplementedError(
-                "a step on given rows runs on one device only (ROADMAP queue 1 item 9)")
+        SELC entries are the corpus rows ``indices``; no plan.  Under data
+        parallelism, on rows that divide over the ranks, ``data`` and
+        ``target`` are this rank's block of them (:meth:`mix_rows`) and
+        ``indices`` all of theirs."""
         rows = torch.from_numpy(np.asarray(indices, np.int64)).to(data.device)
-        return self._update(rows, data, target, None, epoch, None, len(rows), False)
+        n = len(rows)
+        sharded = self.dp is not None and self.dp.divides(n)
+        if sharded:
+            rows = rows[self.dp.block(n)]
+        return self._update(rows, data, target, None, epoch, None, n, sharded)
 
     def __call__(self, indices, plan_arrays: Optional[dict], epoch: int,
                  latent_depth: Optional[int] = None) -> dict:
@@ -221,24 +273,24 @@ class TrainStep:
         n = len(idx)
         sharded = self.dp is not None and self.dp.divides(n)
         latent = plan is not None and latent_depth is not None
-        if latent and sharded:
-            self.engine.check_prepaired()  # raises: latent methods are row-global
-        rows, data, target = self._inputs(idx, None if latent else plan, sharded)
+        rows, data, target = self.inputs(idx, None if latent else plan, sharded)
         return self._update(rows, data, target, plan if latent else None, epoch,
-                            latent_depth, n, sharded, scalars)
+                            latent_depth, n, sharded, scalars, idx)
 
     def _update(self, rows, data, target, latent_plan: Optional[dict], epoch: int,
                 latent_depth: Optional[int], n: int, sharded: bool,
-                scalars: Optional[torch.Tensor] = None) -> dict:
+                scalars: Optional[torch.Tensor] = None,
+                idx: Optional[torch.Tensor] = None) -> dict:
         """Forward (split at ``latent_depth`` with ``latent_plan``), SELC loss,
         backward and update on this step's rows (``n`` rows in the global
-        batch; this rank's block of them when ``sharded``)."""
+        batch ``idx``; this rank's block of them when ``sharded``)."""
         latent = latent_plan is not None
         self.model.train()
         rows_held = self.dp.block(n) if sharded else slice(0, n)
         with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):
             if latent:
-                out, target = self._split_forward(data, target, latent_plan, latent_depth)
+                out, target = self._split_forward(data, target, latent_plan, latent_depth,
+                                                  idx if sharded else None)
             else:
                 out = self.model(data)
         loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)

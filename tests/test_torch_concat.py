@@ -6,7 +6,8 @@ spectrograms; every apply within 1e-6 of the JAX engine's (K1's plain
 version, a zero base and explicit rows for the concat family) and of
 tests/golden/engine_v1.npz, read as data; a data-parallel rank's block
 (K3's plain version on rows gathered by ``idx1``/``idx2``) equal to its
-rows of the whole batch; manifold-cutmix at depths 0–3 on ResNet9, Potes
+rows of the whole batch, and so is a rank's block of manifold-cutmix's
+latent, its rows read from the global latent; manifold-cutmix at depths 0–3 on ResNet9, Potes
 and the 2-D ResNet9, whose pieces run past the latent's end (clamped, as
 XLA's ``piecewise_mix``); and ``train_model`` with cutmix tracking
 ``pcgmix_tpu.train_model(torch_init=True, loader_parity="torch")`` at the
@@ -37,6 +38,7 @@ from pcgmix_tpu_torch.models import build_model
 from pcgmix_tpu_torch.parallel import DataParallel
 from pcgmix_tpu_torch.train import TrainConfig, train_model
 from pcgmix_tpu_torch.train.convert import seeded_init
+from tests import torch_dp_runs
 
 B, C, T = 8, 4, 512
 S = 32  # spectrogram side
@@ -199,7 +201,6 @@ def test_rank_blocks_equal_the_whole_batch(method, spectrogram, split, spec_spli
     plan = eng.plan(3, b["frames"], b["label"], b["wav"])
     data, target = torch.from_numpy(s.data[b["indices"]]), torch.from_numpy(EYE[b["label"]])
     whole, whole_t = eng.apply(data, target, plan.arrays)
-    eng.check_prepaired()
     for rank in range(2):
         dp = DataParallel(rank=rank, world=2)
         sl = dp.block(B)
@@ -229,10 +230,21 @@ def test_concat_family_refuses_or_takes_multicycle_frames(method):
         ref.plan(5, frames, labels)
 
 
-def test_manifold_cutmix_refuses_a_batch_split_over_ranks():
+def test_manifold_cutmix_splits_over_ranks(split):
+    """manifold-cutmix on a batch split over two data-parallel ranks: each
+    rank mixes its block of the latent, its base and partner rows read
+    from the global latent (what the ranks' gather gives) through K3 with a
+    zero base; in rank order, the whole latent's apply, bit for bit."""
     eng, _ = _engines("manifold-cutmix")
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        eng.check_prepaired()
+    _, b = next(_batches(split, 1))
+    plan = eng.plan(3, b["frames"], b["label"], b["wav"])
+    latent = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(B, 16, T // 4)).astype(np.float32))
+    target = torch.from_numpy(EYE[b["label"]])
+    whole, whole_t = eng.apply(latent, target, plan.arrays)
+    blocks = torch_dp_runs.rank_latents(eng, latent, target, plan.arrays)
+    assert torch.equal(torch.cat([d for d, _ in blocks]), whole)
+    assert torch.equal(torch.cat([t for _, t in blocks]), whole_t)
 
 
 def _seeded_model(model, spectrogram):

@@ -2,7 +2,8 @@
 ``hyperparameters_robust`` equal to the JAX one for every published
 (method, n_fraction) × model, the same run-directory names, run dirs that
 the JAX package's ``read_performance`` reads back, resume-skip on a rerun,
-and the options that wait for later slices refused."""
+the dependency methods over two data-parallel ranks, and the options that
+wait for later slices refused."""
 
 import copy
 import dataclasses
@@ -146,12 +147,40 @@ def test_unported_options_raise(option, item):
         main(["--dataset-file", "absent.dat", "--device", "cpu", *option])
 
 
-@pytest.mark.parametrize("method", ["(saloptenv-1)durratiomixup",
-                                    "(closestknn=8)durmixmagwarp(0.2,4)"])
-def test_dependency_methods_raise(method, grid, tmp_path):
-    """A dependency method over data-parallel ranks refuses before any run
-    (its dependency included) trains, naming ROADMAP queue 1 item 9."""
-    base = dataclasses.replace(grid["base"], n_devices=2, experiments_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_grid(base, grid["ds"], [method], [1.0], [1], robust=False)
-    assert not os.listdir(tmp_path)
+DEPENDENCY_METHODS = ["(saloptenv-1)durratiomixup", "(closestknn=8)durmixmagwarp(0.2,4)"]
+
+
+@pytest.fixture(scope="module")
+def over_ranks(grid, tmp_path_factory):
+    """The runner over the two dependency methods with ``n_devices=2``:
+    every run spawns two gloo ranks, the salopt method's provider reaching
+    them pickled; the closest method's canonical embedder is given as a
+    ResCNN checkpoint (training it takes 32 rows a batch)."""
+    import torch
+
+    from pcgmix_tpu_torch.latent import latent_pretrain_config
+    from pcgmix_tpu_torch.models import build_model
+
+    root = tmp_path_factory.mktemp("ranks")
+    base = dataclasses.replace(grid["base"], n_devices=2, experiments_root=str(root))
+    embedder = experiment_dir(latent_pretrain_config(base))
+    os.makedirs(embedder)
+    torch.save(build_model("ResCNN", 2, 4, 512).state_dict(), os.path.join(embedder, "model.pth"))
+    executed = run_grid(base, grid["ds"], DEPENDENCY_METHODS, [1.0], [1],
+                        seed_datas=[1100001], robust=False, progress=False)
+    return executed
+
+
+@pytest.mark.parametrize("method", DEPENDENCY_METHODS)
+def test_dependency_methods_run_over_ranks(method, over_ranks):
+    """A dependency method over data-parallel ranks trains after its
+    dependency (the salopt method's durratiomixup run, itself over two
+    ranks), and rank 0 writes finite losses and the weights."""
+    executed = [c.method for c in over_ranks]
+    assert executed == ["durratiomixup", "(saloptenv-1)durratiomixup",
+                        "(closestknn=8)durmixmagwarp(0.2,4)"]
+    cfg = over_ranks[executed.index(method)]
+    assert cfg.n_devices == 2
+    perf = utils.load_dict(os.path.join(experiment_dir(cfg), "performance.pkl"))
+    assert perf["steps"][-1] > 0 and np.isfinite(perf["train_loss"]).all()
+    assert os.path.exists(os.path.join(experiment_dir(cfg), "model.pth"))

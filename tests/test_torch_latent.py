@@ -29,7 +29,6 @@ from pcgmix_tpu.train import train_model as jtrain
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.data import EpochIterator, physionet_split, synthetic_physionet_dict
 from pcgmix_tpu_torch.models import build_model, max_latent_depth, potes
-from pcgmix_tpu_torch.parallel import DataParallel
 from pcgmix_tpu_torch.train import TrainConfig, train_model
 from pcgmix_tpu_torch.train.convert import (
     jax_potes_to_torch,
@@ -37,6 +36,7 @@ from pcgmix_tpu_torch.train.convert import (
     seeded_init,
 )
 from pcgmix_tpu_torch.train.steps import TrainStep, eval_mode, make_optimizer
+from tests import torch_dp_runs
 
 B, C, T = 8, 4, 512
 STEPS = 8
@@ -253,17 +253,24 @@ def test_eval_mode_restores_each_flag():
     assert model.training and not model.res1.training and model.conv1.training
 
 
-def test_latent_methods_refuse_a_batch_split_over_ranks(split):
-    """A data-parallel rank holding a block of the batch cannot mix a latent
-    with rows of the other ranks' blocks: the step raises (a replicated,
-    indivisible batch takes the single-device step)."""
+@pytest.mark.parametrize("method", ["latentmixup", "manifold-cutout"])
+def test_latent_methods_split_over_ranks(method, split):
+    """On a batch split over two data-parallel ranks a rank mixes its block
+    of the latent with rows of every rank's block, read from the global
+    latent the ranks gather (the split step's route; the masks read their
+    own rows): in rank order, the whole latent's apply, bit for bit."""
     model = build_model("resnet9-5k", 2, C, T)
-    eng, step = _step(model, "latentmixup", split)
-    step.dp = DataParallel(rank=0, world=2)
+    eng = AugmentEngine(AugmentConfig(method, B, C, T, model="resnet9-5k"))
     idx = np.arange(B)
     plan = eng.plan(0, split.frames[idx], split.label[idx], _force=True)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        step(idx, plan.arrays, 1, plan.latent_depth)
+    with torch.no_grad():
+        latent = model(torch.from_numpy(split.data[idx]), depth=plan.latent_depth,
+                       part="first")
+    target = torch.eye(2)[torch.from_numpy(split.label[idx])]
+    whole, whole_t = eng.apply(latent, target, plan.arrays)
+    blocks = torch_dp_runs.rank_latents(eng, latent, target, plan.arrays)
+    assert torch.equal(torch.cat([d for d, _ in blocks]), whole)
+    assert torch.equal(torch.cat([t for _, t in blocks]), whole_t)
 
 
 def _port_seeded_init(model, num_channels=4, sig_len=2500, num_classes=2, seed=4):

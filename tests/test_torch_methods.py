@@ -35,6 +35,7 @@ from pcgmix_tpu_torch.data import (
 from pcgmix_tpu_torch.ops import masks
 from pcgmix_tpu_torch.ops.spline import time_warp
 from pcgmix_tpu_torch.train import TrainConfig, train_model
+from tests import torch_dp_runs
 
 B, C, T = 8, 4, 512
 STEPS = 6
@@ -196,11 +197,22 @@ def test_gaussian_noise_level_and_tail_at_full_length(cvd_map):
     np.testing.assert_array_equal(again.numpy(), out)
 
 
-def test_data_parallel_split_refuses_the_row_local_bases():
-    eng = AugmentEngine(AugmentConfig("timemask(0.2)", B, C, T))
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        eng.check_prepaired()
-    AugmentEngine(AugmentConfig("durmixrespscale(12,20)", B, C, T)).check_prepaired()
+@pytest.mark.parametrize("method", [
+    "timemask(0.2)", "cutout", "cutout(ch)", "s1s2mask", "magnitudewarp(0.2,4)",
+    "timewarp(0.05,4)", "respiratoryscale(12,20)", "gaussiannoise(25,40)", "mixup(mix)",
+    "durmixrespscale(12,20)",
+])
+def test_data_parallel_split_takes_the_row_local_bases(method, split):
+    """Each of two data-parallel ranks mixes its block of the batch through
+    the train step's route (the bases that read their own row on their
+    block of the plan, the shared sinusoid whole, gaussiannoise's rows of
+    the global batch's draw, mixup's partners gathered from the corpus):
+    in rank order, the whole batch's apply, bit for bit."""
+    eng = AugmentEngine(AugmentConfig(method, B, C, T))
+    _, b = next(_batches(split, 1))
+    plan = eng.plan(3, b["frames"], b["label"], b["wav"])
+    torch_dp_runs.assert_ranks_equal_whole(eng, split.data, split.label, b["indices"],
+                                           plan.arrays)
 
 
 @pytest.mark.parametrize("method", [

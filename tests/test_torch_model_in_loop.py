@@ -5,8 +5,8 @@ rows and a zero base, the reference's cross-class quirk) and
 ``saliency-cutmix`` (14 pieces from given bins) plan bit-equal to the JAX
 engine and apply within 1e-6; ``lc_select`` equal; the frozen ResCNN
 embedder within 1e-5 of the JAX model's depth-5 features; every
-model-in-the-loop method refusing the data-parallel route, naming ROADMAP
-item 9; ``train_model`` with a salopt and a closest method (the same
+model-in-the-loop method training on two data-parallel gloo ranks, their
+plans equal; ``train_model`` with a salopt and a closest method (the same
 injected provider or ``latent_feature_fn`` on both sides),
 ``lc-nointrusion`` and ``saliency-cutmix`` (the live model) tracking
 ``pcgmix_tpu.train_model(torch_init=True, loader_parity="torch")`` at the
@@ -43,6 +43,7 @@ from pcgmix_tpu_torch.models.rescnn import ResCNN
 from pcgmix_tpu_torch.saliency import bin_training_saliency
 from pcgmix_tpu_torch.train import TrainConfig, loop, train_model
 from pcgmix_tpu_torch.train.convert import jax_to_torch
+from tests import torch_dp_runs
 
 B, C, T = 8, 4, 512
 STEPS = 8
@@ -184,16 +185,46 @@ def test_live_model_bases_have_no_identity_plan(method, split):
             eng.identity_arrays(*args, saliency_bins_fn=lambda: _bins_for(0, b["frames"]))
 
 
-@pytest.mark.parametrize("method", MODEL_IN_THE_LOOP)
-def test_data_parallel_route_refuses_the_model_in_the_loop(method):
-    eng = AugmentEngine(AugmentConfig(method, B, C, T))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.check_prepaired()
-    ds = synthetic_physionet_dict(num_wavs_train=4, num_wavs_test=2, segments_per_wav=2,
+def _hooks_for(method):
+    if "salopt" in method:
+        return {"saliency_model_provider": torch_dp_runs.amplitude_saliency}
+    if "closest" in method:
+        return {"latent_feature_fn": torch_dp_runs.window_means}
+    return {}
+
+
+@pytest.fixture(scope="module")
+def over_ranks():
+    """Every model-in-the-loop method through ``train_model`` on two
+    spawned gloo ranks (one spawn) and on one device, 3 steps each."""
+    ds = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=6, segments_per_wav=2,
                                   sig_len=T, seed=3)
-    with pytest.raises(NotImplementedError, match="item 9"):  # before any rank spawns
-        train_model(TrainConfig(model="resnet9-5k", method=method, batch_size=B,
-                                n_devices=2, device="cpu"), ds)
+    runs = [(m, dict(model="resnet9-5k", method=m, num_epochs=3, batch_size=B,
+                     save_artifacts=False, device="cpu"), _hooks_for(m))
+            for m in MODEL_IN_THE_LOOP]
+    ranks = torch_dp_runs.spawn_in_background({"runs": ("train_runs", (ds, runs))})
+    one = torch_dp_runs.train_runs(ds, runs)
+    return ranks(), one
+
+
+@pytest.mark.parametrize("method", MODEL_IN_THE_LOOP)
+def test_data_parallel_route_takes_the_model_in_the_loop(method, over_ranks):
+    """Over two ranks each rank computes its block of the saliency maps,
+    bins, latents or candidate losses and the ranks gather them: both
+    ranks build the same plans (lc-nointrusion: the same picks), and the
+    first step's loss is the single-device run's within 1e-5."""
+    (r0, r1), one = over_ranks
+    got, ref = r0["runs"][method], one[method]
+    assert got["perf"]["steps"] == ref["perf"]["steps"] == [1, 2, 3]
+    assert abs(got["perf"]["train_loss"][0] - ref["perf"]["train_loss"][0]) < 1e-5
+    assert np.isfinite(got["perf"]["train_loss"]).all()
+    for key in ("plans", "picks"):
+        assert len(got[key]) == len(r1["runs"][method][key])
+        for p, q in zip(got[key], r1["runs"][method][key]):
+            for k in (p if isinstance(p, dict) else {"sel": p}):
+                a, b = (p[k], q[k]) if isinstance(p, dict) else (p, q)
+                np.testing.assert_array_equal(a, b, err_msg=f"{method} {key} {k}")
+    assert len(got["picks"]) == (3 if method == "lc-nointrusion" else 0)
 
 
 def test_frozen_embedder_equals_reference(tmp_path, split):

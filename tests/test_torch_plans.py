@@ -11,6 +11,7 @@ from pcgmix_tpu.augment.methods import parse_method as jparse
 from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine, parse_method
 from pcgmix_tpu_torch.data import EpochIterator, physionet_split, synthetic_physionet_dict
 from pcgmix_tpu_torch.saliency import bin_training_saliency
+from tests import torch_dp_runs
 
 B, C, T = 8, 4, 512
 METHODS = [
@@ -104,10 +105,12 @@ def test_method_parser_equals_reference(method):
     "(closestknn=8)durratiomixup", "(saloptenv)durratiomixup", "lc-nointrusion",
     "saliency-cutmix", "(closestbins=4)durmixmagwarp(0.2,4)", "(saloptsum-2)durratiomixup",
 ])
-def test_unported_methods_raise(method, train_split):
+def test_model_in_the_loop_methods_plan_and_split_over_ranks(method, train_split):
     """The model-in-the-loop methods build and plan (their hooks given
-    here), and refuse a batch split over data-parallel ranks, naming
-    ROADMAP queue 1 item 9."""
+    here, the numbers every rank holds once gathered), and each of two
+    data-parallel ranks mixes its block of the plan's rows (lc-nointrusion:
+    of its 4B-row pool) through the train step's route: in rank order, the
+    whole batch's apply, bit for bit."""
     eng = AugmentEngine(AugmentConfig(method, B, C, T))
     _, b = next(_batches(train_split, 1))
     sal = np.random.default_rng(0).random((B, T)).astype(np.float32)
@@ -116,5 +119,5 @@ def test_unported_methods_raise(method, train_split):
                     saliency_bins_fn=lambda: bin_training_saliency(sal, b["frames"]),
                     latent_fn=lambda: sal[:, ::64])
     assert plan.arrays["len"].shape[0] == (4 * B if method == "lc-nointrusion" else B)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.check_prepaired()
+    torch_dp_runs.assert_ranks_equal_whole(eng, train_split.data, train_split.label,
+                                           b["indices"], plan.arrays)

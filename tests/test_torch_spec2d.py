@@ -9,9 +9,10 @@ with PCGmix on ``PhysioNet(spec128)`` tracks ``pcgmix_tpu.train_model``
 from the same flax init at the bar of tests/test_transplant_dynamics.py,
 and the full-width model with frozen weights gives its losses for a mask
 method, mixup and latentmixup within 1e-4 relative; a 2-D run dir the port's runner writes reads back through
-``pcgmix_tpu.exp.results``; and what waits for later slices raises,
-naming its ROADMAP item (2-D cutmix and durratiocutmix: tests/test_torch_concat.py;
-the UMC datasets: tests/test_torch_umc.py)."""
+``pcgmix_tpu.exp.results``; and the masks, mixup, latentmixup and the
+model-in-the-loop methods on a batch split over two data-parallel ranks
+give, rank by rank, the whole batch's rows (2-D cutmix and durratiocutmix:
+tests/test_torch_concat.py; the UMC datasets: tests/test_torch_umc.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -36,8 +37,10 @@ from pcgmix_tpu_torch.exp import runner
 from pcgmix_tpu_torch.exp.robust import SEED_DATA_GRIDS
 from pcgmix_tpu_torch.models import ResNet9_2D, build_model
 from pcgmix_tpu_torch.parallel import DataParallel
+from pcgmix_tpu_torch.saliency import bin_training_saliency
 from pcgmix_tpu_torch.train import TrainConfig, loop, train_model
 from pcgmix_tpu_torch.train.convert import jax_resnet9_2d_to_torch
+from tests import torch_dp_runs
 
 S, B = 32, 8  # spectrogram side, batch
 SPEC = "PhysioNet(spec128)"
@@ -255,7 +258,6 @@ def test_2d_rank_blocks_equal_the_whole_batch(method, split):
     data = torch.from_numpy(split.data[idx])
     target = torch.eye(2)[torch.from_numpy(split.label[idx])]
     whole, whole_t = eng.apply(data, target, plan.arrays)
-    eng.check_prepaired()
     for rank in range(2):
         dp = DataParallel(rank=rank, world=2)
         sl = dp.block(B)
@@ -269,24 +271,48 @@ def test_2d_rank_blocks_equal_the_whole_batch(method, split):
 
 @pytest.mark.parametrize("method", ["cutout(0.25,0.25)", "timemask(0.1)", "freqmask(0.1)",
                                     "mixup(same)", "latentmixup"])
-def test_2d_row_global_bases_refuse_a_split_batch(method):
+def test_2d_row_local_bases_and_latentmixup_split_over_ranks(method, split):
+    """The 2-D masks (each rank's time windows, the band shared) and mixup
+    (its partners gathered from the corpus) on each of two data-parallel
+    ranks' blocks through the train step's route, and latentmixup on each
+    rank's block of a latent, its partners read from the global latent: in
+    rank order, the whole batch's apply, bit for bit."""
     eng, _ = _engines(method)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        eng.check_prepaired()
+    _, b = next(_batches(split, 1))
+    plan = eng.plan(3, b["frames"], b["label"], b["wav"], _force=True)
+    if method != "latentmixup":
+        torch_dp_runs.assert_ranks_equal_whole(eng, split.data, split.label, b["indices"],
+                                               plan.arrays)
+        return
+    latent = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(B, 4, 8, 8)).astype(np.float32))
+    target = torch.eye(2)[torch.from_numpy(b["label"])]
+    whole, whole_t = eng.apply(latent, target, plan.arrays)
+    blocks = torch_dp_runs.rank_latents(eng, latent, target, plan.arrays)
+    assert torch.equal(torch.cat([d for d, _ in blocks]), whole)
+    assert torch.equal(torch.cat([t for _, t in blocks]), whole_t)
 
 
 @pytest.mark.parametrize("method,spectrogram", [
-    pytest.param("lc-nointrusion", False, id="lc-nointrusion-False-10"),
-    pytest.param("saliency-cutmix", False, id="saliency-cutmix-False-10"),
-    pytest.param("(closestknn=8)durratiomixup", True, id="(closestknn=8)durratiomixup-True-10"),
-    pytest.param("(saloptenv)durratiomixup", False, id="(saloptenv)durratiomixup-False-10"),
+    ("lc-nointrusion", False), ("saliency-cutmix", False),
+    ("(closestknn=8)durratiomixup", True), ("(saloptenv)durratiomixup", False),
 ])
-def test_unported_bases_name_their_queue_item(method, spectrogram):
-    """The model-in-the-loop methods build, and refuse a batch split over
-    data-parallel ranks, naming ROADMAP queue 1 item 9."""
+def test_model_in_the_loop_bases_split_over_ranks(method, spectrogram, split):
+    """The model-in-the-loop methods on this geometry (1-D rows of S steps,
+    or the spectrograms) plan from the numbers every rank holds once
+    gathered, and each of two data-parallel ranks mixes its block of the
+    plan's rows through the train step's route: in rank order, the whole
+    batch's apply, bit for bit."""
     eng = AugmentEngine(AugmentConfig(method, B, 1, S, spectrogram=spectrogram, spec_freq=S))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.check_prepaired()
+    _, b = next(_batches(split, 1))
+    corpus = split.data if spectrogram else np.ascontiguousarray(split.data[:, :, 0, :])
+    sal = np.random.default_rng(0).random((B, S)).astype(np.float32)
+    plan = eng.plan(0, b["frames"], b["label"], b["wav"],
+                    saliency_fn=lambda mix_model: sal,
+                    saliency_bins_fn=lambda: bin_training_saliency(sal, b["frames"]),
+                    latent_fn=lambda: sal[:, ::4])
+    torch_dp_runs.assert_ranks_equal_whole(eng, corpus, split.label, b["indices"],
+                                           plan.arrays)
 
 
 def test_runner_takes_the_spectrogram_seed_grids(monkeypatch, spec_dict):
