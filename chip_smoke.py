@@ -55,7 +55,9 @@ Phases (any failure exits non-zero):
    saliency map through the port's ``bin_training_saliency``.  Each
    bit-equal to its plain version in bf16 and within 1e-6 in fp32; their
    byte bounds count the source steps the pieces read (no base row is
-   read) and the whole output.
+   read) and the whole output.  And at the live gang's pool: K1 with a zero
+   base on four members' ``lc-nointrusion`` pools, 1024 × 4 × 2500 joined
+   from the 256-row gang batch (``gang_plan``: idx1/idx2 offset by s·B).
 3. The slice end to end: ``train_model`` with full-width ResNet9 and with
    full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
    PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
@@ -171,13 +173,32 @@ Phases (any failure exits non-zero):
    The runner with ``--gang --no-gang-fallback`` in a subprocess, two
    gangs of 4 and their ``gang of 4`` lines, then its rerun, which skips
    all 8.  Member-steps/s of gangs of S = 1, 2, 4, 8 against sequential
-   runs (PCGmix+, 25 steps an epoch, at least 200 member-steps timed
+   runs (PCGmix+, 25 steps an epoch, at least 100 member-steps timed
    after the first epoch), alternated sequential, 1, 2, 4, 8, 8, 4, 2, 1,
    sequential; peak memory per member beside ``estimate_gang_max_size``'s
    per-member bytes and S_max.  Phase 2 checks K1/K2 at the gang's
    geometry, 256 × 4 × 2500 under four members' concatenated plans, and
    the kernels line carries it as ``gang`` with the gang runs' launches;
-   two profiled gang calls (ResNet9, Potes) give the busy share.
+   two profiled gang calls (ResNet9, Potes) give the busy share.  The
+   model in the loop in a gang (``mil_gang_phase``), frozen, under cuDNN's
+   deterministic algorithms: gangs of 4 of ``lc-nointrusion`` and
+   ``saliency-cutmix`` (the live mode) on ResNet9 and Potes, and of
+   ``(saloptenv)durratiomixup`` (one provider a member, on phase 3e's
+   base run) and ``(closestknn=8)durmixmagwarp(0.2,4)`` (phase 3e's
+   canonical embedder) on ResNet9, 8 gang steps each: every member within
+   ``GANG_BAR`` of its own sequential run, every plan and ``lc_select``
+   pick bit-equal, K1 (K2 for the closest PCGmix+) once a gang step and
+   nothing else (the pool's one launch on 1024 rows; the picks are
+   gathered from it).  The runner with ``--gang --no-gang-fallback`` on a
+   ``(saloptenv)durratiomixup`` grid of 4 seed_datas: its ``gang of 4
+   (dependency): base`` line and then the hook gang's, and a rerun that
+   skips all 4.  Member-steps/s of the ``lc-nointrusion`` gang of 4
+   against its sequential runs on Potes and ResNet9, alternated
+   sequential, gang, gang, sequential (``LIVE_RATE_MEMBER_STEPS`` timed
+   after the first epoch), with the host ms a step of the candidate
+   forward and ``lc_select`` (``timing.py``).  The kernels line carries
+   the pool as ``gang-pool`` and the other gangs' launches under
+   ``gang_model_in_the_loop``.
 3h. The bf16 compute mode (``TrainConfig.compute_dtype="bfloat16"``):
    full-width ResNet9, batch 64, 4 × 2500, PCGmix+ and PCGmix in bf16,
    16 steps each (K2/K1 once a step, no other kernel, finite losses), and
@@ -260,7 +281,10 @@ Phases (any failure exits non-zero):
    closures, which has no launch floor (K1 and K3 at the spectrogram,
    concat, latent and model-in-the-loop geometries too), and each kernel's
    share of its bound against it and against the bursts (last, since a profiler
-   session leaves host overhead behind it).  Summary: a
+   session leaves host overhead behind it).  Only ``mix_warp_kernel``'s
+   events are summed, and only when the trace holds 60 of them (one a
+   call): any other count prints "not measured (n of 60 events)" and puts
+   null in the kernels line.  Summary: a
    ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -605,7 +629,6 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
     from pcgmix_tpu_torch.exp.results import results_table, to_string
     from pcgmix_tpu_torch.train import TrainConfig
 
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
         extra = []
         if dataset == SPEC:
@@ -629,24 +652,11 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
         dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(corpus, dat)
         root = os.path.join(tmp, "experiments")
-        cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
-               "--device", device, "--model", model, "--batch-size", str(batch),
-               "--n-fractions", "0.1", "--seed-datas", str(seed_data), "--no-robust",
-               "--num-epochs", str(epochs), *extra,
+        cmd = ["--dataset-file", dat, "--device", device, "--model", model,
+               "--batch-size", str(batch), "--n-fractions", "0.1", "--seed-datas",
+               str(seed_data), "--no-robust", "--num-epochs", str(epochs), *extra,
                "--dataset", dataset, "--experiments-root", root, "--methods", *methods]
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-            [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
-
-        def invoke():
-            t0 = time.time()
-            proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
-                                  timeout=600)
-            if proc.returncode:
-                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-                raise AssertionError(f"the runner exited {proc.returncode}")
-            return proc.stdout.splitlines(), time.time() - t0
-
-        first, wall_first = invoke()
+        first, wall_first = runner_calls(cmd, 1, "the runner")[0]
         template = TrainConfig(dataset=dataset, model=model, num_epochs=epochs,
                                batch_size=batch, n_fraction=0.1, seed_data=seed_data,
                                experiments_root=root)
@@ -669,7 +679,7 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
             if not (np.isfinite(perf["train_loss"]).all() and np.isfinite(perf["test_loss"]).all()):
                 raise AssertionError(f"grid {method}: non-finite loss")
             runs[method] = (wall, steps, launches)
-        second, wall_second = invoke()
+        second, wall_second = runner_calls(cmd, 1, "the runner")[0]
         skips = [ln for ln in second if ln.startswith("skip (done): ")]
         if len(skips) != len(methods) or any(
                 ln.startswith(("run: ", "done: ")) for ln in second):
@@ -703,30 +713,16 @@ def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=
     from pcgmix_tpu_torch import utils
     from pcgmix_tpu_torch.data import synthetic_effect_dict
 
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_deps_") as tmp:
         corpus = synthetic_effect_dict(num_wavs_train=n_train, num_wavs_test=n_test,
                                        segments_per_wav=segments, sig_len=sig_len, seed=7)
         dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(corpus, dat)
         root = os.path.join(keep or tmp, "experiments")
-        cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
-               "--device", device, "--model", model, "--batch-size", str(batch),
-               "--n-fractions", "0.1", "--seed-datas", str(seed_data),
-               "--experiments-root", root, "--methods", *methods]
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-            [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
-
-        def invoke():
-            t0 = time.time()
-            proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
-                                  timeout=600)
-            if proc.returncode:
-                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-                raise AssertionError(f"the runner exited {proc.returncode}")
-            return proc.stdout.splitlines(), time.time() - t0
-
-        first, wall_first = invoke()
+        cmd = ["--dataset-file", dat, "--device", device, "--model", model,
+               "--batch-size", str(batch), "--n-fractions", "0.1", "--seed-datas",
+               str(seed_data), "--experiments-root", root, "--methods", *methods]
+        first, wall_first = runner_calls(cmd, 1, "the runner")[0]
         # each trained run: the line that announced it, then its done line
         order = [ln.split(": ", 1) for ln in first
                  if ln.startswith(("run: ", "run (salopt dependency): ",
@@ -758,7 +754,7 @@ def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=
                   f"plot epoch, {wall:.3f} s wall; host ms per step "
                   f"{json.dumps({k: round(v, 3) for k, v in host.items()})}; losses "
                   f"{[round(float(x), 4) for x in perf['train_loss']]} on {card}")
-        second, wall_second = invoke()
+        second, wall_second = runner_calls(cmd, 1, "the runner")[0]
         skips = [ln for ln in second if ln.startswith("skip (done): ")]
         if len(skips) != len(methods) or any(ln.startswith(("run", "done: ")) for ln in second):
             raise AssertionError(f"dependency rerun trained: {second}")
@@ -1253,9 +1249,10 @@ DP_BF16_BAR = BF16_GANG_BAR
 
 
 @contextlib.contextmanager
-def recorded_plans(plans):
+def recorded_plans(plans, picks=None):
     """Within: the arrays of every plan the engine builds (None for a
-    gated-off step) and every ``lc_select`` pick, appended to ``plans``."""
+    gated-off step) and every ``lc_select`` pick, appended to ``plans``
+    (the picks to ``picks`` where it is given)."""
     import numpy as np
 
     from pcgmix_tpu_torch.augment import AugmentEngine
@@ -1271,7 +1268,7 @@ def recorded_plans(plans):
 
     def recorded_select(*args):
         sel = select(*args)
-        plans.append({"lc_select": sel.copy()})
+        (plans if picks is None else picks).append({"lc_select": sel.copy()})
         return sel
 
     AugmentEngine.plan, AugmentEngine.lc_select = recorded_plan, staticmethod(recorded_select)
@@ -1355,8 +1352,17 @@ GANG_S = 4  # members of the correctness gangs
 GANG_METHODS = (("base", None), ("durratiomixup", "piecewise_mix_pairs"),
                 ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"))
 GANG_RATE_S = (1, 2, 4, 8)
-GANG_RATE_MEMBER_STEPS = 200  # timed member-steps of each rate measurement
+GANG_RATE_MEMBER_STEPS = 100  # timed member-steps of each rate measurement
 GANG_BAR = 1e-6  # members against their sequential runs, frozen weights
+# the model in the loop in a gang: (model, method, the kernel its apply
+# launches once a gang step); the hook methods take phase 3e's runs
+GANG_MIL = (("resnet9", "lc-nointrusion", "piecewise_mix_pairs"),
+            ("resnet9", "saliency-cutmix", "piecewise_mix_pairs"),
+            ("Potes", "lc-nointrusion", "piecewise_mix_pairs"),
+            ("Potes", "saliency-cutmix", "piecewise_mix_pairs"),
+            ("resnet9", "(saloptenv)durratiomixup", "piecewise_mix_pairs"),
+            ("resnet9", "(closestknn=8)durmixmagwarp(0.2,4)", "pcgmix_plus_fused"))
+LIVE_RATE_MEMBER_STEPS = 80  # timed member-steps of each live-gang rate run
 
 
 def gang_members(TrainConfig, model, method, n, epochs, **kw):
@@ -1378,14 +1384,16 @@ def gang_gap(np, perfs, cfgs, data, train_model):
     return max(gaps)
 
 
-def gang_phase(np, torch, card, mk):
+def gang_phase(np, torch, card, mk, deps):
     """Phase 3g: gangs of full-width ResNet9 and Potes (batch 64, 4 × 2500)
     against their members' sequential runs (frozen weights; 7 steps at lr
     0.01 under cuDNN's deterministic algorithms), K1/K2 once a gang step, a
     ragged UMC gang, the graph gang against the eager one, the runner with
-    --gang and its rerun, member-steps/s of S = 1, 2, 4, 8 against
-    sequential runs, and peak memory per member beside the estimate.
-    Returns the gang path's K1/K2 launches and the profiled gang calls."""
+    --gang and its rerun, the model-in-the-loop gangs (``mil_gang_phase``),
+    member-steps/s of S = 1, 2, 4, 8 against sequential runs, and peak
+    memory per member beside the estimate.  ``deps`` holds phase 3e's runs.
+    Returns the gang path's K1/K2 launches by (kernel, geometry), and the
+    profiled gang calls."""
     from pcgmix_tpu_torch import utils
     from pcgmix_tpu_torch.data import (
         physionet_split,
@@ -1422,7 +1430,7 @@ def gang_phase(np, torch, card, mk):
             if not gap <= GANG_BAR:
                 raise AssertionError(f"gang {model} {method}: members differ from their runs")
             if kernel:
-                launches[kernel] = counts[kernel]
+                launches[kernel, "gang"] = counts[kernel]
 
     # at lr 0.01, one step an epoch, cuDNN's deterministic algorithms
     ds_steps = synthetic_physionet_dict(num_wavs_train=10, num_wavs_test=4,
@@ -1471,28 +1479,15 @@ def gang_phase(np, torch, card, mk):
         raise AssertionError("the ragged gang differs from its members' runs")
 
     # the runner: two gangs of four, then the rerun
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as tmp:
         dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(ds, dat)
-        cmd = [sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", "--dataset-file", dat,
-               "--model", "resnet9", "--batch-size", str(B), "--num-epochs", "2",
-               "--n-fractions", "1.0", "--no-robust", "--experiments-root",
-               os.path.join(tmp, "experiments"), "--gang", "--no-gang-fallback",
-               "--methods", "durratiomixup", "durmixmagwarp(0.2,4)", "--seed-datas",
-               *[str(1100001 + s) for s in range(GANG_S)]]
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-            [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
-        outs = []
-        for _ in range(2):
-            t0 = time.time()
-            proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True,
-                                  timeout=600)
-            if proc.returncode:
-                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-                raise AssertionError(f"the gang runner exited {proc.returncode}")
-            outs.append((proc.stdout.splitlines(), time.time() - t0))
-        (first, wall_first), (second, wall_second) = outs
+        cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
+               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust",
+               "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
+               "--no-gang-fallback", "--methods", "durratiomixup", "durmixmagwarp(0.2,4)",
+               "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
+        (first, wall_first), (second, wall_second) = runner_calls(cmd, 2, "the gang runner")
         gangs = [ln for ln in first if ln.startswith("gang of ")]
         dones = [ln for ln in first if ln.startswith("gang done: ")]
         for ln in gangs + dones:
@@ -1507,6 +1502,8 @@ def gang_phase(np, torch, card, mk):
             raise AssertionError(f"gang runner rerun trained: {second}")
         print(f"gang runner: 2 gangs of {GANG_S} in {wall_first:.3f} s; the rerun skipped "
               f"all {skips} in {wall_second:.3f} s, on {card}")
+
+    launches.update(mil_gang_phase(np, torch, card, mk, deps, ds))
 
     # member-steps/s: sequential runs and gangs of S, alternated in turns;
     # peak memory per member beside the estimate's S_max
@@ -1563,8 +1560,155 @@ def gang_phase(np, torch, card, mk):
         model: (lambda m=model: gang.train_gang(
             gang_members(TrainConfig, m, "durmixmagwarp(0.2,4)", GANG_S, 2), ds))
         for model in ("resnet9", "Potes")}
+    # the live gang: where a gang step of lc-nointrusion spends the device
+    profiled["resnet9 lc-nointrusion"] = lambda: gang.train_gang(
+        gang_members(TrainConfig, "resnet9", "lc-nointrusion", GANG_S, 2), ds)
     print(f"gang phase: {time.time() - t_phase:.3f} s wall on {card}")
     return launches, profiled
+
+
+def runner_calls(cmd, n, what):
+    """Run the runner CLI ``cmd`` ``n`` times in a subprocess from this
+    checkout; returns each call's (stdout lines, wall s)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+    outs = []
+    for _ in range(n):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", *cmd],
+                              cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"{what} exited {proc.returncode}")
+        outs.append((proc.stdout.splitlines(), time.time() - t0))
+    return outs
+
+
+def mil_gang_phase(np, torch, card, mk, deps, ds):
+    """Phase 3g's model-in-the-loop gangs: each of ``GANG_MIL`` as a gang
+    of 4 with frozen weights under cuDNN's deterministic algorithms, every
+    member within ``GANG_BAR`` of its own sequential run, every plan and
+    pick bit-equal, and the kernel launched once a gang step, nothing else;
+    the runner with --gang on a (saloptenv) grid (its dependency gang, then
+    the hook gang) and its rerun; member-steps/s of the live gang of 4
+    (lc-nointrusion) against its sequential runs, with the host ms per step
+    of the live passes.  Returns {(kernel, geometry): launches}."""
+    from pcgmix_tpu_torch import utils
+    from pcgmix_tpu_torch.data import synthetic_physionet_dict
+    from pcgmix_tpu_torch.saliency import make_pretrained_saliency_fn
+    from pcgmix_tpu_torch.timing import host_times, reset_host_times
+    from pcgmix_tpu_torch.train import TrainConfig, gang, train_model
+
+    t_phase = time.time()
+    launches = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for model, method, kernel in GANG_MIL:
+            over, hooks = {}, {}
+            if "closest" in method:  # the canonical embedder of phase 3e's root
+                over["experiments_root"] = deps["root"]
+            cfgs = gang_members(TrainConfig, model, method, GANG_S, 2, lr_max=0.0, **over)
+            if "salopt" in method:  # one provider a member, on phase 3e's base run
+                hooks["saliency_model_providers"] = [
+                    make_pretrained_saliency_fn(TrainConfig(model=model),
+                                                lambda m: deps["base_dir"])
+                    for _ in cfgs]
+            gplans, gpicks = [], []
+            torch.cuda.synchronize()
+            mk.reset_launch_counts()
+            t0 = time.time()
+            with recorded_plans(gplans, gpicks):
+                perfs = gang.train_gang(cfgs, ds, **hooks)
+            torch.cuda.synchronize()
+            wall, counts = time.time() - t0, mk.launch_counts()
+            gaps, same = [], True
+            for s, (perf, cfg) in enumerate(zip(perfs, cfgs)):
+                one = ({"saliency_model_provider": hooks["saliency_model_providers"][s]}
+                       if hooks else {})
+                plans, picks = [], []
+                with recorded_plans(plans, picks):
+                    ref = train_model(cfg, ds, **one)
+                for k in ("train_loss", "test_loss"):
+                    gaps.append(float(np.max(relative_gap(
+                        np, np.asarray(perf[k], np.float64), np.asarray(ref[k], np.float64)))))
+                # the gang plans (and picks) its members in turn, step by step
+                same &= (same_plans(np, gplans[s::GANG_S], plans)
+                         and same_plans(np, gpicks[s::GANG_S], picks))
+            steps = perfs[0]["steps"][-1]
+            print(f"gang frozen {model} {method}: S={GANG_S}, {steps} gang steps in "
+                  f"{wall:.3f} s, launches {counts}; members against their sequential runs: "
+                  f"max relative gap {max(gaps):.3e} (bar {GANG_BAR:g}); {len(gplans)} plans "
+                  f"and {len(gpicks)} picks bit-equal: {same} on {card}")
+            if any(n != (steps if k == kernel else 0) for k, n in counts.items()):
+                raise AssertionError(f"gang {model} {method}: {steps} steps, launches {counts}")
+            if not (max(gaps) <= GANG_BAR and same):
+                raise AssertionError(f"gang {model} {method}: members differ from their runs")
+            if model == "resnet9":
+                geometry = "gang-pool" if method == "lc-nointrusion" else f"gang {method}"
+                launches[kernel, geometry] = counts[kernel]
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # the runner: a (saloptenv) grid of four trains its 'base' runs as a
+    # dependency gang, then the hook gang; the rerun trains nothing
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_deps_") as tmp:
+        dat = os.path.join(tmp, "corpus.dat")
+        utils.dict2file(ds, dat)
+        cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
+               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust",
+               "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
+               "--no-gang-fallback", "--methods", "(saloptenv)durratiomixup",
+               "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
+        (first, wall_first), (second, wall_second) = runner_calls(cmd, 2, "the gang runner")
+        gangs = [ln for ln in first if ln.startswith(("gang of ", "gang done: "))]
+        for ln in gangs:
+            print(f"gang runner (salopt): {ln}")
+        want = [f"gang of {GANG_S} (dependency): base ", "gang done: ",
+                f"gang of {GANG_S}: (saloptenv)durratiomixup ", "gang done: "]
+        if (len(gangs) != 4 or not all(g.startswith(w) for g, w in zip(gangs, want))
+                or '{"piecewise_mix_pairs": 8}' not in gangs[3]
+                or sum(ln.startswith("done (gang): ") for ln in first) != 2 * GANG_S):
+            raise AssertionError(f"gang runner (salopt): {first}")
+        skips = sum(ln.startswith("skip (done): ") for ln in second)
+        if skips != GANG_S or any(ln.startswith(("gang of", "run")) for ln in second):
+            raise AssertionError(f"gang runner (salopt) rerun trained: {second}")
+        print(f"gang runner (salopt): the dependency gang and the hook gang of {GANG_S} in "
+              f"{wall_first:.3f} s; the rerun skipped all {skips} in {wall_second:.3f} s, "
+              f"on {card}")
+
+    # member-steps/s of the live gang against sequential runs, alternated
+    # sequential, gang, gang, sequential; the live passes' host ms per step
+    rate_ds = synthetic_physionet_dict(num_wavs_train=100, num_wavs_test=4,
+                                       segments_per_wav=16, sig_len=T, seed=13)
+    spe = len(gang.build_splits(gang_members(TrainConfig, "Potes", "base", 1, 1)[0],
+                                rate_ds)[0]) // B
+    for model in ("Potes", "resnet9"):
+        rates: dict = {}
+        host: dict = {}
+        for what in ("seq", "gang", "gang", "seq"):
+            n = GANG_S if what == "gang" else 1
+            epochs = 1 + max(1, -(-LIVE_RATE_MEMBER_STEPS // (n * spe)))
+            cfgs = gang_members(TrainConfig, model, "lc-nointrusion", n, epochs)
+            torch.cuda.synchronize()
+            reset_host_times()
+            perf = (gang.train_gang(cfgs, rate_ds)[0] if what == "gang"
+                    else train_model(cfgs[0], rate_ds))
+            torch.cuda.synchronize()
+            rates.setdefault(what, []).append(n * steady_rate(perf))
+            host[what] = {k: round(ms / perf["steps"][-1], 3)
+                          for k, (ms, _) in host_times().items()}
+        seq, ganged_r = rates["seq"], rates["gang"]
+        print(f"gang rate {model} lc-nointrusion S={GANG_S}: {ganged_r[0]:.3f}, "
+              f"{ganged_r[1]:.3f} member-steps/s (sequential {seq[0]:.3f}, {seq[1]:.3f}); "
+              f"gang against sequential {sum(ganged_r) / sum(seq):.3f}x; host ms per gang "
+              f"step {json.dumps(host['gang'])}, per sequential step "
+              f"{json.dumps(host['seq'])} ({spe} steps an epoch, {LIVE_RATE_MEMBER_STEPS} "
+              f"member-steps or more timed after the first) on {card}")
+        if not all(np.isfinite(v).all() for v in rates.values()):
+            raise AssertionError(f"live gang rates {model}: not finite")
+    print(f"gang model-in-the-loop phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return launches
 
 
 def make_drive(np, torch, mk, card, ds):
@@ -1792,6 +1936,9 @@ def main() -> int:
         return AugmentEngine.device_arrays(gang_plan(arrays, B), dev)
 
     gang_pcgmix, gang_plus = gang_plan_of("durratiomixup"), gang_plan_of("durmixmagwarp(0.2,4)")
+    # the live gang's candidate pool: four members' lc-nointrusion pools,
+    # 4 × 4B = 1024 rows joined from the 256-row batch (idx1/idx2 offset by s·B)
+    gang_pool = gang_plan_of("lc-nointrusion")
     # the spectrogram path's geometry: 64 × (1, 128, 128), the 128
     # frequency rows as channels of K1's (B, C, T) view
     spec_ds = synthetic_spectrogram_dict(num_wavs_train=24, num_wavs_test=8,
@@ -1844,6 +1991,8 @@ def main() -> int:
          False),
         ("piecewise_mix_pairs", k1, "gang", xg, gang_pcgmix, 1e-6, 4, 1, False, None, False),
         ("pcgmix_plus_fused", k2, "gang", xg, gang_plus, 1e-5, 4, 1, True, None, False),
+        ("piecewise_mix_pairs", k1z, "gang-pool", xg, gang_pool, 1e-6, 8, 1, False, None,
+         True),
         ("piecewise_mix_pairs", k1, "spec2d", xs, pcgmix_2d, 1e-6, 4, 1, False, None, False),
         ("piecewise_mix_prepaired", k3, "spec2d", xs, pcgmix_2d, 1e-6, 0, 2, False, None,
          False),
@@ -2009,17 +2158,22 @@ def main() -> int:
     for method in ("lc-nointrusion", "saliency-cutmix"):
         n, _ = drive(method, "piecewise_mix_pairs", "model-in-the-loop")
         launches_concat["piecewise_mix_pairs", method] = n
-    # the dependency runs stay for phase 4's (salopt…) and (closestknn…) runs
+    # the dependency runs stay for phases 3g's and 4's (salopt…) and
+    # (closestknn…) runs: the pretrained base run and the canonical embedder
     deps_dir = tempfile.mkdtemp(prefix="chip_smoke_deps_")
     dep_runs = dependency_phase(np, card, keep=deps_dir)
+    base_dir = next(d for d in dep_runs if os.path.basename(d).split("_")[1:3]
+                    == ["resnet9", "base"])
+    deps = {"root": os.path.join(deps_dir, "experiments"), "base_dir": base_dir,
+            "provider": make_pretrained_saliency_fn(TrainConfig(model="resnet9"),
+                                                    lambda method: base_dir)}
 
     # ---- 3f. the runtime extras -----------------------------------------
     graph_launches = runtime_phase(np, torch, card, mk)
 
     # ---- 3g. gang training ------------------------------------------------
-    gang_launches, gang_profiled = gang_phase(np, torch, card, mk)
-    for name, n in gang_launches.items():
-        launches_concat[name, "gang"] = n
+    gang_launches, gang_profiled = gang_phase(np, torch, card, mk, deps)
+    launches_concat.update(gang_launches)
 
     # ---- 3h. the bf16 compute mode ------------------------------------------
     bf16_launches, bf16_profiled = bf16_phase(np, torch, card, mk, drive, ds, spec_ds)
@@ -2104,11 +2258,6 @@ def main() -> int:
     # every other method on this route, held against the single-device route
     # with the weights frozen: (salopt…) on phase 3e's pretrained base run,
     # (closestknn…) on its canonical embedder
-    base_dir = next(d for d in dep_runs if os.path.basename(d).split("_")[1:3]
-                    == ["resnet9", "base"])
-    deps = {"root": os.path.join(deps_dir, "experiments"),
-            "provider": make_pretrained_saliency_fn(TrainConfig(model="resnet9"),
-                                                    lambda method: base_dir)}
     corpora = {"1d": ds, "2d": spec_ds}
     single_methods = dp_method_runs(torch, drive, corpora, deps, "single")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2195,15 +2344,19 @@ def main() -> int:
     # ---- 5. the profiler's kernel time of K1–K4, then the summary ----------
     # taken last: the profiler's sessions leave host overhead behind them,
     # which the host-bound runs of phases 3–4 would read
+    # each closure launches one mix_warp_kernel a call: a trace with another
+    # count of its events is not read (null in the kernels line)
     for (name, geometry), fn in profiled_closures.items():
         r = report[name, geometry]
-        r["kernel_us"] = sum(k5.kernel_times(fn, 60).values()) * 1e3
-        share = (f"{100 * r['bound_ms'] * 1e3 / r['kernel_us']:.1f} %" if r["kernel_us"]
-                 else "not measured")
-        print(f"{name} {geometry} {r['shape']}: {r['kernel_us']:.3f} us by the profiler over 60 "
+        r["kernel_us"], events = k5.kernel_reading(k5.kernel_times(fn, 60), "mix_warp_kernel",
+                                                   60)
+        share = ("the profiler's share not measured" if r["kernel_us"] is None else
+                 f"{100 * r['bound_ms'] * 1e3 / r['kernel_us']:.1f} % of it reached by the "
+                 "profiler's time")
+        print(f"{name} {geometry} {r['shape']}: "
+              f"{k5.reading_text(r['kernel_us'], events, 60)} by the profiler over 60 "
               f"calls, {r['ms']:.6f} ms by the bursts; bound {r['bound_ms']:.6f} ms: "
-              f"{share} of it reached by the profiler's time, "
-              f"{100 * r['bound_ms'] / r['ms']:.1f} % by the bursts', on {card}")
+              f"{share}, {100 * r['bound_ms'] / r['ms']:.1f} % by the bursts', on {card}")
     replaces = {"piecewise_mix_pairs": "pcgmix_tpu/ops/pallas_mix.py:74",
                 "pcgmix_plus_fused": "pcgmix_tpu/ops/pallas_mix.py:241",
                 "piecewise_mix_prepaired": "pcgmix_tpu/ops/pallas_mix.py:146",
@@ -2235,6 +2388,13 @@ def main() -> int:
             n = (launches_2d[name] if geometry == "spec2d"
                  else launches_concat.get((name, geometry), 0))
             k[geometry] = {**r, "launches": n}
+    # K1/K2 in phase 3g's model-in-the-loop gangs of 4 (8 gang steps each;
+    # lc-nointrusion's pool stands under its own geometry, gang-pool)
+    for k in kernels:
+        runs = {g[len("gang "):]: n for (name, g), n in launches_concat.items()
+                if name == k["name"] and g.startswith("gang ")}
+        if runs:
+            k["gang_model_in_the_loop"] = runs
     # K3/K4 on phase 4's methods: their launches in each 12-step
     # data-parallel run (lc-nointrusion: twice a step)
     for k in kernels:

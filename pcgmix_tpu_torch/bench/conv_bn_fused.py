@@ -178,9 +178,9 @@ def time_ms(fn, windows: int, reps: int, sleep_cycles: int = 20_000_000) -> list
 
 
 def kernel_times(fn, reps: int) -> dict:
-    """Device ms per call of each kernel that ``fn`` launches, from
-    torch.profiler over ``reps`` calls (empty where the trace holds no
-    device time)."""
+    """{kernel: (device ms per call, events)} of each kernel in
+    torch.profiler's trace of ``reps`` calls of ``fn``
+    (:func:`event_times`); read it with :func:`kernel_reading`."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -189,8 +189,34 @@ def kernel_times(fn, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    return event_times(prof.key_averages(), reps)
+
+
+def event_times(events, reps: int) -> dict:
+    """{key: (self device ms per call, event count)} of the profiler's
+    ``key_averages()`` over ``reps`` calls."""
+    return {e.key: (e.self_device_time_total / reps / 1e3, e.count) for e in events}
+
+
+def kernel_reading(times: dict, kernel: str, expected: int) -> tuple:
+    """(device µs per call, events) of the kernels whose name holds
+    ``kernel`` in :func:`kernel_times`' ``times``, and only those: the µs
+    are None unless the trace holds exactly ``expected`` events of them
+    (the calls times the launches a call makes) with device time, since a
+    trace that lost or gained events reads a wrong time."""
+    hits = [v for k, v in times.items() if kernel in k]
+    events = sum(n for _, n in hits)
+    total = sum(ms for ms, _ in hits)
+    if events != expected or total <= 0:
+        return None, events
+    return total * 1e3, events
+
+
+def reading_text(us, events: int, expected: int) -> str:
+    """A :func:`kernel_reading` for a report line."""
+    if us is None:
+        return f"not measured ({events} of {expected} events)"
+    return f"{us:.3f} us"
 
 
 def bench_shape(tag: str, shape, windows: int, reps: int, device,
@@ -214,8 +240,16 @@ def bench_shape(tag: str, shape, windows: int, reps: int, device,
         out["arms"][name] = r = timed(fn)
         print(f"{tag} {name}: {r}", flush=True)
     for name in ("kernel_conv", "kernel_fused") if profile else ():
-        out[f"{name}_kernels_ms"] = r = kernel_times(arms[name], reps)
-        print(f"{tag} {name} device ms per kernel: {r}", flush=True)
+        times = kernel_times(arms[name], reps)
+        under_test = ("conv3_kernel", "stats_reduce_kernel") if name == "kernel_fused" else (
+            "conv3_kernel",)
+        r = {}
+        for kernel in under_test:  # each launched once a call
+            us, events = kernel_reading(times, kernel, reps)
+            r[kernel] = None if us is None else us / 1e3
+            print(f"{tag} {name} {kernel}: {reading_text(us, events, reps)} a call",
+                  flush=True)
+        out[f"{name}_kernels_ms"] = r
     a = out["arms"]
     fused, yard = a["kernel_fused"]["min_ms"], a["cudnn_conv_stats"]["min_ms"]
     out["fused_beats_cudnn_conv_stats"] = fused < yard

@@ -72,16 +72,24 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("mix_kernel_times: CUDA is not available", file=sys.stderr)
         return 2
-    from pcgmix_tpu_torch.bench.conv_bn_fused import card_name, kernel_times, time_ms
+    from pcgmix_tpu_torch.bench.conv_bn_fused import (
+        card_name,
+        kernel_reading,
+        kernel_times,
+        reading_text,
+        time_ms,
+    )
 
     card = card_name()
     report = {}
     for name, fn in arms(torch.device("cuda")).items():
         ms = statistics.median(time_ms(fn, args.windows, args.reps))
-        kernel_us = sum(kernel_times(fn, args.reps).values()) * 1e3
+        # each arm launches one mix_warp_kernel a call
+        kernel_us, events = kernel_reading(kernel_times(fn, args.reps), "mix_warp_kernel",
+                                           args.reps)
         report[name] = {"ms": ms, "kernel_us": kernel_us}
-        print(f"{name}: profiler kernel time {kernel_us:.3f} us, {ms * 1e3:.3f} us a "
-              f"call in windows of {args.reps}, on {card}", flush=True)
+        print(f"{name}: profiler kernel time {reading_text(kernel_us, events, args.reps)}, "
+              f"{ms * 1e3:.3f} us a call in windows of {args.reps}, on {card}", flush=True)
     print(json.dumps({"card": card, "shape": [B, C, T], "arms": report}))
     return 0
 

@@ -29,7 +29,13 @@ import sys
 
 import torch
 
-from pcgmix_tpu_torch.bench.conv_bn_fused import card_name, kernel_times, time_ms
+from pcgmix_tpu_torch.bench.conv_bn_fused import (
+    card_name,
+    kernel_reading,
+    kernel_times,
+    reading_text,
+    time_ms,
+)
 from pcgmix_tpu_torch.bench.mix_kernel_times import B, C, T, main_path_inputs
 from pcgmix_tpu_torch.ops import build
 from pcgmix_tpu_torch.ops.mix_kernels import WARP_BASIS_CHUNK, warp_basis
@@ -127,13 +133,17 @@ def main(argv=None) -> int:
                           p["dst"], p["src"], p["len"], p["sel"], p["alpha"],
                           B, B, C, T, p["dst"].shape[1], 1, 4, 0)
     arms |= {"zero_1": one.zero_, "copy_batch": lambda: copy.copy_(x)}
+    # the kernel under test of each arm, launched once a call
+    under_test = {"zero_1": "FillFunctor", "copy_batch": "Memcpy DtoD"}
     report = {}
     for name, fn in arms.items():
         ms = statistics.median(time_ms(fn, args.windows, args.reps))
-        kernel_us = sum(kernel_times(fn, args.reps).values()) * 1e3
+        kernel_us, events = kernel_reading(kernel_times(fn, args.reps),
+                                           under_test.get(name, "mix_warp_kernel"), args.reps)
         report[name] = {"ms": ms, "kernel_us": kernel_us}
         print(f"{name}: {ms * 1e3:.3f} us a call in windows of {args.reps}, profiler "
-              f"kernel time {kernel_us:.3f} us, on {card}", flush=True)
+              f"kernel time {reading_text(kernel_us, events, args.reps)}, on {card}",
+              flush=True)
     print(json.dumps({"card": card, "shape": [B, C, T], "arms": report}))
     return 0
 

@@ -35,9 +35,12 @@ runner does, so it writes no dumps.
 ``seed`` together, as gangs (:mod:`pcgmix_tpu_torch.train.gang`): it
 prints ``gang of S: <method> nfrac=… seed_datas=[…]`` before each gang,
 ``done (gang): <dir>`` for each member and ``gang done: …`` with its wall
-time and launches after it.  The points a gang cannot take (the
-dependency methods, the live-model methods, the recurrent models) and
-groups of one train through ``train_model`` as before.
+time and launches after it.  Before a gang of (salopt…) or closest points
+it trains the missing canonical embedder, and the members' missing
+pretrained runs as a gang of their own (``gang of S (dependency): <method>
+seed_datas=[…]``), then hands each member its own saliency provider.  The
+points a gang cannot take (the dumps, the recurrent models) and groups of
+one train through ``train_model`` as before.
 ``--gang-max-size`` chunks larger groups (default: the device's memory
 over :func:`~pcgmix_tpu_torch.train.gang.estimate_gang_max_size`, 0: no
 chunks), ``--gang-devices N`` splits each gang's members over N ranks, and
@@ -139,10 +142,11 @@ def run_grid(
     then loads that run's ``model.pth``.
 
     ``gang`` trains the points that differ only in seed_data/seed as gangs
-    (JAX ``exp/runner.py:180-330``): ``gang_max_size`` members at most
-    (None: from the device's memory; 0: no limit), the members split over
-    ``gang_devices`` ranks where they divide, and with ``gang_fallback`` a
-    failed gang's members retrained one by one."""
+    (JAX ``exp/runner.py:180-358``), their dependencies first (the
+    members' pretrained runs as a gang of their own): ``gang_max_size``
+    members at most (None: from the device's memory; 0: no limit), the
+    members split over ``gang_devices`` ranks where they divide, and with
+    ``gang_fallback`` a failed gang's members retrained one by one."""
     resolve_device(base_cfg.device)
     if base_cfg.dataset.startswith("UMC") and not (
             seed_datas and all(s in FOLDS for s in seed_datas)):
@@ -226,8 +230,8 @@ def run_grid(
         for cfg in points:
             run_one(cfg)
         return executed
-    _run_gangs(points, dataset, run_one, executed, skip_done, progress, gang_devices,
-               gang_max_size, gang_fallback)
+    _run_gangs(points, dataset, run_one, train, salopt_provider_for, robust, executed,
+               skip_done, progress, gang_devices, gang_max_size, gang_fallback)
     return executed
 
 
@@ -236,11 +240,14 @@ def _train_rows(dataset: dict) -> dict:
     return dataset["train"] if "train" in dataset and "test" in dataset else dataset
 
 
-def _run_gangs(points, dataset, run_one, executed, skip_done, progress, gang_devices,
-               gang_max_size, gang_fallback) -> None:
+def _run_gangs(points, dataset, run_one, train, provider_for, robust, executed, skip_done,
+               progress, gang_devices, gang_max_size, gang_fallback) -> None:
     """The gang half of :func:`run_grid`: the points not done, grouped into
-    gangs (JAX ``exp/runner.py:180-330``); groups of one and the points a
-    gang cannot take go through ``run_one``."""
+    gangs with the frozen-model hooks wired (JAX ``exp/runner.py:180-358``);
+    groups of one and the points a gang cannot take go through
+    ``run_one``.  Before a gang of (salopt…) or closest members, the
+    canonical embedder is trained if missing, and the members' missing
+    pretrained runs train as gangs of their own (``train_deps``)."""
     from pcgmix_tpu_torch.train.gang import (
         estimate_gang_max_size,
         gang_profitable,
@@ -288,45 +295,87 @@ def _run_gangs(points, dataset, run_one, executed, skip_done, progress, gang_dev
                       "--gang-max-size")
         return sizes[key]
 
-    for full in group_gangable(pending):
+    def chunks(full):
         k = max_size(full[0]) if len(full) > 1 else 0
-        for group in ([full[i:i + k] for i in range(0, len(full), k)] if k else [full]):
+        return [full[i:i + k] for i in range(0, len(full), k)] if k else [full]
+
+    def gang(group, label, on_fail, **hooks):
+        """Train ``group`` as one gang; a failed gang's members go through
+        ``on_fail`` one by one unless the fallback is off."""
+        n_dev = gang_devices if gang_devices and len(group) % gang_devices == 0 else None
+        if progress:
+            note = ("" if n_dev == gang_devices or not gang_devices else
+                    f" (size {len(group)} not divisible by {gang_devices} devices — "
+                    "running unsharded)")
+            print(f"gang of {len(group)}{label}seed_datas="
+                  f"{[c.seed_data for c in group]}{note}", flush=True)
+        reset_launch_counts()
+        t0 = time.time()
+        try:
+            perfs = train_gang(group, dataset, n_devices=n_dev, progress=progress, **hooks)
+        except Exception as e:  # noqa: BLE001 - the grid goes on without the gang
+            if not gang_fallback:
+                raise
+            print(f"gang of {len(group)} ({group[0].method}) FAILED "
+                  f"({type(e).__name__}: {e}) — falling back to sequential runs "
+                  "(pass --no-gang-fallback to surface gang failures instead)",
+                  flush=True)
+            for cfg in group:
+                on_fail(cfg)
+            return
+        executed.extend(group)
+        if progress:
+            launches = {k: v for k, v in launch_counts().items() if v}
+            for cfg in group:
+                print(f"done (gang): {experiment_dir(cfg)}")
+            print(f"gang done: {len(group)} members in {time.time() - t0:.3f} s, "
+                  f"{perfs[0]['steps'][-1]} steps each, launches "
+                  f"{json.dumps(launches)}", flush=True)
+
+    def train_deps(deps):
+        """The members' missing pretrained runs, ganged as any grid points
+        (a salopt grid's per-member 'base' runs form their own gang)."""
+        missing = list({experiment_dir(d): d for d in deps
+                        if not experiment_already_done(d)}.values())
+        for full in group_gangable(missing):
+            for group in chunks(full):
+                if len(group) >= 2:
+                    gang(group, f" (dependency): {group[0].method} ", train)
+                else:
+                    if progress:
+                        print(f"run (dependency): {experiment_dir(group[0])}", flush=True)
+                    train(group[0])
+
+    for full in group_gangable(pending, model_hooks=True):
+        for group in chunks(full):
+            # a dependency pass earlier in this loop may have finished a
+            # pending point (a salopt method listed before its own 'base')
             group = [cfg for cfg in group if not done(cfg)]
             if len(group) < 2:
                 for cfg in group:
                     run_one(cfg)
                 continue
             advise(group[0])
-            n_dev = gang_devices if gang_devices and len(group) % gang_devices == 0 else None
-            if progress:
-                note = ("" if n_dev == gang_devices or not gang_devices else
-                        f" (size {len(group)} not divisible by {gang_devices} devices — "
-                        "running unsharded)")
-                print(f"gang of {len(group)}: {group[0].method} "
-                      f"nfrac={group[0].n_fraction} "
-                      f"seed_datas={[c.seed_data for c in group]}{note}", flush=True)
-            reset_launch_counts()
-            t0 = time.time()
-            try:
-                perfs = train_gang(group, dataset, n_devices=n_dev, progress=progress)
-            except Exception as e:  # noqa: BLE001 - the grid goes on without the gang
-                if not gang_fallback:
-                    raise
-                print(f"gang of {len(group)} ({group[0].method}) FAILED "
-                      f"({type(e).__name__}: {e}) — falling back to sequential runs "
-                      "(pass --no-gang-fallback to surface gang failures instead)",
-                      flush=True)
-                for cfg in group:
-                    run_one(cfg)
-                continue
-            executed.extend(group)
-            if progress:
-                launches = {k: v for k, v in launch_counts().items() if v}
-                for cfg in group:
-                    print(f"done (gang): {experiment_dir(cfg)}")
-                print(f"gang done: {len(group)} members in {time.time() - t0:.3f} s, "
-                      f"{perfs[0]['steps'][-1]} steps each, launches "
-                      f"{json.dumps(launches)}", flush=True)
+            hooks = {}
+            lat_dep = _latent_dependency(group[0])
+            if lat_dep is not None:
+                if not experiment_already_done(lat_dep):
+                    if progress:
+                        print(f"run (latent dependency): {experiment_dir(lat_dep)}",
+                              flush=True)
+                    train(lat_dep)
+                # train_gang loads the embedder from this run dir itself
+                require_checkpoint(experiment_dir(lat_dep),
+                                   f"{group[0].method!r}'s latent pairing")
+            deps = [_salopt_dependency(cfg, robust) for cfg in group]
+            if deps[0] is not None:
+                train_deps(deps)
+                for dep in deps:
+                    require_checkpoint(experiment_dir(dep),
+                                       f"{group[0].method!r}'s saliency model")
+                hooks["saliency_model_providers"] = [provider_for(cfg) for cfg in group]
+            gang(group, f": {group[0].method} nfrac={group[0].n_fraction} ", run_one,
+                 **hooks)
 
 
 def _refuse(args) -> None:

@@ -37,6 +37,8 @@ SALOPT_PRETRAIN_METHODS: dict[int, str] = {
     0: "base", 1: "durratiomixup", 2: "durmixmagwarp(0.2,4)",
 }
 SEGMENT_BINS = (1, 4, 1, 8)  # S1, systole, S2, diastole (saliency.py:177-196)
+#: the live map's Gaussian (n, σ): the last of three assignments (saliency.py:154-157)
+TRAINING_KERNEL = (57, 7.54)
 
 
 def gaussian_kernel(n: int = 11, sigma: float = 1.0) -> np.ndarray:
@@ -61,15 +63,29 @@ def _normalize01(x: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(x, nan=0.0)
 
 
+def hard_targets(target_ohe: torch.Tensor) -> torch.Tensor:
+    """The one-hot of each row's arg-max class: the score is the correct
+    class's."""
+    return F.one_hot(target_ohe.argmax(dim=1), target_ohe.shape[1]).to(target_ohe.dtype)
+
+
 def _saliency_core(model, data: torch.Tensor, target_ohe: torch.Tensor, end, n: int,
                    sigma: float, post_zero_tail: bool = True) -> torch.Tensor:
     """|∂score_correct/∂x| → tail-zero → channel sum → Gaussian smooth →
     (tail-zero) → per-row 0–1 scaling (saliency.py:53-91); (B, T) fp32."""
-    target_hard = F.one_hot(target_ohe.argmax(dim=1), target_ohe.shape[1]).to(data.dtype)
+    target_hard = hard_targets(target_ohe).to(data.dtype)
     with eval_mode(model), torch.enable_grad():
         x = data.detach().requires_grad_(True)
         score = (model(x) * target_hard).sum()
         (g,) = torch.autograd.grad(score, x)
+    return smoothed_saliency(g, end, n, sigma, post_zero_tail)
+
+
+def smoothed_saliency(g: torch.Tensor, end, n: int, sigma: float,
+                      post_zero_tail: bool = True) -> torch.Tensor:
+    """The steps after the gradient: input gradients ``g`` (B, …, T) →
+    |g| → tail-zero → sum over the other axes → Gaussian smooth →
+    (tail-zero) → per-row 0–1 scaling; (B, T) fp32."""
     g = zero_after(g.abs().reshape(g.shape[0], -1, g.shape[-1]), end)
     sal = _smooth_same(g.sum(dim=1).float(), gaussian_kernel(n, sigma))
     if post_zero_tail:
@@ -179,7 +195,7 @@ def training_saliency_raw(model, data: torch.Tensor, target_ohe: torch.Tensor,
     assignments, n = 57, σ = 7.54 (saliency.py:154-157), and the tail is not
     zeroed again after smoothing (saliency.py:158-166)."""
     end = torch.as_tensor(np.asarray(end, np.int64), device=data.device)
-    return _saliency_core(model, data, target_ohe, end, 57, 7.54, post_zero_tail=False)
+    return _saliency_core(model, data, target_ohe, end, *TRAINING_KERNEL, post_zero_tail=False)
 
 
 def bin_training_saliency(sal: np.ndarray, frames: np.ndarray

@@ -34,13 +34,33 @@ trains S such members as one program on one device:
   ``model.pth``) as its own ``train_model`` run would; ``times`` is the
   gang's wall clock.
 
+The model-in-the-loop methods (JAX ``gang.py:533-617``, ``:735-931``)
+dispatch one gang step at a time:
+
+- the frozen-model hooks: a ``(salopt…)`` member plans with its own
+  pretrained saliency provider (``saliency_model_providers``, one per
+  member), a ``(closestknn/closestbins)`` member with the shared frozen
+  embedder (``latent_feature_fn``; by default the canonical ResCNN run,
+  as ``train_model`` resolves it); each hook runs on the member's batch
+  gathered from the base corpus, so the plans equal the standalone runs'
+  bit for bit, and the one apply on S·B rows follows;
+- the live-model mode, on the equal path only: ``saliency-cutmix`` takes
+  one vmapped eval-mode saliency pass over the stacked state (only where
+  the member-uniform ``+p`` gate lets the plan ask for it), bins each
+  member's maps on the host and applies the members' splices in one K1
+  launch; ``lc-nointrusion`` joins every member's pool of 4B candidates
+  in one K1 launch (S·4B rows, zero base), scores them with one vmapped
+  eval-mode forward, picks each member's rows with its own ``lc_select``
+  and trains on the picks gathered from the scored pool, their SELC rows
+  the picks' source rows.
+
 With ``steps_per_dispatch`` K > 1 the equal path runs K gang steps as one
-CUDA graph (``train/steps.py::MultiStep`` over :class:`GangStep`).  With
-``n_devices`` > 1 the members are split over that many spawned ranks, each
-training S/n whole members with no collectives.  The frozen-model hooks
-((salopt…), closestknn/closestbins), the live-model methods and the
-recurrent models are not ganged: :func:`gang_ineligible_reason` says why,
-and the runner trains them through ``train_model``.
+CUDA graph (``train/steps.py::MultiStep`` over :class:`GangStep`), except
+for those methods.  With ``n_devices`` > 1 the members are split over that
+many spawned ranks, each training S/n whole members (and their providers)
+with no collectives.  The dumps (``latent_space``, ``track_variability``)
+and the recurrent models are not ganged: :func:`gang_ineligible_reason`
+says why, and the runner trains them through ``train_model``.
 """
 
 from __future__ import annotations
@@ -59,7 +79,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call, stack_module_state, vmap
+from torch.func import functional_call, grad, stack_module_state, vmap
 
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.engine import (
@@ -79,12 +99,20 @@ from pcgmix_tpu_torch.models import build_model, count_parameters
 from pcgmix_tpu_torch.models.layers import feed_draws, host_uniform, record_draws
 from pcgmix_tpu_torch.parallel import spawn
 from pcgmix_tpu_torch.parallel.dist import batch_rows
+from pcgmix_tpu_torch.saliency import (
+    TRAINING_KERNEL,
+    bin_training_saliency,
+    hard_targets,
+    smoothed_saliency,
+)
+from pcgmix_tpu_torch.timing import timed
 from pcgmix_tpu_torch.train.checkpoint import CheckpointManager
 from pcgmix_tpu_torch.train.convert import seeded_init
 from pcgmix_tpu_torch.train.losses import init_selc_table
 from pcgmix_tpu_torch.train.loop import (
     TrainConfig,
     _engine_rng_replayable,
+    _picklable,
     _putter,
     _selc_turnpoint,
     _start_profile,
@@ -110,16 +138,18 @@ from pcgmix_tpu_torch.train.steps import (
 _MEMBER_FIELDS = ("seed_data", "seed")
 # torch has no vmap batching rule for its recurrent layers
 RECURRENT_MODELS = ("RNN", "LSTM", "GRU")
-_LATER = "not ported yet (ROADMAP queue 1 item 12)"
 # plan arrays that index the batch's rows: a member's are offset by s·B
 _ROW_INDEX = ("mix", "idx1", "idx2")
 
 
-def gang_ineligible_reason(cfg: TrainConfig) -> Optional[str]:
+def gang_ineligible_reason(cfg: TrainConfig, model_hooks: bool = False) -> Optional[str]:
     """Why ``cfg`` cannot train in a gang (None: it can), from the config
-    alone, so that the runner groups a grid before it loads data.  The
-    JAX package's frozen-model hooks and live-model mode are not ported
-    yet: those methods name ROADMAP item 12."""
+    alone, so that the runner groups a grid before it loads data (JAX
+    ``gang.py:105-151``, its reasons word for word).  ``model_hooks=True``
+    says the caller wires the frozen-model hooks (one saliency provider per
+    member, the embedder), which makes the ``(salopt…)`` methods and the
+    closest pairings eligible; the live-model methods always are.  The
+    port adds one reason: the recurrent models."""
     if cfg.latent_space:
         return "latent_space dumps need host-side batch tensors"
     if cfg.track_variability:
@@ -128,12 +158,14 @@ def gang_ineligible_reason(cfg: TrainConfig) -> Optional[str]:
         return (f"{cfg.model}: torch has no vmap batching rule for its recurrent "
                 "layer, so it trains sequentially")
     spec = parse_method(cfg.method, spectrogram=cfg.spectrogram)
-    if spec.salopt is not None:
-        return f"(salopt…) planning with per-member pretrained providers is {_LATER}"
-    if spec.pairing in LATENT_PAIRINGS:
-        return f"latent pairing with the frozen embedding model in a gang is {_LATER}"
-    if spec.enabled and spec.base in LIVE_MODEL_BASES:
-        return f"the live-model mode ({spec.base}) in a gang is {_LATER}"
+    if spec.salopt is not None and not model_hooks:
+        return ("saliency planning needs per-member pretrained providers "
+                "(train_gang(saliency_model_providers=…); the runner's "
+                "--gang wires them)")
+    if spec.pairing in LATENT_PAIRINGS and not model_hooks:
+        return ("latent pairing needs the frozen embedding model "
+                "(train_gang auto-resolves it once its canonical run "
+                "exists; the runner's --gang trains it first)")
     return None
 
 
@@ -154,15 +186,15 @@ def _validate_members(cfgs: list) -> None:
                              f"got differing fields {diff}")
 
 
-def group_gangable(cfgs: list) -> list:
+def group_gangable(cfgs: list, model_hooks: bool = False) -> list:
     """Bucket configs into gangs: two share a bucket when they differ only
-    in ``seed_data``/``seed`` and are eligible; an ineligible config is a
-    bucket of its own.  Split sizes never split a bucket (the ragged path
-    takes them).  Buckets follow first appearance; members keep input
-    order."""
+    in ``seed_data``/``seed`` and are eligible (``model_hooks`` as in
+    :func:`gang_ineligible_reason`); an ineligible config is a bucket of
+    its own.  Split sizes never split a bucket (the ragged path takes
+    them).  Buckets follow first appearance; members keep input order."""
     groups: dict = {}
     for cfg in cfgs:
-        if gang_ineligible_reason(cfg) is not None:
+        if gang_ineligible_reason(cfg, model_hooks) is not None:
             key = ("ineligible", id(cfg))
         else:
             key = (repr(sorted(_member_free(cfg).items(), key=lambda kv: kv[0])),)
@@ -429,26 +461,40 @@ class GangStep:
         table.index_copy_(0, flat, new_rows)
         return -(logp * new_rows.view(S, B, K)).sum(-1).mean(-1)
 
+    def gather(self, rows: torch.Tensor):
+        """(data, one-hot target) of base rows ``rows`` (a device tensor)."""
+        data = self.train_data.index_select(0, rows)
+        target = F.one_hot(self.train_labels.index_select(0, rows),
+                           self.num_classes).to(data.dtype)
+        return data, target
+
     def run(self, idx: torch.Tensor, plan, epoch: int, latent_depth: Optional[int] = None,
             scalars: Optional[torch.Tensor] = None, drawing: Optional[list] = None) -> dict:
         """The step on device tensors: ``idx`` (2, S, B), the gang's plan
         (device arrays, or a list of the members'), and the members' (S, 3)
         optimizer scalars (None: this step's, from the schedule)."""
-        _, S, B = idx.shape
-        local, rows = idx[0], idx[1].reshape(-1)
-        data = self.train_data.index_select(0, rows)
-        target = F.one_hot(self.train_labels.index_select(0, rows),
-                           self.num_classes).to(data.dtype)
+        data, target = self.gather(idx[1].reshape(-1))
         latent = plan is not None and latent_depth is not None
         if plan is not None and not latent:
             data, target = self._apply(data, target, plan)
+        return self.train_on(data, target, idx[0], epoch, scalars, drawing,
+                             latent_depth if latent else None, plan if latent else None)
+
+    def train_on(self, data: torch.Tensor, target: torch.Tensor, local: torch.Tensor,
+                 epoch: int, scalars: Optional[torch.Tensor] = None,
+                 drawing: Optional[list] = None, latent_depth: Optional[int] = None,
+                 latent_plan=None) -> dict:
+        """Forward, loss, backward and update on the members' S·B rows
+        ``data`` and their one-hot ``target``, whose SELC rows are ``local``
+        (S, B); split at ``latent_depth`` with ``latent_plan``."""
+        S, B = local.shape
         self.template.train()
         x = data.view(S, B, *data.shape[1:])
-        if latent:
+        if latent_plan is not None:
             manifold = self.engine.spec.manifold
             with torch.no_grad() if manifold else contextlib.nullcontext():
                 h = self._forward(x, latent_depth, "first", manifold, drawing)
-            h, target = self._apply(h.reshape(S * B, *h.shape[2:]), target, plan)
+            h, target = self._apply(h.reshape(S * B, *h.shape[2:]), target, latent_plan)
             out = self._forward(h.view(S, B, *h.shape[1:]), latent_depth, "second",
                                 drawing=drawing)
         else:
@@ -489,6 +535,36 @@ class GangStep:
         with torch.no_grad():
             for t, old in zip(tensors, saved):
                 t.copy_(torch.where(on.view(-1, *(1,) * (t.dim() - 1)), t, old))
+
+    # -- the live model's passes -------------------------------------------
+    def live_saliency(self, rows: torch.Tensor, end) -> torch.Tensor:
+        """Each member's live saliency maps of its batch, (S·B, T): one
+        vmapped gradient of the correct-class score sum with respect to the
+        input, in eval mode (``saliency.py::training_saliency_raw``'s
+        steps; no parameter gradient, no BatchNorm update), then the same
+        smoothing and scaling.  ``rows`` (S, B) base rows, ``end`` (S·B,)."""
+        S, B = rows.shape
+        data, target = self.gather(rows.reshape(-1))
+        target = hard_targets(target)
+        params = {k: v.detach() for k, v in self.model.params.items()}
+
+        def score(x, p, b, t):
+            return (functional_call(self.template, (p, b), (x,)) * t).sum()
+
+        with eval_mode(self.template):
+            g = vmap(grad(score))(data.view(S, B, *data.shape[1:]), params,
+                                  self.model.buffers_, target.view(S, B, -1))
+        end = torch.as_tensor(np.asarray(end, np.int64), device=data.device)
+        return smoothed_saliency(g.reshape(S * B, *g.shape[2:]), end, *TRAINING_KERNEL,
+                                 post_zero_tail=False)
+
+    def candidate_losses(self, cands: torch.Tensor, cand_t: torch.Tensor) -> torch.Tensor:
+        """Each member's per-row CE of its candidate pool under eval mode,
+        (S, N) from (S·N, …) rows and targets (``train/steps.py::
+        candidate_losses`` under vmap)."""
+        S = self.members
+        return self.evaluate(cands.view(S, -1, *cands.shape[1:]),
+                             cand_t.view(S, -1, cand_t.shape[-1]), shared=False)[1]
 
     # -- eval and the members' weights -------------------------------------
     @torch.no_grad()
@@ -692,21 +768,44 @@ def gang_profitable(cfg: TrainConfig, param_threshold: int = 1_000_000) -> bool:
 
 
 def train_gang(cfgs: list, dataset: dict, *, n_devices: Optional[int] = None,
-               progress: bool = False) -> list:
+               progress: bool = False, saliency_model_providers: Optional[list] = None,
+               latent_feature_fn=None) -> list:
     """Train the members ``cfgs`` together; returns one performance dict
     per member, of ``train_model``'s schema.  Members of unequal train
     sizes or test splits take the lockstep path (:func:`is_ragged`).
 
+    The frozen-model hooks, as ``train_model`` takes them: for a
+    ``(salopt…)`` method ``saliency_model_providers``, one provider per
+    member, each closing over that member's own pretrained checkpoint
+    (``saliency.make_pretrained_saliency_fn``); for a closest pairing
+    ``latent_feature_fn``, the shared frozen embedder (by default the
+    canonical ResCNN run of ``experiments_root``).
+
     ``n_devices`` > 1 splits the members over that many spawned ranks
-    (NCCL on cards, gloo on the CPU), S/n whole members each;
-    ``TrainConfig.n_devices`` does not apply inside a gang."""
+    (NCCL on cards, gloo on the CPU), S/n whole members each, with their
+    providers, which must pickle; ``TrainConfig.n_devices`` does not apply
+    inside a gang."""
     if not cfgs:
         raise ValueError("empty gang")
     _validate_members(cfgs)
-    reason = gang_ineligible_reason(cfgs[0])
+    cfg0 = cfgs[0]
+    reason = gang_ineligible_reason(cfg0, model_hooks=True)
     if reason is not None:
         raise ValueError(f"config not gang-eligible ({reason}); use train_model")
-    device = resolve_device(cfgs[0].device)
+    spec = parse_method(cfg0.method, spectrogram=cfg0.spectrogram)
+    if spec.salopt is None:
+        saliency_model_providers = None
+    elif saliency_model_providers is None or len(saliency_model_providers) != len(cfgs):
+        raise ValueError(
+            "(salopt…) gang needs ONE saliency provider per member, each closing over "
+            "that member's own pretrained checkpoint — pass saliency_model_providers "
+            "(saliency.make_pretrained_saliency_fn per cfg; the runner's --gang wires "
+            "this after training the dependency runs)")
+    if spec.pairing not in LATENT_PAIRINGS:
+        latent_feature_fn = None
+    hooks = {"saliency_model_providers": saliency_model_providers,
+             "latent_feature_fn": latent_feature_fn}
+    device = resolve_device(cfg0.device)
     if n_devices is not None and n_devices > 1:
         if len(cfgs) % n_devices:
             raise ValueError(f"gang size {len(cfgs)} must divide evenly over "
@@ -715,16 +814,20 @@ def train_gang(cfgs: list, dataset: dict, *, n_devices: Optional[int] = None,
             raise ValueError(f"n_devices={n_devices} but {torch.cuda.device_count()} "
                              "CUDA devices")
         parts = spawn(_gang_rank, n_devices, "nccl" if device.type == "cuda" else "gloo",
-                      (cfgs, dataset, progress), all_ranks=True)
+                      (cfgs, dataset, progress, _picklable(hooks)), all_ranks=True)
         return [perf for part in parts for perf in part]
-    return _train_gang(cfgs, dataset, progress)
+    return _train_gang(cfgs, dataset, progress, **hooks)
 
 
-def _gang_rank(cfgs: list, dataset: dict, progress: bool) -> list:
-    """A spawned rank: its block of the members, trained as a gang."""
+def _gang_rank(cfgs: list, dataset: dict, progress: bool, hooks: dict) -> list:
+    """A spawned rank: its block of the members (and of their providers),
+    trained as a gang."""
     per = len(cfgs) // dist.get_world_size()
-    rank = dist.get_rank()
-    return _train_gang(cfgs[rank * per:(rank + 1) * per], dataset, progress)
+    block = slice(dist.get_rank() * per, (dist.get_rank() + 1) * per)
+    providers = hooks["saliency_model_providers"]
+    return _train_gang(cfgs[block], dataset, progress,
+                       saliency_model_providers=providers and providers[block],
+                       latent_feature_fn=hooks["latent_feature_fn"])
 
 
 def is_ragged(train_sets: list, test_sets: list) -> bool:
@@ -739,7 +842,8 @@ def _tests_equal(test_sets: list) -> bool:
                and np.array_equal(te.label, test_sets[0].label) for te in test_sets[1:])
 
 
-def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
+def _train_gang(cfgs: list, dataset: dict, progress: bool, saliency_model_providers=None,
+                latent_feature_fn=None) -> list:
     cfg0, S = cfgs[0], len(cfgs)
     device = resolve_device(cfg0.device)
     if device.type == "cuda":
@@ -764,6 +868,13 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
     engine = engines[0]
     spec = engine.spec
     latent_mode = engine.enabled and spec.latent
+    live_mode = engine.enabled and spec.base in LIVE_MODEL_BASES
+    if live_mode and ragged:
+        # a ragged member's '+p' gate follows its own step count, so one
+        # live pass a step has no uniform gate; the runner falls back
+        raise ValueError(
+            "live-model methods (lc-nointrusion/saliency-cutmix) gang only with "
+            "equal-size members; train these ragged points via train_model")
     base = _base_train_dataset(cfg0, dataset)
     member_rows = [np.asarray(tr.rows, np.int64) for tr in train_sets]
     _check_provenance(base, cfgs, train_sets, member_rows)
@@ -771,6 +882,11 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
 
     C, T = base.data.shape[1], base.data.shape[-1]
     F_ = base.data.shape[-2] if cfg0.spectrogram else 0
+    if engine.needs_latent_model and latent_feature_fn is None:
+        # the canonical frozen embedder, as train_model resolves it
+        from pcgmix_tpu_torch.latent import latent_space_for
+
+        latent_feature_fn = latent_space_for(cfg0, T).generate
 
     def member_model(cfg):
         return build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed,
@@ -796,10 +912,36 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
         raise ValueError(f"steps_per_dispatch must be at least 1, got "
                          f"{cfg0.steps_per_dispatch}")
     # K gang steps per dispatch on the equal path, for the methods that
-    # train_model chunks, but gaussiannoise, whose noise is drawn per member
+    # train_model chunks, but gaussiannoise, whose noise is drawn per member;
+    # the model-in-the-loop methods plan from the batch (and the live
+    # state) before each step: one step a dispatch (JAX scan_k = 1)
     multi = (MultiStep(step, cfg0.steps_per_dispatch)
              if (cfg0.steps_per_dispatch > 1 and not ragged and not latent_mode
-                 and spec.base != "gaussiannoise") else None)
+                 and not engine.model_in_the_loop and spec.base != "gaussiannoise")
+             else None)
+
+    def member_hooks(s, batch):
+        """Member ``s``'s frozen-model hooks on its batch, gathered from the
+        base corpus at the first call (``train/loop.py::_plan_hooks``)."""
+        cache = []
+
+        def tensors():
+            if not cache:
+                rows = member_rows[s][np.asarray(batch["indices"])]
+                cache.append(step.gather(torch.from_numpy(rows).to(device)))
+            return cache[0]
+
+        def saliency_fn(mix_model):
+            with timed("saliency"):
+                return np.asarray(saliency_model_providers[s](mix_model)(
+                    *tensors(), np.asarray(batch["frames"])))
+
+        def latent_fn():
+            with timed("latent embedding"):
+                return np.asarray(latent_feature_fn(tensors()[0]))
+
+        return {"saliency_fn": saliency_fn if saliency_model_providers else None,
+                "latent_fn": latent_fn if latent_feature_fn else None}
 
     run_dirs = [utils.check_folder(experiment_dir(cfg)) if cfg.save_artifacts else None
                 for cfg in cfgs]
@@ -883,14 +1025,18 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
             for s in range(S):
                 if active[s]:
                     lr_lists[s].append(lrm[s][0])
-            plans = [engines[s].plan(msteps[s], b["frames"], b["label"], b["wav"])
+            if live_mode:
+                o = _live_gang_step(step, engines, batches, idx, msteps[0], epoch, scalars)
+                outs.append((o["loss"], o["preds"], o["target"]))
+                masks.append(active)
+                msteps = [n + 1 for n in msteps]
+                continue
+            plans = [engines[s].plan(msteps[s], b["frames"], b["label"], b["wav"],
+                                     **member_hooks(s, b))
                      if engine.enabled and active[s] else None
                      for s, b in enumerate(batches)]
-            if not ragged and len({(p is None, getattr(p, "latent_depth", None))
-                                   for p in plans}) > 1:
-                # the gate and the depth draw are seeded by the step alone
-                raise RuntimeError(f"step {msteps[0]}: gang members disagree on the "
-                                   "'+p' gate or the latent depth")
+            if not ragged:
+                _check_uniform(plans, msteps[0])
             if latent_mode:
                 # dispatch per draw (None: the '+p' gate left the batch
                 # alone; d: the split depth), masked to that draw's members
@@ -911,9 +1057,10 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
                     for s, (eng, b, p) in enumerate(zip(engines, batches, plans)):
                         if p is not None:
                             a = p.arrays
-                        else:  # gated off, or idle: consumes no RNG
+                        else:  # gated off, or idle: consumes no RNG (the hooks
+                            # run once, where the identity plan is first built)
                             a = eng.identity_arrays(msteps[s], b["frames"], b["label"],
-                                                    b["wav"])
+                                                    b["wav"], **member_hooks(s, b))
                         arrays.append(eng.gated_arrays(a, p) if ragged else a)
                 with step.masked(active):
                     o = step(idx, arrays, epoch, None, scalars, drawing=list(active))
@@ -969,6 +1116,64 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool) -> list:
         perf.dict["lr_per_step"] = list(lr_lists[s])
     _cleanup_gang_ckpt(ckpt)
     return [perf.dict for perf in perfs]
+
+
+def _check_uniform(plans: list, n: int) -> None:
+    """The members' plans of one equal-path step share the ``+p`` gate and
+    the latent depth: both are seeded by the step alone."""
+    if len({(p is None, getattr(p, "latent_depth", None)) for p in plans}) > 1:
+        raise RuntimeError(f"step {n}: gang members disagree on the '+p' gate or the "
+                           "latent depth")
+
+
+def _live_gang_step(step: GangStep, engines: list, batches: list, idx: np.ndarray, n: int,
+                    epoch: int, scalars: np.ndarray) -> dict:
+    """One equal-path gang step of a live-model method (JAX
+    ``_live_gang_step``): the live passes over the stacked state, each
+    member's plan or picks from its own engine on the host, then the step.
+    ``saliency-cutmix``'s saliency pass runs only where a plan asks for
+    its bins; ``lc-nointrusion`` trains on the picked candidates of the
+    scored pool, one K1 launch a step."""
+    _, S, B = idx.shape
+    device = step.train_data.device
+    rows = torch.from_numpy(np.ascontiguousarray(idx[1])).to(device)
+    spec = engines[0].spec
+    hooks = [{} for _ in range(S)]
+    if spec.base == "saliency-cutmix":
+        frames = np.stack([np.asarray(b["frames"]) for b in batches])
+        bins: list = []
+
+        def bins_for(s):
+            if not bins:
+                with timed("saliency"):
+                    sal = step.live_saliency(rows, frames[:, :, -1].reshape(-1))
+                    sal = sal.cpu().numpy().reshape(S, B, -1)
+                bins.extend(bin_training_saliency(sal[m], frames[m]) for m in range(S))
+            return bins[s]
+
+        hooks = [{"saliency_bins_fn": lambda s=s: bins_for(s)} for s in range(S)]
+    plans = [eng.plan(n, b["frames"], b["label"], b["wav"], **kw)
+             for eng, b, kw in zip(engines, batches, hooks)]
+    _check_uniform(plans, n)
+    if plans[0] is None:  # gated off: a plain step
+        return step(idx, None, epoch, None, scalars)
+    if spec.base == "saliency-cutmix":
+        return step(idx, [p.arrays for p in plans], epoch, None, scalars)
+    # lc-nointrusion: every member's pool in one apply (K1 on S·4B rows)
+    pool = step.device_plan(gang_plan([p.arrays for p in plans], B), B, S)
+    cands, cand_t = step.engine.apply(*step.gather(rows.reshape(-1)), pool)
+    with timed("candidate forward"):
+        losses = step.candidate_losses(cands, cand_t).cpu().numpy()
+    picks, local = [], []
+    with timed("lc_select"):
+        for s, (eng, p, b) in enumerate(zip(engines, plans, batches)):
+            sel = eng.lc_select(losses[s], p.aux["cand_labels"], p.aux["n_per_class"])
+            picks.append(sel + s * losses.shape[1])
+            local.append(np.asarray(b["indices"])[p.arrays["idx1"][sel]])
+    picks = torch.from_numpy(np.concatenate(picks)).to(device)
+    s_scalars = torch.from_numpy(scalars).to(device)
+    return step.train_on(cands.index_select(0, picks), cand_t.index_select(0, picks),
+                         torch.from_numpy(np.stack(local)).to(device), epoch, s_scalars)
 
 
 def _gang_checkpoint(step: GangStep) -> dict:

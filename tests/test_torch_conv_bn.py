@@ -129,6 +129,49 @@ def test_harness_bounds_and_cpu_check():
     assert harness.main(["--check"]) == 0
 
 
+def _events(*rows):
+    """Stand-ins of torch.profiler's ``key_averages()``: (key, self device
+    µs in all, count)."""
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(key=k, self_device_time_total=us, count=n) for k, us, n in rows]
+
+
+K1_NAME = "void (anonymous namespace)::mix_warp_kernel<float, 4, false, false>(...)"
+
+
+@pytest.mark.parametrize("rows,expected", [
+    # a whole trace: the kernel under test alone is summed, not the
+    # closure's other kernels, nor the runtime's host-side entries
+    ([(K1_NAME, 120.0, 60), ("vectorized_elementwise_kernel<FillFunctor>", 90.0, 60),
+      ("cudaLaunchKernel", 0.0, 60)], (2.0, 60)),
+    # a short trace (events lost) and a long one are not read
+    ([(K1_NAME, 38.0, 15)], (None, 15)),
+    ([(K1_NAME, 250.0, 120)], (None, 120)),
+    # no kernel event, or events without device time (a 0.000 µs reading)
+    ([("cudaLaunchKernel", 0.0, 60)], (None, 0)),
+    ([(K1_NAME, 0.0, 60)], (None, 60)),
+])
+def test_profiler_reading_counts_the_kernels_events(rows, expected):
+    times = harness.event_times(_events(*rows), 60)
+    us, events = harness.kernel_reading(times, "mix_warp_kernel", 60)
+    assert events == expected[1]
+    assert us == pytest.approx(expected[0]) if expected[0] is not None else us is None
+    text = harness.reading_text(us, events, 60)
+    assert text == ("not measured (%d of 60 events)" % events if us is None
+                    else "%.3f us" % us)
+
+
+def test_profiler_reading_sums_every_launch_of_the_kernel():
+    """K5 with statistics: two kernels a call, each read on its own."""
+    times = harness.event_times(_events(("conv3_kernel<256, true>", 640.0, 10),
+                                        ("stats_reduce_kernel", 30.0, 10)), 10)
+    assert harness.kernel_reading(times, "conv3_kernel", 10) == (pytest.approx(64.0), 10)
+    assert harness.kernel_reading(times, "stats_reduce_kernel", 10) == (pytest.approx(3.0),
+                                                                        10)
+    assert harness.kernel_reading(times, "mix_warp_kernel", 10) == (None, 0)
+
+
 @pytest.mark.parametrize("shape", [harness.SMALL_ODD, (3, 1, 44, 70)])
 def test_zero_padded_channels_change_nothing(shape):
     # the card's wrapper launches on these copies where TMA cannot describe

@@ -2,8 +2,10 @@
 CPU: each member against its own ``train_model`` run (plans bit-equal,
 frozen weights within 1e-6, loss traces at the transplant bar), the JAX
 package's ``train_gang`` on equal PCGmix+ and latentmixup members, the
-graph route's chunks, resume, ranks, eligibility, grouping, sizing, and
-``conv_impl="matmul"``."""
+graph route's chunks, resume, ranks, eligibility and grouping (the JAX
+package's for every method of the DSL, with and without the model
+hooks), sizing, and ``conv_impl="matmul"``.  The model-in-the-loop
+methods' gangs: tests/test_torch_gang_model_in_loop.py."""
 
 import dataclasses
 import shutil
@@ -318,7 +320,47 @@ def test_host_side_reasons_equal_the_jax_package(fields):
                                     "(closestknn=8)durmixmagwarp(0.2,4)",
                                     "lc-nointrusion", "saliency-cutmix"])
 def test_model_hook_and_live_methods_name_item_12(method):
-    assert "item 12" in gang.gang_ineligible_reason(TrainConfig(method=method))
+    """The frozen-model hook and live-model methods, once refused by the
+    port's gangs, take the JAX package's reasons: the hooks need
+    ``model_hooks``, the live methods are eligible either way."""
+    for hooks in (False, True):
+        got = gang.gang_ineligible_reason(TrainConfig(method=method), model_hooks=hooks)
+        assert got == jgang.gang_ineligible_reason(JTrainConfig(method=method),
+                                                   model_hooks=hooks)
+    assert gang.gang_ineligible_reason(TrainConfig(method=method), model_hooks=True) is None
+
+
+# one method of each base and pairing of the DSL, the salopt variants, the
+# gated, SELC, '(rand)' and '(smooth)' forms, and the 2-D ladder's masks
+DSL_METHODS = (
+    "base", "durratiomixup", "durmixmagwarp(0.2,4)", "durmixrespscale(12,20)",
+    "durratiocutmix", "(UMC-subset)durratiocutmix", "wav-durratiocutmix", "cutmix",
+    "cutmix(ch)", "labelcutmix", "lengthcutmix", "datasetcutmix", "wavcutmix", "swapsysdia",
+    "cont-cutmix", "(smooth)labelcutmix", "lc-nointrusion", "(rand)lc-nointrusion",
+    "lc-nointrusion+cutout+1.0", "lc-nointrusion+0.5", "saliency-cutmix",
+    "saliency-cutmix+0.6", "mixup(same)", "mixup(mix)", "latentmixup", "manifold-cutout",
+    "manifold-cutmix", "timemask(0.2)", "respiratoryscale(12,20)", "magnitudewarp(0.2,4)",
+    "timewarp(0.05,4)", "gaussiannoise(25,40)", "cutout(0.25,0.25)", "s1s2mask",
+    "(sameCVD)durratiomixup", "(samePCG)durmixmagwarp(0.2,4)",
+    "(sameDataset)durmixmagwarp(0.2,4)", "(mixAll)durmixmagwarp(0.2,4)",
+    "(sameLength)durratiomixup", "(rand)durratiomixup", "durratiomixup-SELC",
+    "durmixmagwarp(0.2,4)+0.5", "(saloptenv)durratiomixup", "(saloptsum)durratiomixup",
+    "(saloptenv-1)durratiomixup", "(saloptsum-2)durmixmagwarp(0.2,4)",
+    "(saloptenv)durmixmagwarp(0.2,4)+0.5", "(closestknn=8)durmixmagwarp(0.2,4)",
+    "(closestbins=4)durratiomixup", "(closestknn=2)durratiocutmix",
+    "(UMC-subset)durratiomixup", "trueseed=7durratiomixup",
+    ("PhysioNet(spec128)", "freqmask(0.1)"), ("PhysioNet(spec128)", "durmixtimemask(0.1)"),
+)
+
+
+@pytest.mark.parametrize("hooks", [False, True])
+def test_reasons_equal_the_jax_package_for_every_method(hooks):
+    for entry in DSL_METHODS:
+        dataset, method = entry if isinstance(entry, tuple) else ("PhysioNet", entry)
+        got = gang.gang_ineligible_reason(TrainConfig(method=method, dataset=dataset), hooks)
+        ref = jgang.gang_ineligible_reason(JTrainConfig(method=method, dataset=dataset),
+                                           model_hooks=hooks)
+        assert got == ref, method
 
 
 def test_recurrent_models_train_sequentially():
@@ -330,17 +372,21 @@ def test_recurrent_models_train_sequentially():
 
 def test_group_gangable_buckets_as_the_jax_package():
     grid = [dict(method=m, seed_data=sd, n_fraction=nf)
-            for m in ("base", "lc-nointrusion", "durratiomixup")
+            for m in ("base", "lc-nointrusion", "durratiomixup", "(saloptenv)durratiomixup",
+                      "(closestknn=8)durmixmagwarp(0.2,4)", "saliency-cutmix")
             for nf in (0.5, 1.0) for sd in (1, 2)]
     grid.append(dict(method="base", seed_data=3, n_fraction=0.5, seed=2))
-    got = gang.group_gangable([TrainConfig(**g) for g in grid])
-    ref = jgang.group_gangable([JTrainConfig(**g) for g in grid])
-    key = [[(c.method, c.n_fraction, c.seed_data, c.seed) for c in b] for b in got]
-    # lc-nointrusion gangs in the JAX package (live mode), not yet here
-    jkey = [[(c.method, c.n_fraction, c.seed_data, c.seed) for c in b] for b in ref]
-    assert [b for b in key if b[0][0] != "lc-nointrusion"] == [
-        b for b in jkey if b[0][0] != "lc-nointrusion"]
-    assert [len(b) for b in key if b[0][0] == "lc-nointrusion"] == [1, 1, 1, 1]
+    grid.append(dict(method="base", seed_data=4, latent_space=True))
+    for hooks in (False, True):
+        got = gang.group_gangable([TrainConfig(**g) for g in grid], model_hooks=hooks)
+        ref = jgang.group_gangable([JTrainConfig(**g) for g in grid], model_hooks=hooks)
+        key = [[(c.method, c.n_fraction, c.seed_data, c.seed) for c in b] for b in got]
+        assert key == [[(c.method, c.n_fraction, c.seed_data, c.seed) for c in b]
+                       for b in ref]
+        # the hook methods gang only with the hooks; the live methods always
+        sizes = {b[0][0]: len(b) for b in key}
+        assert sizes["(saloptenv)durratiomixup"] == (2 if hooks else 1)
+        assert sizes["lc-nointrusion"] == sizes["saliency-cutmix"] == 2
     with pytest.raises(ValueError, match="differ only in"):
         gang._validate_members([TrainConfig(), TrainConfig(lr_max=0.5)])
 

@@ -154,6 +154,18 @@ def train_runs(dataset, runs, potes_head_dropout=None, narrow_2d=None):
     return out
 
 
+def gang_runs(dataset, runs):
+    """Inside a process group (a spawned rank): each (key, member configs
+    as dicts, train_gang's hooks) of ``runs`` through the rank's share of
+    ``train_gang(n_devices=world)``; {key: this rank's members' perfs}."""
+    from pcgmix_tpu_torch.train import TrainConfig, gang
+
+    return {key: gang._gang_rank([TrainConfig(**c) for c in cfgs], dataset, False,
+                                 {"saliency_model_providers": None, "latent_feature_fn": None,
+                                  **hooks})
+            for key, cfgs, hooks in runs}
+
+
 def gather_grad_case(dp=None):
     """The autograd gather on a seeded (8, 3, 5) batch: each rank takes the
     global batch from its block through ``gather_grad``, and its loss reads
