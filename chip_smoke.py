@@ -222,6 +222,30 @@ Phases (any failure exits non-zero):
    and 4 against sequential bf16 runs, alternated, with each member's peak
    memory beside ``estimate_gang_max_size``.  A profiled bf16 call stands
    beside phase 3's fp32 one.
+3i. The offline builder and ``classical_space``.  Two generated trees in
+   the reference layout, written here with scipy: PhysioNet-2016 (subsets
+   a–f, 8 recordings each of 10–60 s at 2 kHz, both classes, hand- and
+   Springer-annotated, one noise run; band wavs band-passed and
+   RMS-normalized) and UMC (16 recordings of 10–30 s at 4 kHz, patient ids
+   from the hardcoded folds, noisy and excluded ones among them): a cut of
+   the real corpora's scale (about 3,150 PhysioNet recordings of 5–120 s,
+   not in the repository).  All six ``--corpus`` builds run through
+   ``python -m pcgmix_tpu_torch.data.builder`` on the card, then again with
+   ``--device cpu`` (each wave's six together): labels, frames, wavs and
+   ``sig_qual`` equal, the 1-D and "full" bands bit-equal, the spectrograms
+   within the CPU tests' 1e-2 dB over the builds' smallest std (13.9);
+   each build's wall time and its mel part's on the card against the CPU.
+   Then ``classical_space`` at full width: ResNet9, batch 64, phase 3's
+   corpus as 4 + 1 × 2500, PCGmix+ for 8 steps (K2 16 launches: the step
+   and the dump's apply) and PCGmix for 8 (K1 16), one CSV of 64 rows a
+   step; the PCGmix+ run's first 4 steps against a CPU run of the same
+   config: plans bit-equal, the augmented 5-channel rows within K2's 1e-5
+   (CSVs then byte-equal where the rows are), headers and meta columns
+   equal, the differing CSV values counted; its steps/s against phase 3's
+   PCGmix+ rate and its host ms a step for the features.  Last the runner
+   with ``--classical-space`` on the built ``physionet-1d`` .dat (PCGmix+,
+   1 epoch at n_frac 0.25): K2 twice a step, a CSV a step; its rerun
+   skips.  Phase 2 adds this path's geometry, K1 and K2 at 64 × 5 × 2500.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -1711,6 +1735,390 @@ def mil_gang_phase(np, torch, card, mk, deps, ds):
     return launches
 
 
+# phase 3i: the offline builder on the card and classical_space.  The
+# generated corpora: reference-layout PhysioNet-2016 (subsets a-f, 8
+# recordings each of 10-60 s at 2 kHz, both classes; test recordings 2 and
+# 3 of each subset, recording 3 Springer-annotated, b0000 with a noise run)
+# and UMC (16 recordings of 10-30 s at 4 kHz, patient ids from the folds).
+# The real corpora (about 3,150 PhysioNet recordings of 5-120 s) are not in
+# the repository: these trees are a cut of their scale, not of their
+# shapes.  One cycle: (state, samples at 2 kHz), each jittered ±15 %.
+CYCLE_2K = (("S1", 280), ("systole", 480), ("S2", 240), ("diastole", 800))
+UMC_RECORDINGS = {  # dataset: (patient id field, seconds)
+    "DKMP_OLD": (("2", 10), ("19", 14), ("17", 12), ("10", 18)),
+    "RKMP_OLD": (("1", 11), ("16", 16), ("3", 13), ("22", 30)),
+    "DKMP_UMC": (("002", 20), ("008", 15), ("000", 24), ("010", 12)),
+    "RKMP_UMC": (("013", 17), ("003", 22), ("001", 10), ("005", 26)),
+}
+# the CPU tests' bar (tests/test_torch_builder.py): 1e-2 dB over the
+# smallest standardization std of the spectrogram builds
+BUILD_SPEC_BAR = 1e-2 / 13.9
+CLASSICAL_STEPS = 8  # the full-width classical_space runs (2 epochs of 4)
+
+
+def _pcg(np, n, label, sr, rng):
+    """A synthetic PCG: a 40 Hz carrier over noise, abnormal recordings
+    with a 160 Hz murmur."""
+    t = np.arange(n) / sr
+    y = 0.05 * rng.standard_normal(n) + 0.3 * np.sin(2 * np.pi * 40 * t)
+    if label:
+        y += 0.4 * np.sin(2 * np.pi * 160 * t)
+    return np.clip(y, -0.99, 0.99).astype(np.float32)
+
+
+def _state_stream(n, rng, scale=1):
+    """(frames, states) of the full cycles that fit in ``n`` samples, 1-based
+    from sample 101, ending on the S1 that closes the last cycle."""
+    frames, states, pos = [], [], 101
+    while True:
+        cycle = [(s, int(d * scale * rng.uniform(0.85, 1.15))) for s, d in CYCLE_2K]
+        if pos + sum(d for _, d in cycle) + 1 >= n:
+            break
+        for s, d in cycle:
+            frames.append(pos)
+            states.append(s)
+            pos += d
+    return frames + [pos], states + ["S1"]
+
+
+def _band_wavs(np, wavfile, y, sr, bands, path_of):
+    """The pre-filtered band wavs: the zero-phase band-pass at ``sr`` and
+    unit RMS (the 'raw_filtBandIIR(ZP)4-{band}_normRMS' files), float32."""
+    from pcgmix_tpu_torch.data.builder import BANDS
+    from pcgmix_tpu_torch.ops.filtering import bandpass_filtfilt, rms_normalize_host
+
+    for band in bands:
+        path = path_of(band)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        x = rms_normalize_host(bandpass_filtfilt(y, *BANDS[band], float(sr)))
+        wavfile.write(path, sr, x.astype(np.float32))
+
+
+def write_physionet_tree(np, root, seed=17):
+    """The reference-layout PhysioNet-2016 tree (``data/corpus.py``'s
+    docstring) under ``root``; returns its number of recordings."""
+    from scipy.io import savemat, wavfile
+
+    from pcgmix_tpu_torch.data import corpus
+
+    rng = np.random.default_rng(seed)
+    test_rows = []
+    for si, subset in enumerate(corpus.PHYSIONET_SUBSETS):
+        ref_rows = []
+        for r in range(8):
+            wav, label = f"{subset}{r:04d}", r % 2
+            sig_qual = 0 if r == 3 else 1
+            n = 2000 * (10 + (7 * r + 11 * si) % 51)
+            y = _pcg(np, n, label, 2000, rng)
+            frames, states = _state_stream(n, rng)
+            if wav == "b0000":
+                states[6] = "(N"  # one noise run: that window is skipped
+            sub, key, name = (("hand_corrected", f"training-{subset}_StateAns",
+                               f"{wav}_StateAns.mat") if sig_qual else
+                              ("springer_alg", f"training-{subset}-Aut", f"{wav}_StateAns0.mat"))
+            path = os.path.join(root, "annotations", sub, key, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            rows = np.empty((len(frames), 2), dtype=object)
+            for k, (f, s) in enumerate(zip(frames, states)):
+                rows[k, 0] = np.array([[float(f)]])
+                rows[k, 1] = np.array([s], dtype=object)
+            savemat(path, {"state_ans" if sig_qual else "state_ans0": rows})
+            raw = os.path.join(root, f"training-{subset}", "raw", f"{wav}.wav")
+            os.makedirs(os.path.dirname(raw), exist_ok=True)
+            wavfile.write(raw, 2000, (y * 32767).astype(np.int16))
+            _band_wavs(np, wavfile, y, 2000, corpus.PHYSIONET_BANDS,
+                       lambda band: corpus._physionet_band_wav(root, subset, wav, band))
+            ref_rows.append(f"{wav},{1 if label else -1},{sig_qual}")
+            if r in (2, 3):
+                test_rows.append(f"{wav},{1 if label else -1}")
+        csv_dir = os.path.join(root, "annotations", "updated", f"training-{subset}")
+        os.makedirs(csv_dir, exist_ok=True)
+        with open(os.path.join(csv_dir, "REFERENCE_withSQI.csv"), "w") as f:
+            f.write("\n".join(ref_rows) + "\n")
+    os.makedirs(os.path.join(root, "validation"), exist_ok=True)
+    with open(os.path.join(root, "validation", "REFERENCE.csv"), "w") as f:
+        f.write("\n".join(test_rows) + "\n")
+    return 8 * len(corpus.PHYSIONET_SUBSETS)
+
+
+def write_umc_tree(np, root, seed=19):
+    """The reference-layout UMC tree under ``root``: per-sample state traces
+    at 4 kHz, raw and band wavs; returns its number of recordings."""
+    from scipy.io import wavfile
+
+    from pcgmix_tpu_torch.data import corpus
+
+    rng = np.random.default_rng(seed)
+    code = {"S1": 1, "systole": 2, "S2": 3, "diastole": 4}
+    n_recs = 0
+    for ds_name, recs in UMC_RECORDINGS.items():
+        for pid, seconds in recs:
+            n = 4000 * seconds
+            frames, states = _state_stream(n, rng, scale=2)
+            trace = np.zeros(n, np.int64)
+            trace[:frames[0]] = 4  # a diastole lead-in, as a clipped first run
+            for j in range(len(frames) - 1):
+                trace[frames[j]:frames[j + 1]] = code[states[j]]
+            trace[frames[-1]:] = 1
+            fname = f"{pid}_1_states.txt" if ds_name.endswith("_OLD") else f"{pid}_1_a_states.txt"
+            seg = os.path.join(root, ds_name, "segments", fname)
+            os.makedirs(os.path.dirname(seg), exist_ok=True)
+            np.savetxt(seg, trace, fmt="%d")
+            rec = "_".join(fname.split("_")[:2 if ds_name.endswith("_OLD") else 3])
+            y = _pcg(np, n, int(ds_name.startswith("DKMP")), 4000, rng)
+            raw = os.path.join(root, ds_name, "raw", f"{rec}.wav")
+            os.makedirs(os.path.dirname(raw), exist_ok=True)
+            wavfile.write(raw, 4000, (y * 32767).astype(np.int16))
+            _band_wavs(np, wavfile, y, 4000, corpus.UMC_BANDS, lambda band: os.path.join(
+                root, ds_name, f"raw_filtBandIIR(ZP)4-{band}_normRMS",
+                f"{rec}_filtBandIIR(ZP)4-{band}_normRMS.wav"))
+            n_recs += 1
+    return n_recs
+
+
+def _module_calls(module, cmds):
+    """``python -m module`` with each argument list of ``cmds``, all started
+    together from this checkout; each call's (stdout lines, wall s from the
+    common start to its exit)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+    t0 = time.time()
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in cmds]
+    procs = [subprocess.Popen([sys.executable, "-m", module, *cmd], cwd=here, env=env,
+                              stdout=out, stderr=err, text=True)
+             for cmd, (out, err) in zip(cmds, logs)]
+    ends = [None] * len(procs)
+    try:
+        while None in ends:
+            if time.time() - t0 > 600:
+                raise AssertionError(f"{module}: the calls outlasted 600 s")
+            for i, proc in enumerate(procs):
+                if ends[i] is None and proc.poll() is not None:
+                    ends[i] = time.time() - t0
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    outs = []
+    for proc, cmd, wall, files in zip(procs, cmds, ends, logs):
+        for f in files:
+            f.seek(0)
+        out, err = (f.read() for f in files)
+        for f in files:
+            f.close()
+        if proc.returncode:
+            print(out[-4000:], err[-4000:], file=sys.stderr)
+            raise AssertionError(f"{module} {' '.join(cmd)} exited {proc.returncode}")
+        outs.append((out.splitlines(), wall))
+    return outs
+
+
+def _same_build(np, got, exp, spec_bar):
+    """The largest spectrogram difference of two builds of one kind, after
+    checking that everything else is equal (the 1-D bands bit for bit)."""
+    if sorted(got) != sorted(exp):
+        raise AssertionError(f"build keys differ: {sorted(got)} against {sorted(exp)}")
+    if "train" in exp and "test" in exp:
+        return max(_same_build(np, got[s], exp[s], spec_bar) for s in exp)
+    worst = 0.0
+    for key, v in exp.items():
+        if key == "data" and not isinstance(v, dict):
+            if got[key].shape != v.shape:
+                raise AssertionError(f"spectrograms {got[key].shape} against {v.shape}")
+            worst = float(np.abs(got[key] - v).max()) if v.size else 0.0
+            if worst > spec_bar:
+                raise AssertionError(f"spectrograms differ by {worst:.3e} (bar {spec_bar:.3e})")
+        elif key == "data":
+            for band, a in v.items():
+                if not np.array_equal(got[key][band], a):
+                    raise AssertionError(f"band {band} differs")
+        elif not np.array_equal(got[key], v):
+            raise AssertionError(f"build key {key} differs")
+    return worst
+
+
+def build_phase(np, card, tmp, devices=("cuda", "cpu")):
+    """Phase 3i's builds: the two trees, all six corpus builds through the
+    builder CLI on the card, then again with ``--device cpu`` (each wave's
+    builds run together), held equal; returns the built .dat paths of the
+    first wave.  ``devices=("cpu", "cpu")`` rehearses it on the CPU."""
+    from pcgmix_tpu_torch import utils
+    from pcgmix_tpu_torch.data.corpus import BUILDERS, SPECTROGRAM_KINDS
+
+    t0 = time.time()
+    roots = {"physionet": os.path.join(tmp, "physionet"), "umc": os.path.join(tmp, "umc")}
+    n_phys = write_physionet_tree(np, roots["physionet"])
+    n_umc = write_umc_tree(np, roots["umc"])
+    print(f"builder trees: PhysioNet {n_phys} recordings of 10-60 s at 2 kHz, UMC {n_umc} "
+          f"of 10-30 s at 4 kHz, written in {time.time() - t0:.3f} s (a cut of the real "
+          "corpora's scale: about 3,150 PhysioNet recordings of 5-120 s)")
+    dats, walls, mel = {}, {}, {}
+    for wave, device in zip(("card", "cpu"), devices):
+        cmds = [["--corpus", kind, "--root", roots["umc" if kind.startswith("umc") else
+                                                     "physionet"],
+                 "--out", os.path.join(tmp, f"{kind}-{wave}.dat"), "--device", device]
+                for kind in BUILDERS]
+        for kind, (lines, wall) in zip(BUILDERS, _module_calls(
+                "pcgmix_tpu_torch.data.builder", cmds)):
+            dats[kind, wave] = os.path.join(tmp, f"{kind}-{wave}.dat")
+            walls[kind, wave] = wall
+            timing = [json.loads(ln[len("timing: "):]) for ln in lines
+                      if ln.startswith("timing: ")]
+            if kind in SPECTROGRAM_KINDS:
+                if len(timing) != 1:
+                    raise AssertionError(f"build {kind} on {device}: no mel timing line")
+                mel[kind, wave] = timing[0]["mel spectrogram"]
+            print(f"build {kind} --device {device}: {lines[0]}")
+    for kind in BUILDERS:
+        got, exp = utils.file2dict(dats[kind, "card"]), utils.file2dict(dats[kind, "cpu"])
+        worst = _same_build(np, got, exp, BUILD_SPEC_BAR)
+        splits = [got] if "label" in got else [got["train"], got["test"]]
+        n = sum(len(s["label"]) for s in splits)
+        line = (f"build {kind}: {n} cycles; card {walls[kind, 'card']:.3f} s, CPU "
+                f"{walls[kind, 'cpu']:.3f} s wall (the six builds of a device together); "
+                "labels, frames, wavs, sig_qual equal")
+        if kind in SPECTROGRAM_KINDS:
+            (ms_card, n_card), (ms_cpu, _) = mel[kind, "card"], mel[kind, "cpu"]
+            line += (f"; spectrograms max |diff| {worst:.3e} (bar {BUILD_SPEC_BAR:.3e}); mel "
+                     f"part {ms_card:.3f} ms on the card against {ms_cpu:.3f} ms on the CPU "
+                     f"({n_card} recordings)")
+        else:
+            line += "; bands bit-equal"
+        print(f"{line}, on {card}")
+        if n == 0:
+            raise AssertionError(f"build {kind}: no cycles")
+    # the mel part alone in steady state (a build process pays its first
+    # call's set-up): one 35 s recording at 2 kHz, 128 mels, hop 34
+    from pcgmix_tpu_torch.data.corpus import recording_mel_db
+
+    y = np.random.default_rng(3).standard_normal(70000).astype(np.float32)
+    steady = {}
+    for wave, device in zip(("card", "CPU"), devices):
+        for _ in range(3):
+            recording_mel_db(y, 2000, 128, 25.0, 1000.0, 34, device)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            recording_mel_db(y, 2000, 128, 25.0, 1000.0, 34, device)
+        steady[wave] = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"mel part of one 35 s recording (host to device and back included), steady "
+          f"state over 20 calls: card {steady['card']:.3f} ms, CPU {steady['CPU']:.3f} ms, "
+          f"on {card}")
+    return {kind: dats[kind, "card"] for kind in BUILDERS}
+
+
+def classical_phase(np, torch, card, drive, ds, plus_rate, dats, tmp, model="resnet9",
+                    device="cuda"):
+    """Phase 3i's classical_space part: PCGmix+ and PCGmix at full width on
+    the card (K2 / K1 twice a step: the step and the dump), the PCGmix+
+    run's first steps against a CPU run of the same config, and the runner
+    with ``--classical-space`` and its rerun.  Returns the launches of the
+    two card runs by kernel.  ``model``, ``device`` and a CPU ``drive``
+    rehearse it on the CPU."""
+    import dataclasses as dc
+
+    from pcgmix_tpu_torch.train import TrainConfig, loop, train_model
+
+    t_phase, launches = time.time(), {}
+    rows, keep = {}, loop._dump_classical
+
+    def recording(where):
+        def dump(data, share, batch, step_count, results_dir):
+            if step_count < 4:
+                rows[where, step_count] = data.float().cpu().numpy()
+            return keep(data, share, batch, step_count, results_dir)
+        return dump
+
+    roots = {w: os.path.join(tmp, f"classical_{w}") for w in ("cuda", "cpu", "k1")}
+    plans = {"cuda": [], "cpu": []}
+    try:
+        loop._dump_classical = recording("cuda")
+        with recorded_plans(plans["cuda"]):
+            launches["pcgmix_plus_fused"], _ = drive(
+                "durmixmagwarp(0.2,4)", "pcgmix_plus_fused", "classical", model=model,
+                epochs=2, per_step=2, classical_space=True, experiments_root=roots["cuda"])
+        rate = drive.last[1]
+        loop._dump_classical = recording("cpu")
+        cfg = TrainConfig(model=model, method="durmixmagwarp(0.2,4)", num_epochs=1,
+                          batch_size=B, num_channels=C, save_artifacts=False,
+                          classical_space=True, experiments_root=roots["cpu"], device="cpu")
+        t0 = time.time()
+        with recorded_plans(plans["cpu"]):
+            train_model(cfg, ds)
+        cpu_s = time.time() - t0
+    finally:
+        loop._dump_classical = keep
+    launches["piecewise_mix_pairs"], _ = drive(
+        "durratiomixup", "piecewise_mix_pairs", "classical", model=model, epochs=2,
+        per_step=2, classical_space=True, experiments_root=roots["k1"])
+    csvs = {w: sorted(os.listdir(os.path.join(r, "classical_space"))) for w, r in roots.items()}
+    if len(csvs["cuda"]) != CLASSICAL_STEPS or len(csvs["k1"]) != CLASSICAL_STEPS:
+        raise AssertionError(f"classical_space: {csvs} CSVs, not one a step")
+    steps = len(csvs["cpu"])
+    for a, b in zip(plans["cuda"][:steps], plans["cpu"]):
+        if sorted(a) != sorted(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError("classical_space: card and CPU plans differ")
+    row_err = max(float(np.abs(rows["cuda", i] - rows["cpu", i]).max()) for i in range(steps))
+    exact = row_err == 0.0
+    worst_rel, n_diff, n_vals = 0.0, 0, 0
+    for i in range(steps):
+        with open(os.path.join(roots["cuda"], "classical_space", f"train_{i}.csv")) as f:
+            got = [line.split(",") for line in f.read().splitlines()]
+        with open(os.path.join(roots["cpu"], "classical_space", f"train_{i}.csv")) as f:
+            exp = [line.split(",") for line in f.read().splitlines()]
+        if got[0] != exp[0] or len(got) != B + 1 or len(got[0]) != 5 + 255:
+            raise AssertionError(f"classical_space step {i}: headers or rows differ")
+        for g, e in zip(got[1:], exp[1:]):
+            if g[:5] != e[:5]:
+                raise AssertionError(f"classical_space step {i}: meta columns differ")
+            for a, b in zip(g[5:], e[5:]):
+                n_vals += 1
+                if a != b:
+                    n_diff += 1
+                    if a and b:
+                        fa, fb = float(a), float(b)
+                        worst_rel = max(worst_rel, abs(fa - fb) / max(abs(fb), 1e-30))
+    print(f"classical_space {model} durmixmagwarp(0.2,4), batch {B} x 5x{T} (the model "
+          f"sees {C}): K2 {launches['pcgmix_plus_fused']} launches in {CLASSICAL_STEPS} steps; "
+          f"{CLASSICAL_STEPS} CSVs of {B} rows; against a CPU run's first {steps} steps "
+          f"({cpu_s:.3f} s): plans bit-equal, augmented 5-channel rows max |diff| "
+          f"{row_err:.3e} (K2's bar 1e-5), {n_diff} of {n_vals} CSV values differ, largest "
+          f"relative difference {worst_rel:.3e}, on {card}")
+    if row_err > 1e-5 or (exact and n_diff):
+        raise AssertionError("classical_space: the card's CSVs differ from the CPU's beyond "
+                             "what its rows allow")
+    print(f"classical_space {model} durmixmagwarp(0.2,4): {rate:.3f} steps/s against "
+          f"{plus_rate:.3f} without the dumps (phase 3), {rate / plus_rate:.3f}x; K1 with "
+          f"durratiomixup {launches['piecewise_mix_pairs']} launches in {CLASSICAL_STEPS} "
+          f"steps, on {card}")
+    # the runner end to end on the built physionet-1d .dat, then its rerun
+    root = os.path.join(tmp, "experiments")
+    cmd = ["--dataset-file", dats["physionet-1d"], "--methods", "durmixmagwarp(0.2,4)",
+           "--n-fractions", "0.25", "--seed-datas", "1100001", "--model", model,
+           "--num-epochs", "1", "--batch-size", str(B), "--no-robust",
+           "--experiments-root", root, "--classical-space", "--device", device]
+    (first, wall_first), = runner_calls(cmd, 1, "the classical_space runner")
+    done = [parse_done(ln) for ln in first if ln.startswith("done: ")]
+    if len(done) != 1:
+        raise AssertionError(f"classical_space runner: {first}")
+    run_dir, wall, n_steps, run_launches, host = done[0]
+    n_csv = len(os.listdir(os.path.join(run_dir, "classical_space")))
+    want = {"pcgmix_plus_fused": 2 * n_steps} if device == "cuda" else {}
+    if run_launches != want or n_csv != n_steps:
+        raise AssertionError(f"classical_space runner: {n_steps} steps, launches "
+                             f"{run_launches}, {n_csv} CSVs")
+    (second, wall_second), = runner_calls(cmd, 1, "the classical_space runner")
+    if not any(ln.startswith("skip (done): ") for ln in second) or any(
+            ln.startswith(("run: ", "done: ")) for ln in second):
+        raise AssertionError(f"classical_space runner rerun trained: {second}")
+    print(f"classical_space runner on the built physionet-1d: {n_steps} steps in {wall:.3f} s, "
+          f"launches {run_launches}, {n_csv} CSVs, host ms per step {json.dumps(host)}; call "
+          f"{wall_first:.3f} s, the rerun skipped in {wall_second:.3f} s, on {card}")
+    print(f"classical phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return launches
+
+
 def make_drive(np, torch, mk, card, ds):
     """``drive(method, kernel, route, ...)``: one main-path ``train_model``
     call on the card with its launches checked and its rates printed
@@ -1922,6 +2330,17 @@ def main() -> int:
                 "library_ms": None}
 
     pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
+    # the classical_space path's geometry: the four bands and the wide band,
+    # 64 × 5 × 2500, under the plans of a 5-channel engine
+    split5 = physionet_split(ds, "train", classical_space=True)
+    x5 = torch.from_numpy(split5.data[:B]).to(dev)
+
+    def plan5(method):
+        eng = AugmentEngine(AugmentConfig(method, B, 5, T))
+        return AugmentEngine.device_arrays(
+            eng.plan(7, split5.frames[:B], split5.label[:B]).arrays, dev)
+
+    pcgmix5, pcgmix_plus5 = plan5("durratiomixup"), plan5("durmixmagwarp(0.2,4)")
     # the gang path's geometry: GANG_S members' batches as one (S·B, C, T)
     # batch under their concatenated plans, row indices offset by s·B
     from pcgmix_tpu_torch.train.gang import gang_plan
@@ -1988,6 +2407,9 @@ def main() -> int:
         ("pcgmix_plus_fused", k2, "main", x32, pcgmix_plus, 1e-5, 4, 1, True, k27, False),
         ("piecewise_mix_prepaired", k3, "main", x32, pcgmix, 1e-6, 0, 2, False, k27, False),
         ("pcgmix_plus_fused_prepaired", k4, "main", x32, pcgmix_plus, 1e-5, 0, 2, True, k27,
+         False),
+        ("piecewise_mix_pairs", k1, "classical", x5, pcgmix5, 1e-6, 4, 1, False, None, False),
+        ("pcgmix_plus_fused", k2, "classical", x5, pcgmix_plus5, 1e-5, 4, 1, True, None,
          False),
         ("piecewise_mix_pairs", k1, "gang", xg, gang_pcgmix, 1e-6, 4, 1, False, None, False),
         ("pcgmix_plus_fused", k2, "gang", xg, gang_plus, 1e-5, 4, 1, True, None, False),
@@ -2062,10 +2484,11 @@ def main() -> int:
 
     drive = make_drive(np, torch, mk, card, ds)
 
-    launches, single_losses = {}, {}
+    launches, single_losses, train_rates = {}, {}, {}
     for method, kernel in (("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
                            ("durratiomixup", "piecewise_mix_pairs")):
         launches[kernel], single_losses[method] = drive(method, kernel, "train")
+        train_rates[method] = drive.last[1]
         drive(method, kernel, "train", model="Potes")
 
     # ---- 3b. latentmixup (the split forward) and the 2-D path ------------
@@ -2178,6 +2601,16 @@ def main() -> int:
     # ---- 3h. the bf16 compute mode ------------------------------------------
     bf16_launches, bf16_profiled = bf16_phase(np, torch, card, mk, drive, ds, spec_ds)
     launches_concat["piecewise_mix_pairs", "bf16-latent"] = bf16_launches.pop("bf16-latent")
+
+    # ---- 3i. the offline builder on the card; classical_space -----------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_classical_") as tmp:
+        t0 = time.time()
+        dats = build_phase(np, card, tmp)
+        print(f"build phase: {time.time() - t0:.3f} s wall on {card}")
+        for name, n in classical_phase(np, torch, card, drive, ds,
+                                       train_rates["durmixmagwarp(0.2,4)"], dats,
+                                       tmp).items():
+            launches_concat[name, "classical"] = n
 
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card

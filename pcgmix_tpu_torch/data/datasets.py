@@ -44,19 +44,21 @@ def load_cvd_map(csv_path: str) -> dict:
     return {r["wav"]: r["diagnosis"] for r in rows}
 
 
-def bands_to_channels(data_dict: dict, num_channels: int) -> np.ndarray:
+def bands_to_channels(data_dict: dict, num_channels: int,
+                      classical_space: bool = False) -> np.ndarray:
     """Stack band arrays into (N, C, T) float32: the wide band alone for
-    num_channels=1, the four narrow bands for num_channels=4."""
-    if num_channels == 1:
+    num_channels=1, the four narrow bands for num_channels=4;
+    ``classical_space`` adds the wide band as a 5th channel (reference
+    dataloader_physionet.py:49-55), which only the 4-band layout takes."""
+    if num_channels == 1 and not classical_space:
         return np.asarray(data_dict[WIDE_BAND], np.float32)[:, None, :]
     if num_channels != 4:
         raise ValueError(
             f"num_channels must be 1 (wide band) or 4 (narrow bands), "
             f"got {num_channels}"
         )
-    return np.stack(
-        [np.asarray(data_dict[b], np.float32) for b in MODEL_BANDS], axis=1
-    )
+    bands = list(MODEL_BANDS) + ([WIDE_BAND] if classical_space else [])
+    return np.stack([np.asarray(data_dict[b], np.float32) for b in bands], axis=1)
 
 
 @dataclasses.dataclass
@@ -90,14 +92,15 @@ class ArrayDataset:
         )
 
     @classmethod
-    def from_dict(cls, d: dict, num_channels: int,
+    def from_dict(cls, d: dict, num_channels: int, classical_space: bool = False,
                   spectrogram: bool = False) -> "ArrayDataset":
-        """A split of a dataset dict: the bands stacked as channels, or a
-        spectrogram dict's (N, F, T) data as one channel."""
+        """A split of a dataset dict: the bands stacked as channels (with
+        ``classical_space`` the wide band as a 5th), or a spectrogram dict's
+        (N, F, T) data as one channel."""
         if spectrogram:
             data = np.asarray(d["data"], np.float32)[:, None, :, :]
         else:
-            data = bands_to_channels(d["data"], num_channels)
+            data = bands_to_channels(d["data"], num_channels, classical_space)
         return cls(
             data=data,
             label=np.asarray(d["label"], np.int64),

@@ -49,6 +49,7 @@ def physionet_split(
     train_balance: bool = True,
     valid: bool = False,
     tbal_seed: int = 18,
+    classical_space: bool = False,
     spectrogram: bool = False,
 ) -> ArrayDataset:
     """Materialize one split of a PhysioNet dataset dict.
@@ -57,11 +58,15 @@ def physionet_split(
     runs the selection pipeline and returns the train remainder / the
     validation fold.  ``spectrogram`` reads a spectrogram dict (the 2-D
     loader, reference dataloader_physionet2d.py, runs the same steps).
+    ``classical_space`` adds the wide band as a 5th channel to the train
+    side only: the test split never carries it (reference
+    dataloader_physionet.py:246).
     """
     if mode == "test":
-        return ArrayDataset.from_dict(dataset["test"], num_channels, spectrogram)
+        return ArrayDataset.from_dict(dataset["test"], num_channels, spectrogram=spectrogram)
 
-    ds = ArrayDataset.from_dict(dataset["train"], num_channels, spectrogram)
+    ds = ArrayDataset.from_dict(dataset["train"], num_channels, classical_space,
+                                spectrogram)
     ds = ds.take(np.nonzero(ds.sig_qual)[0])
 
     buckets = _bucket_wavs(ds)

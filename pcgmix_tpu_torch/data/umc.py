@@ -58,11 +58,13 @@ def umc_split(
     seed_data: int = 1,
     seed: int = 1,
     valid: bool = False,
+    classical_space: bool = False,
     spectrogram: bool = False,
 ) -> ArrayDataset:
     """One split of a UMC dataset dict (a single dict, no train/test level:
-    the splits are by patient folds)."""
-    ds = ArrayDataset.from_dict(dataset, num_channels, spectrogram)
+    the splits are by patient folds); ``classical_space`` adds the wide
+    band as a 5th channel (the loop asks for it on the train split only)."""
+    ds = ArrayDataset.from_dict(dataset, num_channels, classical_space, spectrogram)
     ds.label = swap_umc_labels(ds.label)
     # keep the recordings marked excluded == 1 (sic, dataloader_umc.py:48-56)
     ds = ds.take([i for i, ex in enumerate(np.asarray(dataset["excluded"])) if ex == 1])

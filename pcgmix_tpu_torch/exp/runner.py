@@ -49,7 +49,11 @@ a gang that fails is retrained member by member unless
 ResNet9 and Potes convolutions as shifted matmuls.  ``--compute-dtype
 bfloat16`` trains in the bf16 compute mode (``TrainConfig.compute_dtype``;
 float32, the default, is the parity route); a gang's auto-size is reckoned
-per dtype.  The classical dumps are not ported yet and raise.
+per dtype.  ``--classical-space`` adds the wide band as a 5th channel that
+the augmentation mixes and the model skips, and writes each step's
+classical features to ``<run dir>/classical_space/train_{step}.csv``
+(``TrainConfig.classical_space``; such points train one by one, never in a
+gang); the dependency runs never inherit it.
 """
 
 from __future__ import annotations
@@ -94,6 +98,9 @@ def _salopt_dependency(cfg: TrainConfig, robust: bool) -> TrainConfig | None:
         return None
     dep = copy.deepcopy(cfg)
     dep.method = SALOPT_PRETRAIN_METHODS[spec.salopt_model]
+    # the run-dir name does not encode the dumps: the pretrained run is the
+    # plain one (as latent_pretrain_config builds the embedder's)
+    dep.classical_space = False
     if robust and spec.salopt_model:
         dep = hyperparameters_robust(dep)
     dep.save_artifacts = True  # the dependency's checkpoint is the artifact
@@ -378,18 +385,6 @@ def _run_gangs(points, dataset, run_one, train, provider_for, robust, executed, 
                  **hooks)
 
 
-def _refuse(args) -> None:
-    """Raise for the JAX runner's options that the port does not have yet,
-    naming the ROADMAP queue 1 item each waits for."""
-    refused = [
-        (args.classical_space, "--classical-space: classical feature dumps", 13),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1 item {item})")
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description="PCGmix experiment grid runner (PyTorch)")
     p.add_argument("--dataset-file", required=True, help=".dat dataset dict")
@@ -443,10 +438,11 @@ def main(argv=None):
                    help="'matmul': the ResNet9 and Potes convolutions as shifted matmuls")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16: the bf16 compute mode; float32 keeps the parity route")
-    # the JAX runner's options that wait for later slices: they raise
-    p.add_argument("--classical-space", action="store_true")
+    p.add_argument("--classical-space", action="store_true",
+                   help="add the wide band as a 5th channel that the augmentation mixes "
+                        "and the model skips, and write each step's classical features "
+                        "to <run dir>/classical_space/train_<step>.csv")
     args = p.parse_args(argv)
-    _refuse(args)
     resolve_device(args.device)
 
     dataset = utils.file2dict(args.dataset_file)
@@ -471,6 +467,7 @@ def main(argv=None):
         device_cache=not args.no_device_cache,
         conv_impl=args.conv_impl,
         compute_dtype=args.compute_dtype,
+        classical_space=args.classical_space,
     )
     run_grid(
         base_cfg,

@@ -6,7 +6,8 @@
 into), keyed by a hash of the source and flags.  Unlike the JAX package's
 shim there is no silent fallback: a failed build raises.  The NumPy scan
 each entry point replaces stays here as its plain version
-(:func:`opt_disp_env_plain`), which the tests hold the library to.
+(:func:`opt_disp_env_plain`, :func:`sample_entropy_plain`), which the tests
+hold the library to.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ def build_library() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         dp = ctypes.POINTER(ctypes.c_double)
+        lib.pcg_sample_entropy.restype = ctypes.c_double
+        lib.pcg_sample_entropy.argtypes = [dp, ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_double]
         lib.pcg_opt_disp_env.restype = ctypes.c_int64
         lib.pcg_opt_disp_env.argtypes = [dp, ctypes.c_int64, dp, ctypes.c_int64]
         _lib = lib
@@ -77,3 +81,32 @@ def opt_disp_env_plain(s_long: np.ndarray, s_short: np.ndarray) -> int:
         axis=1, dtype=np.float64
     ) + np.maximum(windows, s_short[None, :]).sum(axis=1, dtype=np.float64)
     return int(np.argmax(np.round(total, 12)))
+
+
+def sample_entropy(y: np.ndarray, order: int, r: float) -> float:
+    """antropy.sample_entropy's count with tolerance ``r`` (Chebyshev
+    distance, both counts over the n − order templates): −log(A/B), NaN
+    where a count is 0, by the C++ scan."""
+    lib = build_library()
+    a, pa = _as_double_ptr(y)
+    return float(lib.pcg_sample_entropy(pa, len(a), int(order), float(r)))
+
+
+def sample_entropy_plain(y: np.ndarray, order: int, r: float) -> float:
+    """:func:`sample_entropy`'s plain version, the NumPy loop of the JAX
+    package's fallback (``pcgmix_tpu/classical/dsp.py:193-204``)."""
+    y = np.asarray(y, np.float64)
+    n = len(y)
+    if n <= order + 1:
+        return np.nan
+    tm = sliding_window_view(y, order)[: n - order]
+    tm1 = sliding_window_view(y, order + 1)
+    b = a = 0
+    for i in range(len(tm) - 1):
+        d = np.max(np.abs(tm[i + 1 :] - tm[i]), axis=1)
+        b += int(np.sum(d < r))
+        d1 = np.max(np.abs(tm1[i + 1 :] - tm1[i]), axis=1)
+        a += int(np.sum(d1 < r))
+    if a == 0 or b == 0:
+        return np.nan
+    return float(-np.log(a / b))

@@ -150,6 +150,8 @@ def gang_ineligible_reason(cfg: TrainConfig, model_hooks: bool = False) -> Optio
     member, the embedder), which makes the ``(salopt…)`` methods and the
     closest pairings eligible; the live-model methods always are.  The
     port adds one reason: the recurrent models."""
+    if cfg.classical_space:
+        return "classical_space dumps need host-side batch tensors"
     if cfg.latent_space:
         return "latent_space dumps need host-side batch tensors"
     if cfg.track_variability:
@@ -206,9 +208,10 @@ def _base_train_dataset(cfg: TrainConfig, dataset: dict) -> ArrayDataset:
     """The base corpus the members' ``rows`` index into: the from_dict that
     physionet_split/umc_split take from (UMC with its label swap)."""
     if cfg.dataset.startswith("PhysioNet"):
-        return ArrayDataset.from_dict(dataset["train"], cfg.num_channels, cfg.spectrogram)
+        return ArrayDataset.from_dict(dataset["train"], cfg.num_channels,
+                                      spectrogram=cfg.spectrogram)
     if cfg.dataset.startswith("UMC"):
-        ds = ArrayDataset.from_dict(dataset, cfg.num_channels, cfg.spectrogram)
+        ds = ArrayDataset.from_dict(dataset, cfg.num_channels, spectrogram=cfg.spectrogram)
         ds.label = swap_umc_labels(ds.label)
         return ds
     raise ValueError(f"unknown dataset {cfg.dataset!r}")

@@ -60,6 +60,17 @@ the plan RNG so that later plans are the uninterrupted run's;
 ``variability.pkl``; ``profile_dir`` takes a ``torch.profiler`` trace of
 epoch 2.
 
+``classical_space`` (JAX ``loop.py:296-300``, ``:627-663``) adds the wide
+band as a 5th channel of the train split: the engine plans and mixes five
+channels, the model is built for and sees ``num_channels``, and after each
+step the plan is applied to the batch again (the batch itself for a
+latent method or ``lc-nointrusion``) and the features of each augmented
+row's 5th channel (``classical/features.py``) go to
+``classical_space/train_{step}.csv`` in the run directory, or under
+``experiments_root`` without one; over data-parallel ranks rank 0 writes
+the global batch's rows.  The mix kernel launches twice a step then.  It
+runs one step per dispatch.
+
 ``compute_dtype="bfloat16"`` (JAX ``loop.py:79``, ``:242-249``) builds the
 model with bf16 layers (``models/layers.py``); the JAX package's train and
 eval models are the port's one model in its two modes.  Parameters, Adam's
@@ -84,11 +95,12 @@ import torch.distributed as dist
 from pcgmix_tpu_torch import utils
 from pcgmix_tpu_torch.augment.engine import AugmentConfig, AugmentEngine
 from pcgmix_tpu_torch.data import EpochIterator, eval_batches, physionet_split, umc_split
-from pcgmix_tpu_torch.data.datasets import load_cvd_map
+from pcgmix_tpu_torch.data.datasets import MODEL_BANDS, load_cvd_map
 from pcgmix_tpu_torch.data.device_cache import device_tensor
 from pcgmix_tpu_torch.exp.dirs import experiment_dir
 from pcgmix_tpu_torch.models import SPECTROGRAM_DATASETS, build_model
 from pcgmix_tpu_torch.models.layers import resolve_compute_dtype
+from pcgmix_tpu_torch.ops.filtering import strict_fp32
 from pcgmix_tpu_torch.parallel import DataParallel, spawn
 from pcgmix_tpu_torch.train.checkpoint import CheckpointManager
 from pcgmix_tpu_torch.train.convert import seeded_init
@@ -164,6 +176,10 @@ class TrainConfig:
                                # (data/device_cache.py)
     conv_impl: str = "xla"  # "matmul": the ResNet9 and Potes presets' 1-D
                             # convolutions as shifted matmuls
+    classical_space: bool = False  # the wide band as a 5th channel that the
+                                   # augmentation mixes and the model skips;
+                                   # per-step classical feature CSVs
+                                   # (train_model.py:504-532)
     compute_dtype: str = "float32"  # "bfloat16": the layers of the families
                                     # that honor it compute in bf16 (params,
                                     # optimizer state, BatchNorm buffers and
@@ -195,7 +211,8 @@ def build_splits(cfg: TrainConfig, dataset: dict):
     if cfg.dataset.startswith("UMC"):
         common = dict(num_channels=cfg.num_channels, seed_data=cfg.seed_data,
                       seed=cfg.seed, valid=cfg.valid, spectrogram=cfg.spectrogram)
-        return (umc_split(dataset, "train", **common),
+        # the eval split never carries the classical channel
+        return (umc_split(dataset, "train", classical_space=cfg.classical_space, **common),
                 umc_split(dataset, "valid" if cfg.valid else "test", **common))
     if cfg.dataset not in ("PhysioNet", "PhysioNet(spec128)"):
         raise ValueError(f"unknown dataset {cfg.dataset!r}")
@@ -209,7 +226,7 @@ def build_splits(cfg: TrainConfig, dataset: dict):
         train_balance=cfg.train_balance, tbal_seed=tbal_seed,
         spectrogram=cfg.spectrogram,
     )
-    train = physionet_split(dataset, "train", **common)
+    train = physionet_split(dataset, "train", classical_space=cfg.classical_space, **common)
     test = physionet_split(dataset, "valid" if cfg.valid else "test", **common)
     return train, test
 
@@ -315,9 +332,10 @@ def _plan_hooks(step: TrainStep, batch: dict, model, saliency_model_provider,
     frames = np.asarray(batch["frames"])[sl]
     cache = []
 
-    def tensors():
+    def tensors():  # the model's channels of the rows (classical_space: 4 of 5)
         if not cache:
-            cache.append(step.batch(np.asarray(batch["indices"])[sl]))
+            rows, data, target = step.batch(np.asarray(batch["indices"])[sl])
+            cache.append((rows, step.model_input(data), target))
         return cache[0]
 
     def saliency_fn(mix_model):
@@ -358,7 +376,8 @@ def _lc_step(step: TrainStep, engine: AugmentEngine, plan, batch: dict, epoch: i
         _, data, target = step.batch(indices)
         cands, cand_t = engine.apply(data, target, plan.arrays)
     with timed("candidate forward"):
-        losses = share(candidate_losses(step.model, cands, cand_t).cpu().numpy())
+        losses = share(candidate_losses(step.model, step.model_input(cands),
+                                        cand_t).cpu().numpy())
     with timed("lc_select"):
         sel = engine.lc_select(losses, plan.aux["cand_labels"], plan.aux["n_per_class"])
     rows = indices[plan.arrays["idx1"][sel]]
@@ -371,21 +390,45 @@ def _lc_step(step: TrainStep, engine: AugmentEngine, plan, batch: dict, epoch: i
     return step.train_on(cands.index_select(0, sel), cand_t.index_select(0, sel), rows, epoch)
 
 
-def _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
-                  results_dir) -> None:
-    """The embeddings of the augmented batch, dumped per step (JAX
-    ``loop.py:626-675``; train_model.py:508-518): the plan applied to the
-    input, or the batch itself for a latent method or lc-nointrusion.  Over
-    data-parallel ranks each rank embeds the rows it holds, and rank 0
-    writes the global batch's (``results_dir`` None on the other ranks)."""
-    from pcgmix_tpu_torch.latent import save_latent_space
-
+def _augmented_batch(engine, step, plan, batch):
+    """(the augmented rows this process holds, ``share``) for the analysis
+    dumps (JAX ``loop.py:626-637``): the plan applied to the batch again,
+    or the batch itself for a latent method or lc-nointrusion; over
+    data-parallel ranks this rank's block, which ``share`` turns into the
+    global batch's host numbers."""
     sharded, _, share = _ranks_share(step.dp, len(batch["indices"]))
     idx = step.upload(batch["indices"])
     augmented = plan is not None and plan.latent_depth is None and (
         engine.spec.base != "lc-nointrusion")
     arrays = engine.device_arrays(plan.arrays, idx.device) if augmented else None
-    _, data, _ = step.inputs(idx, arrays, sharded)
+    return step.inputs(idx, arrays, sharded)[1], share
+
+
+def _dump_classical(data, share, batch, step_count, results_dir) -> None:
+    """The classical features of each augmented row's wide band, its 5th
+    channel, one CSV per step (JAX ``loop.py:639-663``;
+    train_model.py:519-532): ``classical_space/train_{step}.csv``, written
+    by rank 0 (``results_dir`` None on the other ranks)."""
+    from pcgmix_tpu_torch.classical import feature_vector_seg, write_csv
+
+    wide = share(data[:, len(MODEL_BANDS)].cpu().numpy())
+    if results_dir is None:
+        return
+    with timed("classical features"):
+        rows = [feature_vector_seg(wide[i], int(batch["label"][i]), batch["frames"][i],
+                                   batch["wav"][i], int(batch["sig_qual"][i]), i, "train")
+                for i in range(len(batch["label"]))]
+        out = utils.check_folder(os.path.join(results_dir, "classical_space"))
+        write_csv(rows, os.path.join(out, f"train_{step_count}.csv"))
+
+
+def _dump_latents(data, share, batch, step_count, latent_space_model, results_dir) -> None:
+    """The embeddings of the augmented batch, dumped per step (JAX
+    ``loop.py:664-675``; train_model.py:508-518).  Over data-parallel ranks
+    each rank embeds the rows it holds, and rank 0 writes the global
+    batch's (``results_dir`` None on the other ranks)."""
+    from pcgmix_tpu_torch.latent import save_latent_space
+
     fts = share(np.asarray(latent_space_model.generate(data)))
     if results_dir is not None:
         save_latent_space({"fts": fts, "target": batch["label"]}, "train", step_count,
@@ -398,10 +441,7 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
     device = resolve_device(cfg.device)
     if dp is not None and device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if device.type == "cuda":
-        # fp32 means fp32: cuDNN convolutions default to TF32 on Hopper
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    strict_fp32(device)  # fp32 means fp32: cuDNN defaults to TF32 on Hopper
     writes = cfg.save_artifacts and (dp is None or dp.rank == 0)
     run_dir = utils.check_folder(experiment_dir(cfg)) if writes else None
 
@@ -411,9 +451,11 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
         raise ValueError("train split smaller than one batch")
     C, T = train_ds.data.shape[1], train_ds.data.shape[-1]
     F = train_ds.data.shape[-2] if cfg.spectrogram else 0
+    classical = cfg.classical_space and not cfg.spectrogram
+    model_channels = cfg.num_channels if classical else None  # the model skips the 5th
 
     model = seeded_init(
-        build_model(cfg.model, cfg.num_classes, C, T, seed=cfg.seed,
+        build_model(cfg.model, cfg.num_classes, model_channels or C, T, seed=cfg.seed,
                     dataset=cfg.dataset, freq=F or None, conv_impl=cfg.conv_impl,
                     compute_dtype=cfg.compute_dtype),
         cfg.seed_fix
@@ -450,7 +492,7 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
         train_labels=put(train_ds.label, device),
         soft_labels=init_selc_table(train_ds.label, cfg.num_classes, device),
         num_classes=cfg.num_classes, grad_clip=cfg.grad_clip,
-        selc_es=_selc_turnpoint(cfg), engine=engine, dp=dp,
+        selc_es=_selc_turnpoint(cfg), engine=engine, dp=dp, model_channels=model_channels,
     )
     eval_staged = stage_eval(test_ds, cfg.eval_batch_size, cfg.num_classes,
                              device, dp, put=put)
@@ -528,10 +570,16 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
                 else:
                     out = step(batch["indices"], plan.arrays if plan else None, epoch,
                                plan.latent_depth if plan else None)
-                if cfg.latent_space and latent_space_model is not None:
-                    _dump_latents(engine, step, plan, batch, step_count, latent_space_model,
-                                  (run_dir or cfg.experiments_root)
-                                  if dp is None or dp.rank == 0 else None)
+                latent_dump = cfg.latent_space and latent_space_model is not None
+                if classical or latent_dump:
+                    data, share = _augmented_batch(engine, step, plan, batch)
+                    results_dir = ((run_dir or cfg.experiments_root)
+                                   if dp is None or dp.rank == 0 else None)
+                    if classical:
+                        _dump_classical(data, share, batch, step_count, results_dir)
+                    if latent_dump:
+                        _dump_latents(step.model_input(data), share, batch, step_count,
+                                      latent_space_model, results_dir)
                 losses.append(out["loss"].reshape(1))
                 preds.append(out["preds"])
                 targets.append(out["target"])
@@ -589,12 +637,13 @@ def _putter(cached: bool):
 def _scan_mode(cfg: TrainConfig, engine: AugmentEngine) -> bool:
     """K steps per dispatch for the methods the JAX package runs in its scan
     mode (``loop.py:332-338``, ``:372-379``): none that reads the batch on
-    the host (the model-in-the-loop methods, the latent-space dumps), nor
+    the host (the model-in-the-loop methods, the classical and latent-space
+    dumps), nor
     latentmixup or the manifold methods; those run one step per dispatch."""
     if cfg.steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch must be at least 1, got "
                          f"{cfg.steps_per_dispatch}")
-    resident = not (cfg.latent_space or engine.model_in_the_loop)
+    resident = not (cfg.classical_space or cfg.latent_space or engine.model_in_the_loop)
     return (cfg.steps_per_dispatch > 1 and resident
             and (not engine.enabled
                  or (engine.spec.base != "latentmixup" and not engine.spec.manifold)))

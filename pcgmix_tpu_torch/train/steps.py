@@ -43,6 +43,11 @@ then in the second's, the order in which flax threads ``bs1``.  The step
 takes any registry model with a split forward (ResNet9, Potes, FCN,
 ResCNN, Singstad_d10); the others refuse ``part="first"``.
 
+``classical_space`` (JAX ``train/steps.py:194-197``): the engine mixes
+the 5-channel batch (the four model bands and the wide 25-400 band), the
+model sees the first ``model_channels`` of it (:meth:`TrainStep.model_input`),
+on the single-device route and on a rank's block alike.
+
 ``lc-nointrusion`` trains on rows it picked from a candidate pool rather
 than on corpus rows (JAX ``loop.py:572-595``): :func:`candidate_losses`
 scores the pool under eval mode, and :meth:`TrainStep.train_on` takes the
@@ -130,7 +135,7 @@ class TrainStep:
     def __init__(self, model: nn.Module, opt, sched, train_data: torch.Tensor,
                  train_labels: torch.Tensor, soft_labels: torch.Tensor, *,
                  num_classes: int, grad_clip: float, selc_es: int, engine=None,
-                 dp: Optional[DataParallel] = None):
+                 dp: Optional[DataParallel] = None, model_channels: Optional[int] = None):
         self.model = model
         self.opt = opt
         self.sched = sched
@@ -142,8 +147,16 @@ class TrainStep:
         self.selc_es = selc_es
         self.engine = engine
         self.dp = dp
+        self.model_channels = model_channels
         self.fed: Optional[ScalarFedUpdate] = None
         self.last_lr: Optional[float] = None  # the learning rate of the last eager update
+
+    def model_input(self, data: torch.Tensor) -> torch.Tensor:
+        """The channels of ``data`` the model takes: the first
+        ``model_channels`` where the corpus holds more (``classical_space``)."""
+        if self.model_channels is not None and data.shape[1] > self.model_channels:
+            return data[:, :self.model_channels]
+        return data
 
     def upload(self, indices) -> torch.Tensor:
         """Host row indices as an int64 tensor on the corpus' device."""
@@ -285,6 +298,7 @@ class TrainStep:
         backward and update on this step's rows (``n`` rows in the global
         batch ``idx``; this rank's block of them when ``sharded``)."""
         latent = latent_plan is not None
+        data = self.model_input(data)
         self.model.train()
         rows_held = self.dp.block(n) if sharded else slice(0, n)
         with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):

@@ -23,6 +23,10 @@ eval-mode first part reads conv biases that Adam moves by rounding noise),
 and the JAX package's own mesh run leaves its one-device run by 2.6e-3
 (``manifold-cutout``) at step 7, 3e-4 (``manifold-cutmix``), but by 4e-5
 at most over these 4 steps.
+``classical_space`` with ``durmixmagwarp(0.2,4)`` (K4's plain version on a
+rank's block of the 5-channel batch, the features of the gathered wide
+band): rank 0 writes every step's CSV, equal to the single-device run's
+byte for byte.
 ``gaussiannoise`` draws its noise from a torch generator, which
 ``jax.random`` does not reproduce: its two ranks are held against the
 port's single-device run, every plot epoch within 1e-5 (also with two
@@ -32,6 +36,8 @@ The autograd gather: each rank's gradient of a loss that reads partner
 rows of every rank equals the concatenated batch's within 1e-6, and one
 ``latentmixup`` and one ``manifold-cutmix`` step's averaged gradients
 equal the single-device step's (a manifold first part gets zeros)."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -115,7 +121,7 @@ def _jax_loop_starts_from(monkeypatch, variables):
 
 
 @pytest.fixture(scope="module")
-def runs(dataset, spec_dataset, narrow_2d):
+def runs(dataset, spec_dataset, narrow_2d, tmp_path_factory):
     """Both ranks' results (the 1-D methods and gaussiannoise, the 2-D ones,
     the gather cases), spawned while this process runs the references:
     pcgmix_tpu.train_model(n_devices=2) on the CPU mesh for every method
@@ -124,8 +130,16 @@ def runs(dataset, spec_dataset, narrow_2d):
 
     noise_k2 = ("gaussiannoise k2", dict(COMMON, model="resnet9-5k", method="gaussiannoise",
                                          device="cpu", steps_per_dispatch=2), {})
+    roots = {k: str(tmp_path_factory.mktemp(f"classical_{k}")) for k in ("dp", "one")}
+
+    def classical(where):
+        return ("classical", dict(COMMON, model="resnet9-5k", method="durmixmagwarp(0.2,4)",
+                                  device="cpu", classical_space=True,
+                                  experiments_root=roots[where]), {})
+
     ranks = torch_dp_runs.spawn_in_background({
-        "1d": ("train_runs", (dataset, _runs_1d(METHODS_1D + ["gaussiannoise"]) + [noise_k2])),
+        "1d": ("train_runs", (dataset, _runs_1d(METHODS_1D + ["gaussiannoise"])
+                              + [noise_k2, classical("dp")])),
         "2d": ("train_runs", (spec_dataset, _runs_2d(), None, (NARROW, narrow_2d))),
         "cases": ("rank_cases", ())})
     refs = {}
@@ -143,7 +157,8 @@ def runs(dataset, spec_dataset, narrow_2d):
                                            loader_parity="torch", n_devices=2), spec_dataset)
     finally:
         mp.undo()
-    one = torch_dp_runs.train_runs(dataset, _runs_1d(["gaussiannoise"]))
+    one = torch_dp_runs.train_runs(dataset, _runs_1d(["gaussiannoise"]) + [classical("one")])
+    refs["classical roots"] = roots
     return ranks(), refs, one
 
 
@@ -219,3 +234,16 @@ def test_latent_step_gradients_equal_single_device(method, runs):
     if method == "manifold-cutmix":
         assert not np.any(ref["conv1.0.weight"]) and not np.any(
             r0["cases"][method]["conv1.0.weight"])
+
+
+def test_classical_space_rank0_writes_the_single_device_csvs(runs):
+    (r0, _), refs, one = runs
+    dp, single = (os.path.join(refs["classical roots"][k], "classical_space")
+                  for k in ("dp", "one"))
+    names = [f"train_{i}.csv" for i in range(EPOCHS)]
+    assert sorted(os.listdir(dp)) == sorted(os.listdir(single)) == sorted(names)
+    for name in names:
+        with open(os.path.join(dp, name)) as f, open(os.path.join(single, name)) as g:
+            assert f.read() == g.read(), name
+    np.testing.assert_allclose(r0["1d"]["classical"]["perf"]["train_loss"],
+                               one["classical"]["perf"]["train_loss"], rtol=1e-3)

@@ -52,6 +52,12 @@ def test_port_sources_exist():
                      "pcgmix_tpu_torch/exp/robust.py", "pcgmix_tpu_torch/ops/masks.py",
                      "pcgmix_tpu_torch/models/resnet9_2d.py",
                      "pcgmix_tpu_torch/data/umc.py",
+                     "pcgmix_tpu_torch/ops/filtering.py",
+                     "pcgmix_tpu_torch/ops/spectrogram.py",
+                     "pcgmix_tpu_torch/data/corpus.py",
+                     "pcgmix_tpu_torch/data/builder.py",
+                     "pcgmix_tpu_torch/classical/dsp.py",
+                     "pcgmix_tpu_torch/classical/features.py",
                      *(f"pcgmix_tpu_torch/models/{m}.py" for m in (
                          "layers", "fcn", "rescnn", "resnet_ts", "singstad",
                          "tsai_inception", "tsai_xresnet", "tsai_seq", "tsai_misc"))):
