@@ -678,7 +678,7 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
         root = os.path.join(tmp, "experiments")
         cmd = ["--dataset-file", dat, "--device", device, "--model", model,
                "--batch-size", str(batch), "--n-fractions", "0.1", "--seed-datas",
-               str(seed_data), "--no-robust", "--num-epochs", str(epochs), *extra,
+               str(seed_data), "--no-robust", "--num-epochs", str(epochs), "--no-plot", *extra,
                "--dataset", dataset, "--experiments-root", root, "--methods", *methods]
         first, wall_first = runner_calls(cmd, 1, "the runner")[0]
         template = TrainConfig(dataset=dataset, model=model, num_epochs=epochs,
@@ -745,7 +745,7 @@ def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=
         root = os.path.join(keep or tmp, "experiments")
         cmd = ["--dataset-file", dat, "--device", device, "--model", model,
                "--batch-size", str(batch), "--n-fractions", "0.1", "--seed-datas",
-               str(seed_data), "--experiments-root", root, "--methods", *methods]
+               str(seed_data), "--experiments-root", root, "--no-plot", "--methods", *methods]
         first, wall_first = runner_calls(cmd, 1, "the runner")[0]
         # each trained run: the line that announced it, then its done line
         order = [ln.split(": ", 1) for ln in first
@@ -1069,7 +1069,7 @@ def runtime_phase(np, torch, card, mk):
         def resume_cfg(method, root, k):
             return TrainConfig(model="resnet9-5k", method=method, num_epochs=3,
                                batch_size=16, num_channels=C, checkpoint_every=1,
-                               steps_per_dispatch=k,
+                               steps_per_dispatch=k, plot=False,
                                experiments_root=os.path.join(tmp, root))
 
         # cuDNN's deterministic algorithms: two uninterrupted runs are then
@@ -1131,7 +1131,7 @@ def runtime_phase(np, torch, card, mk):
         test = physionet_split(rt_ds, "test")
         for model in ("resnet9", "Potes"):
             cfg = TrainConfig(model=model, method="durmixmagwarp(0.2,4)", num_epochs=1,
-                              batch_size=B, num_channels=C,
+                              batch_size=B, num_channels=C, plot=False,
                               experiments_root=os.path.join(tmp, "serve_runs"))
             train_model(cfg, rt_ds)
             pth = os.path.join(loop.experiment_dir(cfg), "model.pth")
@@ -1507,7 +1507,7 @@ def gang_phase(np, torch, card, mk, deps):
         dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(ds, dat)
         cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
-               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust",
+               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust", "--no-plot",
                "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
                "--no-gang-fallback", "--methods", "durratiomixup", "durmixmagwarp(0.2,4)",
                "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
@@ -1680,7 +1680,7 @@ def mil_gang_phase(np, torch, card, mk, deps, ds):
         dat = os.path.join(tmp, "corpus.dat")
         utils.dict2file(ds, dat)
         cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
-               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust",
+               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust", "--no-plot",
                "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
                "--no-gang-fallback", "--methods", "(saloptenv)durratiomixup",
                "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
@@ -2092,11 +2092,12 @@ def classical_phase(np, torch, card, drive, ds, plus_rate, dats, tmp, model="res
           f"{plus_rate:.3f} without the dumps (phase 3), {rate / plus_rate:.3f}x; K1 with "
           f"durratiomixup {launches['piecewise_mix_pairs']} launches in {CLASSICAL_STEPS} "
           f"steps, on {card}")
+    collectors_phase(np, card, roots, tmp, exact_steps=steps if not n_diff else 0)
     # the runner end to end on the built physionet-1d .dat, then its rerun
     root = os.path.join(tmp, "experiments")
     cmd = ["--dataset-file", dats["physionet-1d"], "--methods", "durmixmagwarp(0.2,4)",
            "--n-fractions", "0.25", "--seed-datas", "1100001", "--model", model,
-           "--num-epochs", "1", "--batch-size", str(B), "--no-robust",
+           "--num-epochs", "1", "--batch-size", str(B), "--no-robust", "--no-plot",
            "--experiments-root", root, "--classical-space", "--device", device]
     (first, wall_first), = runner_calls(cmd, 1, "the classical_space runner")
     done = [parse_done(ln) for ln in first if ln.startswith("done: ")]
@@ -2117,6 +2118,195 @@ def classical_phase(np, torch, card, drive, ds, plus_rate, dats, tmp, model="res
           f"{wall_first:.3f} s, the rerun skipped in {wall_second:.3f} s, on {card}")
     print(f"classical phase: {time.time() - t_phase:.3f} s wall on {card}")
     return launches
+
+
+def collectors_phase(np, card, roots, tmp, exact_steps):
+    """The augmentation-feature collectors on the PCGmix+ runs' dumps: every
+    row collected, a snapshot an epoch with base + B rows a step, and the
+    card's first snapshot byte-equal to the CPU run's where the CPU run
+    covers its steps with byte-equal CSVs (``exact_steps``)."""
+    from pcgmix_tpu_torch.classical import (Table, collect_augmentation_features,
+                                            extract_features, merge_augmentation_features)
+    from pcgmix_tpu_torch.data import synthetic_physionet_dict
+
+    t0 = time.time()
+    # a base table of extracted segments under the UMC notebook's names
+    rows = extract_features(synthetic_physionet_dict(num_wavs_train=6, num_wavs_test=2,
+                                                     segments_per_wav=2, sig_len=T, seed=23),
+                            splits=["train"])
+    base = Table.from_rows([
+        {**{k: v for k, v in r.items() if k not in ("wav", "sig_qual", "split")},
+         "recording": f"{r['wav']}_filtBandIIR(ZP)4-25-400_normRMS"} for r in rows])
+    every = collect_augmentation_features(roots["cuda"])
+    per_epoch = CLASSICAL_STEPS // 2
+    parts = {w: merge_augmentation_features(roots[w], base, os.path.join(tmp, f"merged_{w}"),
+                                            "pcgmix_plus", steps_per_epoch=per_epoch)
+             for w in ("cuda", "cpu")}
+    counts = [len(Table.read_csv(path)) for path in parts["cuda"]]
+    if len(every) != CLASSICAL_STEPS * B or counts != [len(base) + p * per_epoch * B
+                                                       for p in range(3)]:
+        raise AssertionError(f"collectors: {len(every)} rows collected, snapshots {counts}")
+    same = None
+    if exact_steps >= per_epoch:
+        same = open(parts["cuda"][1], "rb").read() == open(parts["cpu"][1], "rb").read()
+        if not same:
+            raise AssertionError("collectors: the card's first snapshot differs from the "
+                                 "CPU run's, whose CSVs are byte-equal")
+    print(f"collectors on the PCGmix+ dumps: {len(every)} rows x {len(every.columns)} "
+          f"columns collected; snapshots of {counts} rows (base {len(base)} + {B} a step, one "
+          f"an epoch of {per_epoch} steps); first snapshot byte-equal to the CPU run's: "
+          f"{same if same is not None else 'not checked (CSVs differ)'}; "
+          f"{(time.time() - t0) * 1e3:.3f} ms host, on {card}")
+
+
+def _classical_cli(args):
+    """``python -m pcgmix_tpu_torch.classical`` with ``args`` from this
+    checkout, started; ``_cli_result`` waits for it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+    proc = subprocess.Popen([sys.executable, "-m", "pcgmix_tpu_torch.classical", *args],
+                            cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.started = time.time()
+    return proc
+
+
+def _cli_result(proc, timeout=600):
+    """(exit code, stderr, wall s) of a ``_classical_cli`` call; killed at
+    ``timeout``."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the classical CLI outlasted {timeout} s") from None
+    return proc.returncode, err, time.time() - proc.started
+
+
+def classical_cli_phase(np, card, fresh, dat, tmp):
+    """The classical CLI on the built physionet-1d .dat: ``fresh`` is its
+    fresh run (started by the caller), then a crash story from the fresh
+    features' rows: a checkpoint refused without --start-counter, a resume
+    that re-extracts two of its rows, a second crash and a third run that
+    folds both checkpoints in; the resumed features.csv and aggregated.csv
+    byte-equal to the fresh run's, no checkpoint left, no results.csv, and
+    the JAX package's bench command printed."""
+    out = os.path.join(tmp, "cli_fresh")
+    rc, err, wall = _cli_result(fresh)
+    if rc:
+        print(err[-4000:], file=sys.stderr)
+        raise AssertionError(f"classical CLI exited {rc}")
+    with open(os.path.join(out, "features.csv")) as f:
+        header, *lines = f.read().splitlines(keepends=True)
+    n = len(lines)
+    handoff = [ln for ln in err.splitlines() if "python -m pcgmix_tpu.classical" in ln]
+    if (n < 16 or len(handoff) != 1 or f"--out-dir {out}" not in handoff[0]
+            or sorted(os.listdir(out)) != ["aggregated.csv", "features.csv"]):
+        raise AssertionError(f"classical CLI fresh run: {n} segments, files "
+                             f"{sorted(os.listdir(out))}, stderr {err[-2000:]}")
+    print(f"classical CLI fresh run on the built physionet-1d: {n} segments in {wall:.3f} s "
+          f"wall, {wall / n * 1e3:.3f} host ms a segment (the process's start, pruning and "
+          f"the rolling aggregation included), on {card}")
+
+    res, refused = os.path.join(tmp, "cli_resumed"), os.path.join(tmp, "cli_refused")
+    args = ["--dataset-file", dat, "--out-dir", res]
+
+    def write(name, rows, where=res):
+        os.makedirs(where, exist_ok=True)
+        with open(os.path.join(where, name), "w") as f:
+            f.write("".join([header] + rows))
+
+    t0 = time.time()
+    # the refusal (a copy of the checkpoint in a dir of its own) beside the resume
+    write("features.partial.csv", lines[:n - 6], refused)
+    write("features.partial.csv", lines[:n - 6])
+    calls = [_classical_cli(["--dataset-file", dat, "--out-dir", refused]),
+             _classical_cli(args + ["--start-counter", str(n - 7)])]
+    (rc_refused, err, _), (rc, _, _) = (_cli_result(p) for p in calls)
+    if rc_refused == 0 or "partial extraction" not in err:
+        raise AssertionError(f"classical CLI resumed without --start-counter: {err[-2000:]}")
+    if rc or set(os.listdir(res)) != {"aggregated.csv", "features.csv"}:
+        raise AssertionError(f"classical CLI resume: exit {rc}, files {os.listdir(res)}")
+    os.remove(os.path.join(res, "features.csv"))
+    write("features.partial.prev.csv", lines[:n - 6])
+    write("features.partial.csv", lines[n - 8:n - 3])
+    rc, err, _ = _cli_result(_classical_cli(args + ["--start-counter", str(n - 2)]))
+    if rc or sorted(os.listdir(res)) != ["aggregated.csv", "features.csv"]:
+        raise AssertionError(f"classical CLI third run: exit {rc}, files {os.listdir(res)}")
+    for name in ("features.csv", "aggregated.csv"):
+        with open(os.path.join(res, name), "rb") as a, open(os.path.join(out, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"classical CLI: the resumed {name} differs from the "
+                                     "fresh one")
+    print(f"classical CLI resume protocol: the checkpoint of {n - 6} segments refused without "
+          f"--start-counter; resumed from counter {n - 7}, then a third run from {n - 2} "
+          f"folding both checkpoints in; features.csv and aggregated.csv byte-equal to the "
+          f"fresh run's; checkpoints removed; no results.csv (the bench: "
+          f"{handoff[0].split(': ', 1)[1][:60]}...); {time.time() - t0:.3f} s wall for the "
+          f"four calls (the refusal beside the first resume), on {card}")
+
+
+PLOT_FILES = ("accuracy.jpg", "loss.jpg", "learning_rate.jpg", "times.jpg", "variability.jpg",
+              "variability.pkl")
+
+
+def plot_phase(np, torch, card, mk, ds, tmp, model="resnet9", device="cuda"):
+    """Phase 3's config (PCGmix+, 4 epochs of 4 steps, all plot epochs) with
+    a run dir and ``track_variability``: with ``plot`` the five JPEGs (each
+    read by the port's header parse: SOI, SOF0 at 600 x 600, EOI) and
+    variability.pkl, without it none; the host ms of a plot epoch; steps/s
+    over epochs 2-4 with and without, in the order on, off, off, on (the
+    drawing follows the epoch's ``times`` entry, so the rates should not
+    move).  ``model``/``device`` rehearse it on the CPU."""
+    from pcgmix_tpu_torch.exp.raster import jpeg_header
+    from pcgmix_tpu_torch.train import TrainConfig, loop, train_model
+
+    keep, ms = loop._plot_epoch, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        keep(*args, **kw)
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    rates = {True: [], False: []}
+    try:
+        loop._plot_epoch = timed
+        for i, plot in enumerate((True, False, False, True)):
+            cfg = TrainConfig(model=model, method="durmixmagwarp(0.2,4)", num_epochs=4,
+                              batch_size=B, num_channels=C, track_variability=True, plot=plot,
+                              experiments_root=os.path.join(tmp, f"plots_{i}"), device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            mk.reset_launch_counts()
+            perf = train_model(cfg, ds)
+            counts = mk.launch_counts()
+            want = {"pcgmix_plus_fused": 16} if device == "cuda" else {}
+            if perf["steps"][-1] != 16 or {k: v for k, v in counts.items() if v} != want:
+                raise AssertionError(f"plots: {perf['steps'][-1]} steps, launches {counts}")
+            rates[plot].append(steady_rate(perf))
+            run_dir = loop.experiment_dir(cfg)
+            files = set(os.listdir(run_dir))
+            if plot:
+                if not set(PLOT_FILES) <= files:
+                    raise AssertionError(f"plots: the run dir holds {sorted(files)}")
+                for name in PLOT_FILES[:5]:
+                    with open(os.path.join(run_dir, name), "rb") as f:
+                        frame = jpeg_header(f.read())
+                    if (frame["width"], frame["height"]) != (600, 600):
+                        raise AssertionError(f"plots: {name} is {frame}")
+            elif files & set(PLOT_FILES):
+                raise AssertionError(f"plots: plot=False wrote {sorted(files & set(PLOT_FILES))}")
+    finally:
+        loop._plot_epoch = keep
+    if len(ms) != 8:
+        raise AssertionError(f"plots: {len(ms)} plot epochs drawn, not 8")
+    on, off = rates[True], rates[False]
+    print(f"plots {model} durmixmagwarp(0.2,4) batch {B} x {C}x{T}, 4 plot epochs with a run "
+          f"dir: 5 JPEGs (SOI, SOF0 600x600, EOI) and variability.pkl with plot, none without; "
+          f"a plot epoch's drawing {np.mean(ms):.3f} ms host (min {min(ms):.3f}, max "
+          f"{max(ms):.3f}, 8 epochs); steps/s over epochs 2-4 with plot {on[0]:.3f}, "
+          f"{on[1]:.3f}, without {off[0]:.3f}, {off[1]:.3f} (on, off, off, on), on {card}")
 
 
 def make_drive(np, torch, mk, card, ds):
@@ -2607,10 +2797,22 @@ def main() -> int:
         t0 = time.time()
         dats = build_phase(np, card, tmp)
         print(f"build phase: {time.time() - t0:.3f} s wall on {card}")
-        for name, n in classical_phase(np, torch, card, drive, ds,
-                                       train_rates["durmixmagwarp(0.2,4)"], dats,
-                                       tmp).items():
-            launches_concat[name, "classical"] = n
+        # the classical CLI's fresh run extracts on the host meanwhile
+        t0 = time.time()
+        fresh = _classical_cli(["--dataset-file", dats["physionet-1d"], "--out-dir",
+                                os.path.join(tmp, "cli_fresh")])
+        try:
+            for name, n in classical_phase(np, torch, card, drive, ds,
+                                           train_rates["durmixmagwarp(0.2,4)"], dats,
+                                           tmp).items():
+                launches_concat[name, "classical"] = n
+            plot_phase(np, torch, card, mk, ds, tmp)
+            classical_cli_phase(np, card, fresh, dats["physionet-1d"], tmp)
+        finally:
+            if fresh.poll() is None:
+                fresh.kill()
+                fresh.communicate()
+        print(f"collectors, classical CLI and plots: {time.time() - t0:.3f} s wall on {card}")
 
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card

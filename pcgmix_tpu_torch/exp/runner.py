@@ -438,6 +438,9 @@ def main(argv=None):
                    help="'matmul': the ResNet9 and Potes convolutions as shifted matmuls")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16: the bf16 compute mode; float32 keeps the parity route")
+    p.add_argument("--no-plot", action="store_true",
+                   help="write no accuracy/loss/lr/times jpgs into the run dirs "
+                        "(TrainConfig.plot=False)")
     p.add_argument("--classical-space", action="store_true",
                    help="add the wide band as a 5th channel that the augmentation mixes "
                         "and the model skips, and write each step's classical features "
@@ -468,6 +471,7 @@ def main(argv=None):
         conv_impl=args.conv_impl,
         compute_dtype=args.compute_dtype,
         classical_space=args.classical_space,
+        plot=not args.no_plot,
     )
     run_grid(
         base_cfg,

@@ -113,6 +113,7 @@ from pcgmix_tpu_torch.train.loop import (
     TrainConfig,
     _engine_rng_replayable,
     _picklable,
+    _plot_epoch,
     _putter,
     _selc_turnpoint,
     _start_profile,
@@ -644,8 +645,9 @@ def _cleanup_gang_ckpt(ckpt: Optional[CheckpointManager]) -> None:
 
 
 def _emit_member_plot_epoch(perf, run_dir, epoch, steps, train_loss, train_acc, outs,
-                            batches, class_majority, times) -> None:
-    """One member's plot-epoch record, as ``train_model`` writes it."""
+                            batches, class_majority, times, cfg, lr_list) -> None:
+    """One member's plot-epoch record and plots, as ``train_model`` writes
+    them (``pcgmix_tpu/train/gang.py:331-365``)."""
     perf.add("epochs", epoch)
     perf.add("steps", steps)
     perf.add("train_loss", train_loss)
@@ -654,6 +656,8 @@ def _emit_member_plot_epoch(perf, run_dir, epoch, steps, train_loss, train_acc, 
     perf.add("times", float(np.sum(times)))
     if run_dir:
         utils.save_dict(perf.dict, os.path.join(run_dir, "performance.pkl"))
+        if cfg.plot:
+            _plot_epoch(cfg, perf, run_dir, lr_list, times)
 
 
 # --------------------------------------------------------------------------- #
@@ -1099,7 +1103,7 @@ def _train_gang(cfgs: list, dataset: dict, progress: bool, saliency_model_provid
                 _emit_member_plot_epoch(
                     perf, run_dir, epoch, msteps[s], float(losses[s][m].mean()),
                     segment_accuracy(preds[s][m].reshape(-1), targets[s][m].reshape(-1)),
-                    member_outs, host[s], spec.class_majority, times)
+                    member_outs, host[s], spec.class_majority, times, cfgs[s], lr_lists[s])
             if progress:
                 accs = [p.dict["test_accuracy"][-1] for p in perfs]
                 print(f"epoch {epoch}: {'ragged ' if ragged else ''}gang of {S}, "

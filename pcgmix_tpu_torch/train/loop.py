@@ -56,9 +56,12 @@ its scan mode; ``checkpoint_every`` saves the whole state under
 ``<run dir>/checkpoints/`` and a rerun resumes from the latest, replaying
 the plan RNG so that later plans are the uninterrupted run's;
 ``device_cache`` reuses an equal corpus's device tensors
-(``data/device_cache.py``); ``track_variability`` writes
-``variability.pkl``; ``profile_dir`` takes a ``torch.profiler`` trace of
-epoch 2.
+(``data/device_cache.py``); ``plot`` (on by default, as in the JAX
+package) draws ``accuracy.jpg``, ``loss.jpg``, ``learning_rate.jpg`` and
+``times.jpg`` into the run dir at each plot epoch, and with
+``track_variability`` ``variability.jpg`` and ``variability.pkl``
+(``exp/plotters.py``, numpy only); ``profile_dir`` takes a
+``torch.profiler`` trace of epoch 2.
 
 ``classical_space`` (JAX ``loop.py:296-300``, ``:627-663``) adds the wide
 band as a 5th channel of the train split: the engine plans and mixes five
@@ -162,8 +165,10 @@ class TrainConfig:
     latent_space: bool = False  # dump each augmented batch's embeddings
                                 # under a latent_space_model
                                 # (train_model.py:508-518)
-    track_variability: bool = False  # the variability counter; its curves
-                                     # go to variability.pkl at plot epochs
+    plot: bool = True  # accuracy/loss/lr/times jpgs in the run dir at plot
+                       # epochs (exp/plotters.py, drawn with numpy)
+    track_variability: bool = False  # the variability counter; with plot,
+                                     # variability.jpg and .pkl at plot epochs
     checkpoint_every: int = 0  # epochs between full-state checkpoints
                                # (0 = final weights only, as the reference)
     profile_dir: Optional[str] = None  # a torch.profiler trace of epoch
@@ -609,9 +614,8 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
             perf.add("times", float(np.sum(times)))
             if run_dir:
                 utils.save_dict(perf.dict, os.path.join(run_dir, "performance.pkl"))
-                if variability is not None and variability.steps:
-                    utils.save_dict(variability.curves(),
-                                    os.path.join(run_dir, "variability.pkl"))
+                if cfg.plot:
+                    _plot_epoch(cfg, perf, run_dir, lr_per_step, times, variability)
         if ckpt is not None and run_dir and epoch % cfg.checkpoint_every == 0:
             ckpt.save(step_count, _checkpoint_state(step, step_count),
                       metrics={"perf": perf.dict, "times": times,
@@ -625,6 +629,24 @@ def _train(cfg: TrainConfig, dataset: dict, dp: Optional[DataParallel], *,
         torch.save(model.state_dict(), os.path.join(run_dir, "model.pth"))
     perf.dict["lr_per_step"] = lr_per_step
     return perf.dict
+
+
+def _plot_epoch(cfg: TrainConfig, perf, run_dir: str, lr_per_step: list, times: list,
+                variability: Optional[VariabilityCounter] = None) -> None:
+    """A plot epoch's run-dir plots (``pcgmix_tpu/train/loop.py:732-748``):
+    accuracy, loss, learning rate and times, and the variability growth
+    with its ``variability.pkl`` where it is tracked.  Host work after the
+    epoch's ``times`` entry, so it is not timed."""
+    from pcgmix_tpu_torch.exp import plotters
+
+    plotters.plot_train_test_acc(perf.dict["train_accuracy"], perf.dict["test_accuracy"],
+                                 cfg.valid, perf.dict["steps"], run_dir)
+    plotters.plot_train_test_loss(perf.dict["train_loss"], perf.dict["test_loss"],
+                                  cfg.valid, perf.dict["steps"], run_dir)
+    plotters.plot_lr_per_step(lr_per_step, run_dir)
+    plotters.plot_times(times, list(range(1, len(times) + 1)), run_dir)
+    if variability is not None and variability.steps:
+        plotters.plot_variability(variability, run_dir)
 
 
 def _putter(cached: bool):

@@ -1,4 +1,4 @@
-"""Generic utilities: run directories and (de)serialization.
+"""Generic utilities: run directories, (de)serialization and the timer.
 
 Same roles and byte formats as ``pcgmix_tpu/utils.py`` (reference
 ``utils.py:7-19``, ``:172-186``), so ``.dat`` datasets and
@@ -29,6 +29,13 @@ def load_dict(filename: str):
     """Unpickle a dict from disk."""
     with open(filename, "rb") as f:
         return pickle.load(f)
+
+
+def timer(start: float, end: float) -> str:
+    """Format elapsed seconds as HH:MM:SS.ss (reference utils.py:21-24)."""
+    hours, rem = divmod(end - start, 3600)
+    minutes, seconds = divmod(rem, 60)
+    return "{:0>2}:{:0>2}:{:05.2f}".format(int(hours), int(minutes), seconds)
 
 
 def dict2file(dataset, path: str) -> None:

@@ -49,7 +49,7 @@ def dataset():
 def _cfg(root, **kw):
     base = dict(model="resnet9-5k", method="magnitudewarp(0.2,4)", num_epochs=3,
                 batch_size=BATCH, checkpoint_every=1, experiments_root=str(root),
-                device="cpu")
+                device="cpu", plot=False)
     return TrainConfig(**{**base, **kw})
 
 

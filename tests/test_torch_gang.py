@@ -207,7 +207,7 @@ def jax_latentmixup(ds):
 
 def test_equal_pcgmix_plus_tracks_the_jax_gang(jax_pcgmix_plus, ds, tmp_path):
     ref, state = jax_pcgmix_plus
-    cfgs = _members(save_artifacts=True, experiments_root=str(tmp_path))
+    cfgs = _members(save_artifacts=True, plot=False, experiments_root=str(tmp_path))
     got = gang.train_gang(cfgs, ds)
     for g, r in zip(got, ref):
         _assert_transplant_bar(g, r)
@@ -260,7 +260,7 @@ def test_steps_per_dispatch_4_equals_1(model, method):
 
 
 def test_resume_equals_the_uninterrupted_gang(ds, tmp_path, monkeypatch):
-    cfgs = _members(model="Potes", num_epochs=4, save_artifacts=True,
+    cfgs = _members(model="Potes", num_epochs=4, save_artifacts=True, plot=False,
                     experiments_root=str(tmp_path), checkpoint_every=1)
     full = gang.train_gang(cfgs, ds)
     emit = gang._emit_member_plot_epoch

@@ -50,7 +50,7 @@ def _args(data_file, root, *extra, methods=("durmixmagwarp(0.2,4)",)):
     return ["--dataset-file", data_file, "--device", "cpu", "--model", "resnet9-5k",
             "--methods", *methods, "--num-epochs", "2", "--batch-size", "8",
             "--n-fractions", "0.5", "--seed-datas", *SEED_DATAS, "--no-robust",
-            "--experiments-root", str(root), *extra]
+            "--experiments-root", str(root), "--no-plot", *extra]
 
 
 def _cfgs(root, method="durmixmagwarp(0.2,4)"):

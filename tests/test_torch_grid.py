@@ -156,7 +156,8 @@ def over_ranks(grid, tmp_path_factory):
     from pcgmix_tpu_torch.models import build_model
 
     root = tmp_path_factory.mktemp("ranks")
-    base = dataclasses.replace(grid["base"], n_devices=2, experiments_root=str(root))
+    base = dataclasses.replace(grid["base"], n_devices=2, experiments_root=str(root),
+                               plot=False)
     embedder = experiment_dir(latent_pretrain_config(base))
     os.makedirs(embedder)
     torch.save(build_model("ResCNN", 2, 4, 512).state_dict(), os.path.join(embedder, "model.pth"))

@@ -373,7 +373,7 @@ def dag(tmp_path_factory):
     ds = synthetic_physionet_dict(num_wavs_train=20, num_wavs_test=4, segments_per_wav=2,
                                   sig_len=T, seed=2)
     base = TrainConfig(model="resnet9", batch_size=32, experiments_root=str(root / "exp"),
-                       device="cpu")
+                       device="cpu", plot=False)
     methods = ["(saloptenv-2)durratiomixup", "(closestknn=3)durmixmagwarp(0.2,4)"]
     executed = runner.run_grid(base, ds, methods, [1.0], [1], seed_datas=[1100001],
                                progress=False)
@@ -438,4 +438,6 @@ def test_runner_latent_space_option_writes_no_dumps(tmp_path, small_ds):
                  "--methods", "durratiomixup", "--num-epochs", "1", "--batch-size", "8",
                  "--no-robust", "--latent-space", "--experiments-root", str(tmp_path / "exp")])
     (run_dir,) = os.listdir(tmp_path / "exp")
-    assert sorted(os.listdir(tmp_path / "exp" / run_dir)) == ["model.pth", "performance.pkl"]
+    assert sorted(os.listdir(tmp_path / "exp" / run_dir)) == [
+        "accuracy.jpg", "learning_rate.jpg", "loss.jpg", "model.pth", "performance.pkl",
+        "times.jpg"]

@@ -165,7 +165,7 @@ def test_runner_trains_singstad_d10_on_its_robust_schedule(tmp_path):
     root = str(tmp_path / "exp")
     main(["--dataset-file", str(tmp_path / "p.dat"), "--device", "cpu",
           "--model", "Singstad_d10", "--methods", "base", "--batch-size", "8",
-          "--seed-datas", "1100001", "--experiments-root", root])
+          "--seed-datas", "1100001", "--experiments-root", root, "--no-plot"])
     cfg = TrainConfig(model="Singstad_d10", num_epochs=30, lr_max=1e-5, batch_size=8,
                       experiments_root=root)
     perf = results.read_performance(cfg)
