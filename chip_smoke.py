@@ -104,8 +104,9 @@ Phases (any failure exits non-zero):
    saliency maps of frozen full-width ResNet9 weights (pretrained maps and
    the live training map) on the card against the CPU's, with float64
    gradients, within ``SALIENCY_BAR``, and in float32 beside the CPU's own
-   float32 spread.  Then the runner CLI in a subprocess, as phase 4b, on
-   the same corpus under the robust schedules (full-width ResNet9: 50
+   float32 spread.  The runner CLI in a subprocess, as phase 4b (in the
+   background during phase 3g's frozen gangs), on the same corpus under
+   the robust schedules (full-width ResNet9: 50
    epochs of one step each), with ``(saloptenv)durratiomixup``,
    ``(saloptsum-2)durmixmagwarp(0.2,4)``,
    ``(closestknn=8)durmixmagwarp(0.2,4)`` and
@@ -115,7 +116,7 @@ Phases (any failure exits non-zero):
    its run dir's name, not cut); each run must launch its kernel (K1 or
    K2) once per step and no other, and print steps/s, finite losses and
    the host ms per step of its saliency pass, displacement search, latent
-   embedding and TSP pairing; a rerun must train nothing.  Then
+   embedding and TSP pairing; a rerun must train nothing.  And
    ``lc-nointrusion`` (the candidate forward of 256 rows and
    ``lc_select``) and ``saliency-cutmix`` (the live model's saliency bins)
    through ``train_model``, 16 steps each, K1 once per step.
@@ -137,7 +138,7 @@ Phases (any failure exits non-zero):
    float32 rounding, and at most 1e-6 (both routes feed the update the
    same float32 scalars).  SGD's OneCycle momentum cycles 0.95 → 0.85 → 0.95.
    Steps/s of both routes with PCGmix+, each over the epochs after the
-   first of a 25-epoch Potes run (216 steps), the routes alternated
+   first of a 12-epoch Potes run (99 steps), the routes alternated
    eager, graph, graph, eager (ResNet9's routes are timed in phase 3h).  The
    host ms per step of the eager route's uploads against the chunk's
    staging, each call timed after the card's queue is drained.  Exact
@@ -172,9 +173,12 @@ Phases (any failure exits non-zero):
    patients), frozen, against the folds' runs, K1 once a lockstep step.
    The runner with ``--gang --no-gang-fallback`` in a subprocess, two
    gangs of 4 and their ``gang of 4`` lines, then its rerun, which skips
-   all 8.  Member-steps/s of gangs of S = 1, 2, 4, 8 against sequential
-   runs (PCGmix+, 25 steps an epoch, at least 100 member-steps timed
-   after the first epoch), alternated sequential, 1, 2, 4, 8, 8, 4, 2, 1,
+   all 8.  The runner's calls (these, the salopt grid's below, phase 3e's
+   and the grids of phases 4b and 4c) run in the background, four at a
+   time, beside the frozen gangs; every rate below is taken after they
+   end.  Member-steps/s of gangs of S = 1, 2, 4, 8 against sequential
+   runs (PCGmix+ on ``rate_corpus()``, 9 steps an epoch, at least
+   ``GANG_RATE_MEMBER_STEPS`` timed after the first epoch), alternated sequential, 1, 2, 4, 8, 8, 4, 2, 1,
    sequential; peak memory per member beside ``estimate_gang_max_size``'s
    per-member bytes and S_max.  Phase 2 checks K1/K2 at the gang's
    geometry, 256 × 4 × 2500 under four members' concatenated plans, and
@@ -217,7 +221,7 @@ Phases (any failure exits non-zero):
    the live model, and the card's bf16 forward of one set of weights
    against the CPU's, within the CPU tests' 3e-2 of the largest logit.
    Steps/s of ResNet9 with PCGmix+, fp32 against bf16, eager and the graph
-   of 8, each over 207 steps after the first epoch, alternated fp32, bf16
+   of 8, each over 108 steps after the first epoch, alternated fp32, bf16
    (eager, then graph) and back; a bf16 gang's member-steps/s at S = 1
    and 4 against sequential bf16 runs, alternated, with each member's peak
    memory beside ``estimate_gang_max_size``.  A profiled bf16 call stands
@@ -242,10 +246,21 @@ Phases (any failure exits non-zero):
    config: plans bit-equal, the augmented 5-channel rows within K2's 1e-5
    (CSVs then byte-equal where the rows are), headers and meta columns
    equal, the differing CSV values counted; its steps/s against phase 3's
-   PCGmix+ rate and its host ms a step for the features.  Last the runner
-   with ``--classical-space`` on the built ``physionet-1d`` .dat (PCGmix+,
+   PCGmix+ rate and its host ms a step for the features.  The runner
+   (in the background from here to the CLI's end) with ``--classical-space`` on the built ``physionet-1d`` .dat (PCGmix+,
    1 epoch at n_frac 0.25): K2 twice a step, a CSV a step; its rerun
    skips.  Phase 2 adds this path's geometry, K1 and K2 at 64 × 5 × 2500.
+   The classical CLI (``python -m pcgmix_tpu_torch.classical``) on the
+   built ``physionet-1d`` .dat writes features.csv, aggregated.csv and,
+   from its own classifier bench on the card, results.csv; the bench
+   (``run_experiment``: the mutual-information top 40, then LR, DT, RF,
+   KN, GNB, SVC, SGD and GB) runs again in this process on that
+   aggregated.csv on the card and on the CPU: the selected features
+   identical, each classifier's probabilities within ``BENCH_BARS``
+   (1e-9; 1e-4 for LR, SGD and SVC), every metric's largest difference and
+   each stage's ms printed.  Its crash story (a refused checkpoint, two
+   resumes, the three calls started together) must give back the fresh
+   run's three files byte for byte.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -274,7 +289,8 @@ Phases (any failure exits non-zero):
    (twice on ``lc-nointrusion``: its block of the pool, then of the
    picked rows), K4 on the closest PCGmix+ blend, nothing on the others;
    each method's data-parallel steps/s beside the single-device route's.
-4b. The experiment grid: a ``synthetic_effect_dict`` corpus (240 train
+4b. (Run in the background during phase 3g, as are 4c's grids.)  The
+   experiment grid: a ``synthetic_effect_dict`` corpus (240 train
    recordings × 4 cycles, 40 test recordings, 4 × 2500, seed 7) with a
    ``cvds_map.csv`` for its recordings goes through
    ``python -m pcgmix_tpu_torch.exp.runner`` in a subprocess on the card:
@@ -313,7 +329,9 @@ Phases (any failure exits non-zero):
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and one card, and exits non-zero without CUDA or
-without the package beside it.
+without the package beside it.  An ``elapsed`` line closes each stage
+with the script's clock (its limit is 1,200 s); a failed phase kills
+every subprocess still running.
 """
 
 from __future__ import annotations
@@ -326,7 +344,88 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+
+T_START = time.time()
+_CHILDREN: set = set()  # the subprocesses started and not yet waited for
+
+
+def stamp(what):
+    """A phase's end on the script's clock."""
+    print(f"elapsed {time.time() - T_START:.1f} s: {what}")
+
+
+def _start(cmd, **kw):
+    """``subprocess.Popen(cmd)``, killed at exit if still running."""
+    proc = subprocess.Popen(cmd, **kw)
+    _CHILDREN.add(proc)
+    return proc
+
+
+def _wait(proc, timeout):
+    """``proc.communicate(timeout=...)``; the process is killed at the timeout."""
+    try:
+        return proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    finally:
+        _CHILDREN.discard(proc)
+
+
+class _ThreadOut:
+    """``sys.stdout`` that holds what a background job prints until it is
+    joined; the main thread's lines go straight through."""
+
+    def __init__(self, real):
+        self.real, self.held = real, {}
+
+    def write(self, s):
+        held = self.held.get(threading.get_ident())
+        if held is None:
+            return self.real.write(s)
+        held.append(s)
+        return len(s)
+
+    def flush(self):
+        self.real.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+class Background:
+    """``fn(*args, **kw)`` in a thread, started now (once one of ``slots``,
+    a semaphore, is free).  Only for work that runs in subprocesses and
+    reads their files: ``join()`` prints what the job printed, re-raises
+    what it raised and returns its result."""
+
+    def __init__(self, fn, *args, slots=None, **kw):
+        if not isinstance(sys.stdout, _ThreadOut):
+            sys.stdout = _ThreadOut(sys.stdout)
+        out, self.lines, self.result, self.error = sys.stdout, [], None, None
+
+        def run():
+            out.held[threading.get_ident()] = self.lines
+            try:
+                with slots or contextlib.nullcontext():
+                    self.result = fn(*args, **kw)
+            except BaseException as e:  # re-raised by join
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        sys.stdout.real.write("".join(self.lines))
+        sys.stdout.flush()
+        self.lines.clear()
+        if self.error is not None:
+            raise self.error
+        return self.result
 
 B, C, T = 64, 4, 2500
 MAIN_STEPS = 16
@@ -434,7 +533,7 @@ BF16_LOGIT_BAR = 3e-2
 # vmapped (grouped) convolutions round their bf16 outputs where the dense
 # ones do not (measured 5.3e-4 on an NVIDIA H100 80GB HBM3, 700 W)
 BF16_GANG_BAR = 2e-3
-BF16_RATE_STEPS = 200  # timed steps of each steps/s run, after the first epoch
+BF16_RATE_STEPS = 100  # timed steps of each steps/s run, after the first epoch
 
 
 def bf16_phase(np, torch, card, mk, drive, ds, spec_ds):
@@ -537,8 +636,7 @@ def bf16_phase(np, torch, card, mk, drive, ds, spec_ds):
 
     # steps/s: fp32 and bf16, eager and the graph of 8, alternated, each over
     # BF16_RATE_STEPS steps or more after its first epoch
-    rate_ds = synthetic_physionet_dict(num_wavs_train=100, num_wavs_test=4,
-                                       segments_per_wav=16, sig_len=T, seed=13)
+    rate_ds = rate_corpus()
     spe = len(physionet_split(rate_ds, "train")) // B
     epochs = 1 + -(-BF16_RATE_STEPS // spe)
     routes = [("fp32", 1), ("bf16", 1), ("fp32", BF16_K), ("bf16", BF16_K)]
@@ -829,8 +927,8 @@ RT_PAIRS = (("resnet9", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
             ("Potes", "durmixmagwarp(0.2,4)", "pcgmix_plus_fused"),
             ("Potes", "durratiomixup", "piecewise_mix_pairs"),
             ("resnet9", "durmixmagwarp(0.2,4)+0.5", "pcgmix_plus_fused"))
-# the epochs of each steps/s run (all but the first timed: 171 and 216 steps)
-RT_RATE_EPOCHS = {"resnet9": 20, "Potes": 25}
+# the epochs of each steps/s run (all but the first timed: 99 steps)
+RT_RATE_EPOCHS = {"resnet9": 12, "Potes": 12}
 
 
 class StepLosses:
@@ -920,6 +1018,15 @@ def rt_train(torch, mk, TrainConfig, train_model, data, *, model="resnet9",
     return types.SimpleNamespace(perf=perf, launches=mk.launch_counts(),
                                  warm_ups=mk.warm_up_counts(), losses=rec.values(np, torch),
                                  wall=time.time() - t0)
+
+
+def rate_corpus():
+    """The corpus of the gang and bf16 rate runs: 602 train rows, 9 steps
+    an epoch at batch 64."""
+    from pcgmix_tpu_torch.data import synthetic_physionet_dict
+
+    return synthetic_physionet_dict(num_wavs_train=40, num_wavs_test=4, segments_per_wav=16,
+                                    sig_len=T, seed=13)
 
 
 def steady_rate(perf):
@@ -1129,6 +1236,7 @@ def runtime_phase(np, torch, card, mk):
         dat = os.path.join(tmp, "serve.dat")
         utils.dict2file(rt_ds, dat)
         test = physionet_split(rt_ds, "test")
+        served, cli = {}, []
         for model in ("resnet9", "Potes"):
             cfg = TrainConfig(model=model, method="durmixmagwarp(0.2,4)", num_epochs=1,
                               batch_size=B, num_channels=C, plot=False,
@@ -1149,22 +1257,22 @@ def runtime_phase(np, torch, card, mk):
                 probs = clf.predict_proba(rows)
                 rates[name] = (len(rows) / (time.perf_counter() - t0), probs)
             d = float(np.max(np.abs(rates["live"][1] - rates["artifact"][1])))
-            outs = {}
-            for mode, args in (("artifact", ["--artifact", art]),
-                               ("live", ["--checkpoint", pth, "--model", model])):
-                proc = subprocess.run(
-                    [sys.executable, "-m", "pcgmix_tpu_torch.serve", *args,
-                     "--dataset-file", dat, "--split", "test"],
-                    capture_output=True, text=True, timeout=300)
-                if proc.returncode:
-                    raise AssertionError(f"serve {mode}: {proc.stderr[-2000:]}")
-                outs[mode] = [ln.split("\t")[:2] for ln in proc.stdout.splitlines()
-                              if not ln.startswith("#")]
+            served[model] = (d, rates, export_s, os.path.getsize(art))
+            cli += [(model, mode, [*args, "--dataset-file", dat, "--split", "test"])
+                    for mode, args in (("artifact", ["--artifact", art]),
+                                       ("live", ["--checkpoint", pth, "--model", model]))]
+        # the serving CLI, the four calls started together
+        cli_out = {(model, mode): [ln.split("\t")[:2] for ln in lines
+                                   if not ln.startswith("#")]
+                   for (model, mode, _), (lines, _) in zip(cli, _module_calls(
+                       "pcgmix_tpu_torch.serve", [args for _, _, args in cli]))}
+        for model, (d, rates, export_s, size) in served.items():
+            outs = {mode: cli_out[model, mode] for mode in ("live", "artifact")}
             print(f"serve {model}: artifact against live max |diff| {d:.3e} over "
                   f"{len(rows)} rows; {len(outs['live'])} recordings, CLI predictions "
                   f"equal: {outs['live'] == outs['artifact']}; rows/s at batch 256: live "
                   f"{rates['live'][0]:.1f}, artifact {rates['artifact'][0]:.1f}; export "
-                  f"{export_s:.3f} s, {os.path.getsize(art)} bytes, on {card}")
+                  f"{export_s:.3f} s, {size} bytes, on {card}")
             if d > 1e-5 or outs["live"] != outs["artifact"] or not outs["live"]:
                 raise AssertionError(f"serve {model}: artifact and live disagree")
 
@@ -1376,7 +1484,7 @@ GANG_S = 4  # members of the correctness gangs
 GANG_METHODS = (("base", None), ("durratiomixup", "piecewise_mix_pairs"),
                 ("durmixmagwarp(0.2,4)", "pcgmix_plus_fused"))
 GANG_RATE_S = (1, 2, 4, 8)
-GANG_RATE_MEMBER_STEPS = 100  # timed member-steps of each rate measurement
+GANG_RATE_MEMBER_STEPS = 36  # timed member-steps of each rate measurement
 GANG_BAR = 1e-6  # members against their sequential runs, frozen weights
 # the model in the loop in a gang: (model, method, the kernel its apply
 # launches once a gang step); the hook methods take phase 3e's runs
@@ -1386,7 +1494,7 @@ GANG_MIL = (("resnet9", "lc-nointrusion", "piecewise_mix_pairs"),
             ("Potes", "saliency-cutmix", "piecewise_mix_pairs"),
             ("resnet9", "(saloptenv)durratiomixup", "piecewise_mix_pairs"),
             ("resnet9", "(closestknn=8)durmixmagwarp(0.2,4)", "pcgmix_plus_fused"))
-LIVE_RATE_MEMBER_STEPS = 80  # timed member-steps of each live-gang rate run
+LIVE_RATE_MEMBER_STEPS = 36  # timed member-steps of each live-gang rate run
 
 
 def gang_members(TrainConfig, model, method, n, epochs, **kw):
@@ -1408,17 +1516,19 @@ def gang_gap(np, perfs, cfgs, data, train_model):
     return max(gaps)
 
 
-def gang_phase(np, torch, card, mk, deps):
+def gang_phase(np, torch, card, mk, get_deps, runners):
     """Phase 3g: gangs of full-width ResNet9 and Potes (batch 64, 4 × 2500)
     against their members' sequential runs (frozen weights; 7 steps at lr
     0.01 under cuDNN's deterministic algorithms), K1/K2 once a gang step, a
     ragged UMC gang, the graph gang against the eager one, the runner with
     --gang and its rerun, the model-in-the-loop gangs (``mil_gang_phase``),
     member-steps/s of S = 1, 2, 4, 8 against sequential runs, and peak
-    memory per member beside the estimate.  ``deps`` holds phase 3e's runs.
-    Returns the gang path's K1/K2 launches by (kernel, geometry), and the
-    profiled gang calls."""
-    from pcgmix_tpu_torch import utils
+    memory per member beside the estimate.  ``runners``: the background
+    jobs of the runner's calls (``gang_runner_check`` and the others the
+    caller started), which run beside the frozen gangs and end before any
+    rate is taken; ``get_deps()`` waits for phase 3e's runs.  Returns the
+    gang path's K1/K2 launches by (kernel, geometry), and the profiled gang
+    calls."""
     from pcgmix_tpu_torch.data import (
         physionet_split,
         synthetic_physionet_dict,
@@ -1502,37 +1612,15 @@ def gang_phase(np, torch, card, mk, deps):
     if counts.get("piecewise_mix_pairs") != lock or not gap <= GANG_BAR:
         raise AssertionError("the ragged gang differs from its members' runs")
 
-    # the runner: two gangs of four, then the rerun
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as tmp:
-        dat = os.path.join(tmp, "corpus.dat")
-        utils.dict2file(ds, dat)
-        cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
-               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust", "--no-plot",
-               "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
-               "--no-gang-fallback", "--methods", "durratiomixup", "durmixmagwarp(0.2,4)",
-               "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
-        (first, wall_first), (second, wall_second) = runner_calls(cmd, 2, "the gang runner")
-        gangs = [ln for ln in first if ln.startswith("gang of ")]
-        dones = [ln for ln in first if ln.startswith("gang done: ")]
-        for ln in gangs + dones:
-            print(f"gang runner: {ln}")
-        if (len(gangs) != 2 or len(dones) != 2
-                or sum(ln.startswith("done (gang): ") for ln in first) != 2 * GANG_S
-                or any('{"piecewise_mix_pairs": 8}' not in d and '{"pcgmix_plus_fused": 8}'
-                       not in d for d in dones)):
-            raise AssertionError(f"gang runner: {first}")
-        skips = sum(ln.startswith("skip (done): ") for ln in second)
-        if skips != 2 * GANG_S or any(ln.startswith(("gang of", "run: ")) for ln in second):
-            raise AssertionError(f"gang runner rerun trained: {second}")
-        print(f"gang runner: 2 gangs of {GANG_S} in {wall_first:.3f} s; the rerun skipped "
-              f"all {skips} in {wall_second:.3f} s, on {card}")
-
-    launches.update(mil_gang_phase(np, torch, card, mk, deps, ds))
+    launches.update(mil_gang_phase(np, torch, card, mk, get_deps(), ds))
+    for job in runners:
+        job.join()
+    stamp("phase 3g's frozen gangs beside the runner's calls")
+    live_gang_rates(np, torch, card)
 
     # member-steps/s: sequential runs and gangs of S, alternated in turns;
     # peak memory per member beside the estimate's S_max
-    rate_ds = synthetic_physionet_dict(num_wavs_train=100, num_wavs_test=4,
-                                       segments_per_wav=16, sig_len=T, seed=13)
+    rate_ds = rate_corpus()
     rows = len(physionet_split(rate_ds, "train"))
     spe = rows // B
     for model in ("resnet9", "Potes"):
@@ -1591,6 +1679,68 @@ def gang_phase(np, torch, card, mk, deps):
     return launches, profiled
 
 
+def gang_runner_check(card, ds):
+    """Phase 3g's runner part: two gangs of four through the runner CLI
+    with --gang, then the rerun, which must train nothing."""
+    from pcgmix_tpu_torch import utils
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as tmp:
+        dat = os.path.join(tmp, "corpus.dat")
+        utils.dict2file(ds, dat)
+        cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
+               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust", "--no-plot",
+               "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
+               "--no-gang-fallback", "--methods", "durratiomixup", "durmixmagwarp(0.2,4)",
+               "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
+        (first, wall_first), (second, wall_second) = runner_calls(cmd, 2, "the gang runner")
+        gangs = [ln for ln in first if ln.startswith("gang of ")]
+        dones = [ln for ln in first if ln.startswith("gang done: ")]
+        for ln in gangs + dones:
+            print(f"gang runner: {ln}")
+        if (len(gangs) != 2 or len(dones) != 2
+                or sum(ln.startswith("done (gang): ") for ln in first) != 2 * GANG_S
+                or any('{"piecewise_mix_pairs": 8}' not in d and '{"pcgmix_plus_fused": 8}'
+                       not in d for d in dones)):
+            raise AssertionError(f"gang runner: {first}")
+        skips = sum(ln.startswith("skip (done): ") for ln in second)
+        if skips != 2 * GANG_S or any(ln.startswith(("gang of", "run: ")) for ln in second):
+            raise AssertionError(f"gang runner rerun trained: {second}")
+        print(f"gang runner: 2 gangs of {GANG_S} in {wall_first:.3f} s; the rerun skipped "
+              f"all {skips} in {wall_second:.3f} s, on {card}")
+
+
+def salopt_runner_check(card, ds):
+    """Phase 3g's runner part for a hook method: a (saloptenv) grid of four
+    trains its 'base' runs as a dependency gang, then the hook gang; the
+    rerun trains nothing."""
+    from pcgmix_tpu_torch import utils
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_deps_") as tmp:
+        dat = os.path.join(tmp, "corpus.dat")
+        utils.dict2file(ds, dat)
+        cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
+               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust", "--no-plot",
+               "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
+               "--no-gang-fallback", "--methods", "(saloptenv)durratiomixup",
+               "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
+        (first, wall_first), (second, wall_second) = runner_calls(cmd, 2, "the gang runner")
+        gangs = [ln for ln in first if ln.startswith(("gang of ", "gang done: "))]
+        for ln in gangs:
+            print(f"gang runner (salopt): {ln}")
+        want = [f"gang of {GANG_S} (dependency): base ", "gang done: ",
+                f"gang of {GANG_S}: (saloptenv)durratiomixup ", "gang done: "]
+        if (len(gangs) != 4 or not all(g.startswith(w) for g, w in zip(gangs, want))
+                or '{"piecewise_mix_pairs": 8}' not in gangs[3]
+                or sum(ln.startswith("done (gang): ") for ln in first) != 2 * GANG_S):
+            raise AssertionError(f"gang runner (salopt): {first}")
+        skips = sum(ln.startswith("skip (done): ") for ln in second)
+        if skips != GANG_S or any(ln.startswith(("gang of", "run")) for ln in second):
+            raise AssertionError(f"gang runner (salopt) rerun trained: {second}")
+        print(f"gang runner (salopt): the dependency gang and the hook gang of {GANG_S} in "
+              f"{wall_first:.3f} s; the rerun skipped all {skips} in {wall_second:.3f} s, "
+              f"on {card}")
+
+
 def runner_calls(cmd, n, what):
     """Run the runner CLI ``cmd`` ``n`` times in a subprocess from this
     checkout; returns each call's (stdout lines, wall s)."""
@@ -1600,12 +1750,13 @@ def runner_calls(cmd, n, what):
     outs = []
     for _ in range(n):
         t0 = time.time()
-        proc = subprocess.run([sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", *cmd],
-                              cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        proc = _start([sys.executable, "-m", "pcgmix_tpu_torch.exp.runner", *cmd], cwd=here,
+                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out, err = _wait(proc, 600)
         if proc.returncode:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            print(out[-4000:], err[-4000:], file=sys.stderr)
             raise AssertionError(f"{what} exited {proc.returncode}")
-        outs.append((proc.stdout.splitlines(), time.time() - t0))
+        outs.append((out.splitlines(), time.time() - t0))
     return outs
 
 
@@ -1614,17 +1765,11 @@ def mil_gang_phase(np, torch, card, mk, deps, ds):
     of 4 with frozen weights under cuDNN's deterministic algorithms, every
     member within ``GANG_BAR`` of its own sequential run, every plan and
     pick bit-equal, and the kernel launched once a gang step, nothing else;
-    the runner with --gang on a (saloptenv) grid (its dependency gang, then
-    the hook gang) and its rerun; member-steps/s of the live gang of 4
-    (lc-nointrusion) against its sequential runs, with the host ms per step
-    of the live passes.  Returns {(kernel, geometry): launches}."""
-    from pcgmix_tpu_torch import utils
-    from pcgmix_tpu_torch.data import synthetic_physionet_dict
+    ``deps`` holds phase 3e's runs.  Returns {(kernel, geometry):
+    launches}."""
     from pcgmix_tpu_torch.saliency import make_pretrained_saliency_fn
-    from pcgmix_tpu_torch.timing import host_times, reset_host_times
     from pcgmix_tpu_torch.train import TrainConfig, gang, train_model
 
-    t_phase = time.time()
     launches = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -1673,38 +1818,18 @@ def mil_gang_phase(np, torch, card, mk, deps, ds):
                 launches[kernel, geometry] = counts[kernel]
     finally:
         torch.backends.cudnn.deterministic = False
+    return launches
 
-    # the runner: a (saloptenv) grid of four trains its 'base' runs as a
-    # dependency gang, then the hook gang; the rerun trains nothing
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_deps_") as tmp:
-        dat = os.path.join(tmp, "corpus.dat")
-        utils.dict2file(ds, dat)
-        cmd = ["--dataset-file", dat, "--model", "resnet9", "--batch-size", str(B),
-               "--num-epochs", "2", "--n-fractions", "1.0", "--no-robust", "--no-plot",
-               "--experiments-root", os.path.join(tmp, "experiments"), "--gang",
-               "--no-gang-fallback", "--methods", "(saloptenv)durratiomixup",
-               "--seed-datas", *[str(1100001 + s) for s in range(GANG_S)]]
-        (first, wall_first), (second, wall_second) = runner_calls(cmd, 2, "the gang runner")
-        gangs = [ln for ln in first if ln.startswith(("gang of ", "gang done: "))]
-        for ln in gangs:
-            print(f"gang runner (salopt): {ln}")
-        want = [f"gang of {GANG_S} (dependency): base ", "gang done: ",
-                f"gang of {GANG_S}: (saloptenv)durratiomixup ", "gang done: "]
-        if (len(gangs) != 4 or not all(g.startswith(w) for g, w in zip(gangs, want))
-                or '{"piecewise_mix_pairs": 8}' not in gangs[3]
-                or sum(ln.startswith("done (gang): ") for ln in first) != 2 * GANG_S):
-            raise AssertionError(f"gang runner (salopt): {first}")
-        skips = sum(ln.startswith("skip (done): ") for ln in second)
-        if skips != GANG_S or any(ln.startswith(("gang of", "run")) for ln in second):
-            raise AssertionError(f"gang runner (salopt) rerun trained: {second}")
-        print(f"gang runner (salopt): the dependency gang and the hook gang of {GANG_S} in "
-              f"{wall_first:.3f} s; the rerun skipped all {skips} in {wall_second:.3f} s, "
-              f"on {card}")
 
-    # member-steps/s of the live gang against sequential runs, alternated
-    # sequential, gang, gang, sequential; the live passes' host ms per step
-    rate_ds = synthetic_physionet_dict(num_wavs_train=100, num_wavs_test=4,
-                                       segments_per_wav=16, sig_len=T, seed=13)
+def live_gang_rates(np, torch, card):
+    """Member-steps/s of the live gang of 4 (lc-nointrusion) against its
+    sequential runs, alternated sequential, gang, gang, sequential, with the
+    host ms per step of the live passes."""
+    from pcgmix_tpu_torch.timing import host_times, reset_host_times
+    from pcgmix_tpu_torch.train import TrainConfig, gang, train_model
+
+    t_phase = time.time()
+    rate_ds = rate_corpus()
     spe = len(gang.build_splits(gang_members(TrainConfig, "Potes", "base", 1, 1)[0],
                                 rate_ds)[0]) // B
     for model in ("Potes", "resnet9"):
@@ -1731,8 +1856,7 @@ def mil_gang_phase(np, torch, card, mk, deps, ds):
               f"member-steps or more timed after the first) on {card}")
         if not all(np.isfinite(v).all() for v in rates.values()):
             raise AssertionError(f"live gang rates {model}: not finite")
-    print(f"gang model-in-the-loop phase: {time.time() - t_phase:.3f} s wall on {card}")
-    return launches
+    print(f"gang live rates: {time.time() - t_phase:.3f} s wall on {card}")
 
 
 # phase 3i: the offline builder on the card and classical_space.  The
@@ -1885,8 +2009,8 @@ def _module_calls(module, cmds):
         [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
     t0 = time.time()
     logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in cmds]
-    procs = [subprocess.Popen([sys.executable, "-m", module, *cmd], cwd=here, env=env,
-                              stdout=out, stderr=err, text=True)
+    procs = [_start([sys.executable, "-m", module, *cmd], cwd=here, env=env, stdout=out,
+                    stderr=err, text=True)
              for cmd, (out, err) in zip(cmds, logs)]
     ends = [None] * len(procs)
     try:
@@ -1901,6 +2025,8 @@ def _module_calls(module, cmds):
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
+            proc.wait()
+            _CHILDREN.discard(proc)
     outs = []
     for proc, cmd, wall, files in zip(procs, cmds, ends, logs):
         for f in files:
@@ -2011,11 +2137,10 @@ def build_phase(np, card, tmp, devices=("cuda", "cpu")):
 def classical_phase(np, torch, card, drive, ds, plus_rate, dats, tmp, model="resnet9",
                     device="cuda"):
     """Phase 3i's classical_space part: PCGmix+ and PCGmix at full width on
-    the card (K2 / K1 twice a step: the step and the dump), the PCGmix+
-    run's first steps against a CPU run of the same config, and the runner
-    with ``--classical-space`` and its rerun.  Returns the launches of the
-    two card runs by kernel.  ``model``, ``device`` and a CPU ``drive``
-    rehearse it on the CPU."""
+    the card (K2 / K1 twice a step: the step and the dump) and the PCGmix+
+    run's first steps against a CPU run of the same config.  Returns the
+    launches of the two card runs by kernel.  ``model``, ``device`` and a
+    CPU ``drive`` rehearse it on the CPU."""
     import dataclasses as dc
 
     from pcgmix_tpu_torch.train import TrainConfig, loop, train_model
@@ -2093,7 +2218,13 @@ def classical_phase(np, torch, card, drive, ds, plus_rate, dats, tmp, model="res
           f"durratiomixup {launches['piecewise_mix_pairs']} launches in {CLASSICAL_STEPS} "
           f"steps, on {card}")
     collectors_phase(np, card, roots, tmp, exact_steps=steps if not n_diff else 0)
-    # the runner end to end on the built physionet-1d .dat, then its rerun
+    print(f"classical phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return launches
+
+
+def classical_runner_check(card, dats, tmp, model="resnet9", device="cuda"):
+    """The runner with ``--classical-space`` end to end on the built
+    physionet-1d .dat, then its rerun, which must train nothing."""
     root = os.path.join(tmp, "experiments")
     cmd = ["--dataset-file", dats["physionet-1d"], "--methods", "durmixmagwarp(0.2,4)",
            "--n-fractions", "0.25", "--seed-datas", "1100001", "--model", model,
@@ -2116,8 +2247,6 @@ def classical_phase(np, torch, card, drive, ds, plus_rate, dats, tmp, model="res
     print(f"classical_space runner on the built physionet-1d: {n_steps} steps in {wall:.3f} s, "
           f"launches {run_launches}, {n_csv} CSVs, host ms per step {json.dumps(host)}; call "
           f"{wall_first:.3f} s, the rerun skipped in {wall_second:.3f} s, on {card}")
-    print(f"classical phase: {time.time() - t_phase:.3f} s wall on {card}")
-    return launches
 
 
 def collectors_phase(np, card, roots, tmp, exact_steps):
@@ -2165,9 +2294,8 @@ def _classical_cli(args):
     here = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [here, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
-    proc = subprocess.Popen([sys.executable, "-m", "pcgmix_tpu_torch.classical", *args],
-                            cwd=here, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    proc = _start([sys.executable, "-m", "pcgmix_tpu_torch.classical", *args], cwd=here,
+                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     proc.started = time.time()
     return proc
 
@@ -2176,23 +2304,104 @@ def _cli_result(proc, timeout=600):
     """(exit code, stderr, wall s) of a ``_classical_cli`` call; killed at
     ``timeout``."""
     try:
-        _, err = proc.communicate(timeout=timeout)
+        _, err = _wait(proc, timeout)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
         raise AssertionError(f"the classical CLI outlasted {timeout} s") from None
     return proc.returncode, err, time.time() - proc.started
 
 
+# phase 3i: the classifier bench on the card against the CPU.  The mutual
+# information, Gaussian NB and k-NN run on the card in float64 (sums in
+# another order than the CPU's); the trees, SGD, SVC and logistic
+# regression on the host either way.  Bars on the test-row probabilities:
+# the closed-form estimators within 1e-9, the iterative ones (L-BFGS, SGD,
+# SMO) within 1e-4; the selected features identical.
+BENCH_BARS = {"LR": 1e-4, "DT": 1e-9, "RF": 1e-9, "KN": 1e-9, "GNB": 1e-9, "SVC": 1e-4,
+              "SGD": 1e-4, "GB": 1e-9}
+
+
+def bench_phase(np, card, out):
+    """``run_experiment`` on the fresh CLI run's aggregated.csv, on the card
+    (twice: the first run's times carry the process's first launches) and
+    on the CPU: the card's two runs equal, the selection identical, each
+    classifier's probabilities within ``BENCH_BARS``, every metric's
+    largest difference printed; the card run's table equal to the CLI's
+    results.csv; the mutual information's and each classifier's fit +
+    predict ms on each run."""
+    from pcgmix_tpu_torch.classical.experiment import METRICS, run_experiment
+    from pcgmix_tpu_torch.classical.table import Table
+
+    agg = Table.read_csv(os.path.join(out, "aggregated.csv"))
+    runs = {}
+    # the card twice: its first run pays the process's first cuBLAS and
+    # kernel loads (the CLI's own run paid them in its process)
+    for label, device in (("card, first run", "cuda"), ("card", "cuda"), ("CPU", "cpu")):
+        record, t0 = {}, time.time()
+        runs[label] = (run_experiment(agg, device=device, record=record), record,
+                       time.time() - t0)
+    (gpu, rg, _), (cpu, rc, _) = runs["card"], runs["CPU"]
+    first = runs["card, first run"][0]
+    if any(not np.array_equal(first[c], gpu[c], equal_nan=c != "Classifier")
+           for c in gpu.columns):
+        raise AssertionError("bench: the card's two runs differ")
+    if list(gpu["Classifier"]) != list(BENCH_BARS) or list(cpu["Classifier"]) != list(BENCH_BARS):
+        raise AssertionError(f"bench: classifiers {list(gpu['Classifier'])}")
+    if rg["selected"] != rc["selected"]:
+        raise AssertionError(f"bench: the card selected {rg['selected'][:5]}..., the CPU "
+                             f"{rc['selected'][:5]}...")
+    gaps = {}
+    for name, bar in BENCH_BARS.items():
+        gaps[name] = float(np.abs(rg["proba"][name] - rc["proba"][name]).max())
+        if not gaps[name] <= bar:
+            raise AssertionError(f"bench: {name}'s probabilities part by {gaps[name]:.3e} "
+                                 f"between the card and the CPU (bar {bar:g})")
+    metric_gaps = {}
+    for m in METRICS:
+        a, b = gpu[m], cpu[m]
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"bench: {m} is NaN on one device only")
+        metric_gaps[m] = float(np.where(np.isnan(a), 0.0, np.abs(a - b)).max())
+    path = os.path.join(out, "results.bench.csv")
+    gpu.to_csv(path)
+    with open(path, "rb") as f, open(os.path.join(out, "results.csv"), "rb") as g:
+        same = f.read() == g.read()
+    os.remove(path)
+    if not same:
+        cli = Table.read_csv(os.path.join(out, "results.csv"))
+        for m in METRICS:
+            a, b = cli[m], gpu[m]
+            d = np.where(np.isnan(a) & np.isnan(b), 0.0, np.abs(a - b))
+            bars = np.array([BENCH_BARS[n] for n in gpu["Classifier"].tolist()])
+            if not (d <= bars).all():
+                raise AssertionError(f"bench: the CLI's results.csv and the card run part on {m}")
+    print(f"classifier bench on the CLI's aggregated.csv ({len(agg)} rows, "
+          f"{len(rg['selected'])} features by mutual information): card against CPU "
+          f"probabilities {', '.join(f'{k} {v:.3e}' for k, v in gaps.items())}; metrics "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in metric_gaps.items())}; the card run "
+          f"{'byte-equal to' if same else 'within the bars of'} the CLI's results.csv, on {card}")
+    for label, (_, record, wall) in runs.items():
+        print(f"classifier bench on the {label}: "
+              f"{' '.join(f'{k} {v:.3f}' for k, v in record['ms'].items())} ms (MI: the mutual "
+              f"information and its selection; the rest fit + predict), {wall:.3f} s wall, "
+              f"on {card}")
+    print("classifier bench results (card):\n" + "\n".join(
+        "  " + " ".join(f"{c}={v}" if c == "Classifier" else f"{c}={v:.6f}"
+                         for c, v in zip(gpu.columns, row))
+        for row in zip(*(gpu[c].tolist() for c in gpu.columns))))
+
+
 def classical_cli_phase(np, card, fresh, dat, tmp):
     """The classical CLI on the built physionet-1d .dat: ``fresh`` is its
-    fresh run (started by the caller), then a crash story from the fresh
-    features' rows: a checkpoint refused without --start-counter, a resume
-    that re-extracts two of its rows, a second crash and a third run that
-    folds both checkpoints in; the resumed features.csv and aggregated.csv
-    byte-equal to the fresh run's, no checkpoint left, no results.csv, and
-    the JAX package's bench command printed."""
+    fresh run on the card (started by the caller), which writes
+    features.csv, aggregated.csv and results.csv and hands nothing off;
+    the bench against the CPU (``bench_phase``); then a crash story from
+    the fresh features' rows, its three calls started together: a
+    checkpoint refused without --start-counter, a resume that re-extracts
+    two of its rows, and (after a second crash) a third run that folds
+    both checkpoints in; the two runs' features.csv, aggregated.csv and
+    results.csv byte-equal to the fresh run's, no checkpoint left."""
     out = os.path.join(tmp, "cli_fresh")
+    files = ["aggregated.csv", "features.csv", "results.csv"]
     rc, err, wall = _cli_result(fresh)
     if rc:
         print(err[-4000:], file=sys.stderr)
@@ -2200,51 +2409,52 @@ def classical_cli_phase(np, card, fresh, dat, tmp):
     with open(os.path.join(out, "features.csv")) as f:
         header, *lines = f.read().splitlines(keepends=True)
     n = len(lines)
-    handoff = [ln for ln in err.splitlines() if "python -m pcgmix_tpu.classical" in ln]
-    if (n < 16 or len(handoff) != 1 or f"--out-dir {out}" not in handoff[0]
-            or sorted(os.listdir(out)) != ["aggregated.csv", "features.csv"]):
+    if n < 16 or "pcgmix_tpu.classical" in err or sorted(os.listdir(out)) != files:
         raise AssertionError(f"classical CLI fresh run: {n} segments, files "
                              f"{sorted(os.listdir(out))}, stderr {err[-2000:]}")
     print(f"classical CLI fresh run on the built physionet-1d: {n} segments in {wall:.3f} s "
-          f"wall, {wall / n * 1e3:.3f} host ms a segment (the process's start, pruning and "
-          f"the rolling aggregation included), on {card}")
+          f"wall, {wall / n * 1e3:.3f} host ms a segment (the process's start, pruning, the "
+          f"rolling aggregation and the classifier bench on the card included), on {card}")
+    t0 = time.time()
+    bench_phase(np, card, out)
+    print(f"bench phase: {time.time() - t0:.3f} s wall on {card}")
 
-    res, refused = os.path.join(tmp, "cli_resumed"), os.path.join(tmp, "cli_refused")
-    args = ["--dataset-file", dat, "--out-dir", res]
+    dirs = {w: os.path.join(tmp, f"cli_{w}") for w in ("refused", "resumed", "third")}
 
-    def write(name, rows, where=res):
-        os.makedirs(where, exist_ok=True)
-        with open(os.path.join(where, name), "w") as f:
+    def write(name, rows, where):
+        os.makedirs(dirs[where], exist_ok=True)
+        with open(os.path.join(dirs[where], name), "w") as f:
             f.write("".join([header] + rows))
 
     t0 = time.time()
-    # the refusal (a copy of the checkpoint in a dir of its own) beside the resume
-    write("features.partial.csv", lines[:n - 6], refused)
-    write("features.partial.csv", lines[:n - 6])
-    calls = [_classical_cli(["--dataset-file", dat, "--out-dir", refused]),
-             _classical_cli(args + ["--start-counter", str(n - 7)])]
-    (rc_refused, err, _), (rc, _, _) = (_cli_result(p) for p in calls)
+    # the three calls together, each in a dir of its own: the refusal, the
+    # resume, and the third run of the story (the resume crashed again
+    # after a checkpoint of its own, which holds rows the first one holds)
+    write("features.partial.csv", lines[:n - 6], "refused")
+    write("features.partial.csv", lines[:n - 6], "resumed")
+    write("features.partial.prev.csv", lines[:n - 6], "third")
+    write("features.partial.csv", lines[n - 8:n - 3], "third")
+    calls = [_classical_cli(["--dataset-file", dat, "--out-dir", dirs[w], *counter])
+             for w, counter in (("refused", []), ("resumed", ["--start-counter", str(n - 7)]),
+                                ("third", ["--start-counter", str(n - 2)]))]
+    (rc_refused, err, _), *resumed = (_cli_result(p) for p in calls)
     if rc_refused == 0 or "partial extraction" not in err:
         raise AssertionError(f"classical CLI resumed without --start-counter: {err[-2000:]}")
-    if rc or set(os.listdir(res)) != {"aggregated.csv", "features.csv"}:
-        raise AssertionError(f"classical CLI resume: exit {rc}, files {os.listdir(res)}")
-    os.remove(os.path.join(res, "features.csv"))
-    write("features.partial.prev.csv", lines[:n - 6])
-    write("features.partial.csv", lines[n - 8:n - 3])
-    rc, err, _ = _cli_result(_classical_cli(args + ["--start-counter", str(n - 2)]))
-    if rc or sorted(os.listdir(res)) != ["aggregated.csv", "features.csv"]:
-        raise AssertionError(f"classical CLI third run: exit {rc}, files {os.listdir(res)}")
-    for name in ("features.csv", "aggregated.csv"):
-        with open(os.path.join(res, name), "rb") as a, open(os.path.join(out, name), "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"classical CLI: the resumed {name} differs from the "
-                                     "fresh one")
+    for w, (rc, _, _) in zip(("resumed", "third"), resumed):
+        if rc or sorted(os.listdir(dirs[w])) != files:
+            raise AssertionError(f"classical CLI {w} run: exit {rc}, files "
+                                 f"{os.listdir(dirs[w])}")
+        for name in files:
+            with open(os.path.join(dirs[w], name), "rb") as a, open(os.path.join(out, name),
+                                                                    "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"classical CLI: the {w} run's {name} differs from "
+                                         "the fresh one")
     print(f"classical CLI resume protocol: the checkpoint of {n - 6} segments refused without "
-          f"--start-counter; resumed from counter {n - 7}, then a third run from {n - 2} "
-          f"folding both checkpoints in; features.csv and aggregated.csv byte-equal to the "
-          f"fresh run's; checkpoints removed; no results.csv (the bench: "
-          f"{handoff[0].split(': ', 1)[1][:60]}...); {time.time() - t0:.3f} s wall for the "
-          f"four calls (the refusal beside the first resume), on {card}")
+          f"--start-counter; resumed from counter {n - 7}; a third run from {n - 2} folding "
+          f"both checkpoints in; the two runs' features.csv, aggregated.csv and results.csv "
+          f"byte-equal to the fresh run's; checkpoints removed; {time.time() - t0:.3f} s wall "
+          f"for the three calls, started together, on {card}")
 
 
 PLOT_FILES = ("accuracy.jpg", "loss.jpg", "learning_rate.jpg", "times.jpg", "variability.jpg",
@@ -2655,6 +2865,7 @@ def main() -> int:
     print(f"conv3_bn_stats: {k5_launches} launches on the harness path")
     if k5_launches == 0:
         raise AssertionError("the harness never launched K5")
+    stamp("phases 1-2b")
 
     # ---- 3. the slice end to end -------------------------------------------
     small = synthetic_physionet_dict(num_wavs_train=8, num_wavs_test=4,
@@ -2727,6 +2938,7 @@ def main() -> int:
             raise AssertionError(f"zoo alias {alias}: output {tuple(out.shape)}")
         print(f"zoo alias {alias}: one forward, logits {tuple(out.shape)}, finite")
     print(f"zoo phase: {len(ZOO)} architectures, {time.time() - t_zoo:.3f} s wall on {card}")
+    stamp("phases 3-3d")
 
     # ---- 3e. the model in the loop -----------------------------------------
     t0 = time.time()
@@ -2771,26 +2983,46 @@ def main() -> int:
     for method in ("lc-nointrusion", "saliency-cutmix"):
         n, _ = drive(method, "piecewise_mix_pairs", "model-in-the-loop")
         launches_concat["piecewise_mix_pairs", method] = n
-    # the dependency runs stay for phases 3g's and 4's (salopt…) and
-    # (closestknn…) runs: the pretrained base run and the canonical embedder
-    deps_dir = tempfile.mkdtemp(prefix="chip_smoke_deps_")
-    dep_runs = dependency_phase(np, card, keep=deps_dir)
-    base_dir = next(d for d in dep_runs if os.path.basename(d).split("_")[1:3]
-                    == ["resnet9", "base"])
-    deps = {"root": os.path.join(deps_dir, "experiments"), "base_dir": base_dir,
-            "provider": make_pretrained_saliency_fn(TrainConfig(model="resnet9"),
-                                                    lambda method: base_dir)}
+    stamp("phases 2-3e")
 
     # ---- 3f. the runtime extras -----------------------------------------
     graph_launches = runtime_phase(np, torch, card, mk)
+    stamp("phase 3f")
 
     # ---- 3g. gang training ------------------------------------------------
-    gang_launches, gang_profiled = gang_phase(np, torch, card, mk, deps)
+    # the runner's calls, four at a time in the background beside the
+    # frozen gangs (phase 3g waits for them before it takes a rate): phase
+    # 3e's runner part, whose runs stay for phases 3g's and 4's (salopt…)
+    # and (closestknn…) runs (the pretrained base run and the canonical
+    # embedder), phase 3g's own, and the grids of phases 4b and 4c
+    deps_dir, slots = tempfile.mkdtemp(prefix="chip_smoke_deps_"), threading.Semaphore(4)
+    deps_job, deps = Background(dependency_phase, np, card, keep=deps_dir, slots=slots), {}
+    runners = [
+        Background(gang_runner_check, card, ds, slots=slots),
+        Background(salopt_runner_check, card, ds, slots=slots),
+        Background(grid_phase, np, card, sig_len=SPEC_SIZE, dataset=SPEC,
+                   methods=GRID_METHODS_2D, slots=slots),
+        Background(grid_phase, np, card, slots=slots),
+        Background(grid_phase, np, card, sig_len=UMC_LEN, dataset="UMC",
+                   methods=GRID_METHODS_UMC, segments=1, seed_data=1, slots=slots)]
+
+    def get_deps():
+        if not deps:
+            base_dir = next(d for d in deps_job.join() if os.path.basename(d).split("_")[1:3]
+                            == ["resnet9", "base"])
+            deps.update(root=os.path.join(deps_dir, "experiments"), base_dir=base_dir,
+                        provider=make_pretrained_saliency_fn(TrainConfig(model="resnet9"),
+                                                             lambda method: base_dir))
+        return deps
+
+    gang_launches, gang_profiled = gang_phase(np, torch, card, mk, get_deps, runners)
     launches_concat.update(gang_launches)
+    stamp("phase 3g")
 
     # ---- 3h. the bf16 compute mode ------------------------------------------
     bf16_launches, bf16_profiled = bf16_phase(np, torch, card, mk, drive, ds, spec_ds)
     launches_concat["piecewise_mix_pairs", "bf16-latent"] = bf16_launches.pop("bf16-latent")
+    stamp("phase 3h")
 
     # ---- 3i. the offline builder on the card; classical_space -----------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_classical_") as tmp:
@@ -2801,6 +3033,8 @@ def main() -> int:
         t0 = time.time()
         fresh = _classical_cli(["--dataset-file", dats["physionet-1d"], "--out-dir",
                                 os.path.join(tmp, "cli_fresh")])
+        # and the classical_space runner's two calls
+        runner = Background(classical_runner_check, card, dats, tmp)
         try:
             for name, n in classical_phase(np, torch, card, drive, ds,
                                            train_rates["durmixmagwarp(0.2,4)"], dats,
@@ -2808,11 +3042,13 @@ def main() -> int:
                 launches_concat[name, "classical"] = n
             plot_phase(np, torch, card, mk, ds, tmp)
             classical_cli_phase(np, card, fresh, dats["physionet-1d"], tmp)
+            runner.join()
         finally:
             if fresh.poll() is None:
                 fresh.kill()
                 fresh.communicate()
         print(f"collectors, classical CLI and plots: {time.time() - t0:.3f} s wall on {card}")
+    stamp("phase 3i")
 
     # host work of a Potes step that the card waits on: the plan, and the
     # dropout masks drawn on the CPU generator and queued for the card
@@ -2855,6 +3091,7 @@ def main() -> int:
             torch, lambda: train_model(dataclasses.replace(
                 profiled, model=name, num_epochs=ZOO_EPOCHS), ds),
             card, label=f"profile zoo {name}")
+    stamp("the profiles")
 
     # ---- 4. the data-parallel route (1-rank NCCL group) -------------------
     # Full-width training at lr 0.01 is chaotic on this data: the single-
@@ -2968,13 +3205,8 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     shutil.rmtree(deps_dir)
-
-    # ---- 4b. the experiment grid: the runner CLI on the card ----------------
-    grid_phase(np, card)
-    # ---- 4c. the 2-D table's grid, then a UMC grid -------------------------
-    grid_phase(np, card, sig_len=SPEC_SIZE, dataset=SPEC, methods=GRID_METHODS_2D)
-    grid_phase(np, card, sig_len=UMC_LEN, dataset="UMC", methods=GRID_METHODS_UMC,
-               segments=1, seed_data=1)
+    stamp("phase 4")
+    # (4b–4c, the grids, ran in the background during phase 3g)
 
     # ---- 5. the profiler's kernel time of K1–K4, then the summary ----------
     # taken last: the profiler's sessions leave host overhead behind them,
@@ -3055,6 +3287,7 @@ def main() -> int:
         "max_abs_err": max(e["y_max_abs_err"] for e in k5_errs.values()),
         "shape": "res2a 64x312x512->512", **k5_times(k5_bench["res2a"]),
         "conv3": {"shape": "64x1250x128->256", **k5_times(k5_bench["conv3"])}})
+    stamp("phase 5")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3062,4 +3295,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for child in list(_CHILDREN):  # a failed phase leaves no process running
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    sys.exit(code)

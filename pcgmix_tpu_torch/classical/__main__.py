@@ -1,14 +1,17 @@
-"""The classical pipeline's CLI on the port: features → prune → aggregate.
+"""The classical pipeline's CLI on the port: features → prune → aggregate
+→ classifier bench.
 
     python -m pcgmix_tpu_torch.classical --dataset-file zbytes_physionet.dat \
-        --out-dir classical_out
+        --out-dir classical_out [--device cpu]
 
 Writes ``features.csv`` (one row a segment) and ``aggregated.csv`` (one row
 a recording window) into ``--out-dir``, byte-equal to what ``python -m
-pcgmix_tpu.classical`` writes there for the same arguments.  The classifier
-bench needs sklearn, which the GPU machine lacks: the CLI ends by printing,
-on stderr, the JAX package's command with the same arguments, which finds
-this ``features.csv`` and writes ``results.csv`` from it.
+pcgmix_tpu.classical`` writes there for the same arguments, then benches
+the eight classifiers on ``aggregated.csv`` (``run_experiment``: the
+mutual-information selection, Gaussian NB and k-NN on the card unless
+``--device cpu``; the trees, SGD, SVC and logistic regression on the host)
+and writes ``results.csv``, one metrics row a classifier, with the JAX
+CLI's columns and rows; the table goes to stdout as well.
 
 Resume: a ``features.csv`` in ``--out-dir`` is loaded as it is.  A crashed
 extraction leaves ``features.partial.csv`` (written every 2,000 segments);
@@ -23,15 +26,14 @@ from __future__ import annotations
 
 import argparse
 import os
-import shlex
 import sys
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m pcgmix_tpu_torch.classical",
-        description="PCG classical-ML pipeline: features, pruning and aggregation "
-                    "(the sklearn bench runs with python -m pcgmix_tpu.classical)",
+        description="PCG classical-ML pipeline: features, pruning, aggregation and the "
+                    "classifier bench",
     )
     ap.add_argument("--dataset-file", required=True,
                     help="packed dataset dict (.dat from pcgmix-torch-build)")
@@ -44,10 +46,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="skip the mean-envelope segment outlier removal")
     ap.add_argument("--std-factor", type=float, default=1.4)
     ap.add_argument("--kb-num", type=int, default=40,
-                    help="mutual-information top-K feature count (passed on to the "
-                         "bench's command)")
-    ap.add_argument("--seed", type=int, default=4,
-                    help="the bench's seed (passed on to its command)")
+                    help="mutual-information top-K feature count")
+    ap.add_argument("--seed", type=int, default=4, help="the bench's seed")
     ap.add_argument("--start-counter", type=int, default=0,
                     help="resume feature extraction from this segment counter "
                          "(classical.py:71)")
@@ -55,12 +55,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="segment counters to skip (classical.py:87)")
     ap.add_argument("--train-wavs", default=None,
                     help="txt of train recordings to keep in the bench (an n_fraction "
-                         "subset file; passed on to the bench's command)")
+                         "subset file, classical.py:1424-1428)")
     ap.add_argument("--export-subsets", nargs="*", type=float, default=None,
                     metavar="NFRAC",
                     help="instead, write the per-(seed_data, n_fraction) train-wav "
                          "subset files for these n_fractions into --out-dir "
                          "(classical.ipynb cell 21) and exit")
+    ap.add_argument("--device", default="cuda",
+                    help="where the bench's mutual information, Gaussian NB and k-NN run "
+                         "(cpu: on the CPU)")
     return ap
 
 
@@ -73,7 +76,6 @@ def _without(table, keys, other):
 
 
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
 
     from pcgmix_tpu_torch import utils
@@ -82,9 +84,11 @@ def main(argv=None) -> int:
         aggregate_features_single,
         export_nfrac_wav_subsets,
         remove_segments_mean_envelope,
+        run_experiment,
     )
     from pcgmix_tpu_torch.classical.features import extract_features
     from pcgmix_tpu_torch.classical.table import Table, concat
+    from pcgmix_tpu_torch.train.loop import resolve_device
 
     if args.export_subsets is not None:
         dataset = utils.file2dict(args.dataset_file)
@@ -92,6 +96,7 @@ def main(argv=None) -> int:
         print(f"wrote {len(paths)} subset files to {args.out_dir}", file=sys.stderr)
         return 0
 
+    resolve_device(args.device)  # before the extraction: "cuda" without a card raises
     keys = ["wav", "segment", "split"]
     os.makedirs(args.out_dir, exist_ok=True)
     feats_path = os.path.join(args.out_dir, "features.csv")
@@ -137,15 +142,29 @@ def main(argv=None) -> int:
     agg = (aggregate_features_rolling(feats, window=args.window) if args.window > 0
            else aggregate_features_single(feats))
     agg.to_csv(os.path.join(args.out_dir, "aggregated.csv"))
-    print(f"classifier bench (sklearn; writes results.csv from this features.csv): "
-          f"{bench_command(argv)}", file=sys.stderr)
+
+    train_wavs = None
+    if args.train_wavs:
+        with open(args.train_wavs) as f:
+            train_wavs = [ln.strip() for ln in f if ln.strip()]
+        print(f"n_fraction subset: {len(train_wavs)} train recordings", file=sys.stderr)
+    results = run_experiment(agg, kb_num=args.kb_num, seed=args.seed, train_wavs=train_wavs,
+                             device=args.device)
+    results.to_csv(os.path.join(args.out_dir, "results.csv"))
+    print(format_results(results))
     return 0
 
 
-def bench_command(argv: list) -> str:
-    """The JAX package's CLI with the same arguments: it loads the
-    ``features.csv`` found in ``--out-dir`` and runs the classifier bench."""
-    return shlex.join(["python", "-m", "pcgmix_tpu.classical", *argv])
+def format_results(results) -> str:
+    """The metrics table as aligned text, one classifier a line."""
+    cols = results.columns
+    cells = [[str(v) if c == "Classifier" else f"{v:.6f}" for v in results[c].tolist()]
+             for c in cols]
+    widths = [max(len(c), *(len(v) for v in col)) for c, col in zip(cols, cells)]
+    lines = ["  ".join(c.rjust(w) for c, w in zip(cols, widths))]
+    lines += ["  ".join(col[i].rjust(w) for col, w in zip(cells, widths))
+              for i in range(len(results))]
+    return "\n".join(lines)
 
 
 if __name__ == "__main__":

@@ -13,10 +13,12 @@ of equal values and for the sign; ``roll_var``'s Welford updates,
 cancelled nearly all of the squared deviations) over the whole tiled
 sequence, from its first row.
 
-``run_experiment`` and its classifier zoo need sklearn, which the GPU
-machine lacks: they stay with the JAX package (``python -m
-pcgmix_tpu.classical``, which benches the ``features.csv`` that this
-package's CLI writes).
+The classifier bench (:func:`run_experiment` over
+:func:`_make_classifiers`) runs the port's own estimators
+(``classical/estimators.py``) and mutual-information selection
+(``classical/selection.py``), held to scikit-learn 1.9.0.  XGBoost is not
+in the bench: neither the CPU machine nor the GPU machine has ``xgboost``,
+so the JAX package's bench has the same eight rows there.
 """
 
 from __future__ import annotations
@@ -464,3 +466,171 @@ def search_space_grid(clf_name: str, seed: int) -> dict:
         ),
     }
     return grids.get(clf_name, {})
+
+
+# --------------------------------------------------------------------------- #
+# the classifier bench (classical.py:1391-1617)
+# --------------------------------------------------------------------------- #
+
+METRICS = ["Specificity", "Sensitivity", "Accuracy", "Precision", "Recall", "F1", "ROCAUC"]
+# the reference's feature filter (classical.py:1438-1448): keep the m_/sd_
+# aggregates, drop RR-derived, MaxAmp, EnvInt, dwt5, chroma and mel
+_DROPPED = ("_RR", "MaxAmp", "EnvInt", "dwt5", "chroma", "melspectrogram1")
+
+
+def _make_classifiers(seed: int, device="cuda") -> list:
+    """(estimator, name, abbreviation) of the bench, in the JAX package's
+    order; Gaussian NB and k-NN run on ``device``, the rest on the host."""
+    from pcgmix_tpu_torch.classical import estimators as est
+
+    return [
+        (est.LogisticRegression(), "LogisticRegression", "LR"),
+        (est.DecisionTreeClassifier(seed), "DecisionTreeClassifier", "DT"),
+        (est.RandomForestClassifier(seed), "RandomForestClassifier", "RF"),
+        (est.KNeighborsClassifier(device=device), "KNeighborsClassifier", "KN"),
+        (est.GaussianNB(device=device), "GaussianNB", "GNB"),
+        (est.SVC(seed), "SVC", "SVC"),
+        (est.SGDClassifier(seed), "SGDClassifier", "SGD"),
+        (est.GradientBoostingClassifier(seed), "GradientBoostingClassifier", "GB"),
+    ]
+
+
+def group_means(keys: np.ndarray, columns: list) -> tuple[list, list]:
+    """``DataFrame.groupby(keys, sort=False).mean()``: the groups in order
+    of first appearance, each column's group sum with Kahan compensation
+    over the count (pandas' ``_libs/groupby.pyx::group_mean``)."""
+    index: dict = {}
+    codes = np.array([index.setdefault(k, len(index)) for k in keys.tolist()], dtype=np.int64)
+    means = []
+    for col in columns:
+        col = np.asarray(col, dtype=np.float64)
+        total, comp = np.zeros(len(index)), np.zeros(len(index))
+        count = np.zeros(len(index))
+        for g, val in zip(codes.tolist(), col.tolist()):
+            if val != val:
+                continue
+            count[g] += 1
+            y = val - comp[g]
+            t = total[g] + y
+            comp[g] = t - total[g] - y
+            if comp[g] != comp[g]:
+                comp[g] = 0.0
+            total[g] = t
+        with np.errstate(invalid="ignore", divide="ignore"):
+            means.append(np.where(count > 0, total / count, np.nan))
+    return list(index), means
+
+
+def _matrix(table: Table, names: list) -> np.ndarray:
+    """``DataFrame[names].to_numpy()``: float64 columns, column-major as
+    pandas lays a frame's block out.  The layout is part of the result: the
+    reference's column statistics (the mutual information's scaling, the
+    standard scaler) reduce a column-major matrix pairwise and a row-major
+    one row by row."""
+    return np.stack([np.asarray(table[c], dtype=np.float64) for c in names], axis=0).T
+
+
+def _scores(y: np.ndarray, pred: np.ndarray, proba1: np.ndarray) -> dict:
+    from pcgmix_tpu_torch.train.metrics import roc_auc
+
+    tp = int(np.sum((y == 1) & (pred == 1)))
+    tn = int(np.sum((y == 0) & (pred == 0)))
+    fp = int(np.sum((y == 0) & (pred == 1)))
+    fn = int(np.sum((y == 1) & (pred == 0)))
+    return {
+        "Specificity": tn / max(tn + fp, 1),
+        "Sensitivity": tp / max(tp + fn, 1),
+        "Accuracy": float(np.average(y == pred)),
+        "Precision": tp / (tp + fp) if tp + fp else 0.0,
+        "Recall": tp / (tp + fn) if tp + fn else 0.0,
+        "F1": 2.0 * tp / (2.0 * tp + fn + fp) if tp + fn + fp else 0.0,
+        "ROCAUC": roc_auc(y, proba1) if len(np.unique(y)) > 1 else float("nan"),
+    }
+
+
+def run_experiment(features: Table, *, keep_only_sd_m_fts: bool = True,
+                   majority_vote_prediction: bool = True,
+                   train_wavs: Optional[Sequence[str]] = None, kb_num: int = 40,
+                   seed: int = 4, device="cuda", record: Optional[dict] = None) -> Table:
+    """The train/test bench over the eight classifiers (counterpart:
+    ``pcgmix_tpu.classical.run_experiment``, classical.py:1391-1617).
+
+    ``features``: the aggregated table with the NON_FEATURES columns;
+    ``train_wavs``: the train recordings to keep (an n_fraction subset,
+    classical.py:1424-1428).  The top ``kb_num`` features by mutual
+    information on the train rows feed every classifier; with
+    ``majority_vote_prediction`` a test recording's labels and class
+    probabilities are the means over its rows and its prediction their
+    argmax.  Returns one metrics row a classifier.  The mutual information,
+    Gaussian NB and k-NN run on ``device`` ("cuda" without a card raises).
+    ``record``, when given, receives ``selected`` (the chosen features in
+    order), ``proba`` (each classifier's test-row probabilities) and
+    ``ms`` (the host milliseconds of the mutual information, ``MI``, and of
+    each classifier's fit and predictions, the card's work waited for)."""
+    import time
+
+    from pcgmix_tpu_torch.classical.selection import mutual_info, top_features
+    from pcgmix_tpu_torch.train.loop import resolve_device
+
+    dev = resolve_device(str(device))
+
+    def tick():
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    fts = features.copy()
+    split = fts["split"]
+    if train_wavs is not None:
+        keep = set(train_wavs)
+        in_train = np.array([w in keep for w in fts["wav"].tolist()], dtype=bool)
+        fts = fts.take((split == "test") | ((split == "train") & in_train))
+    if keep_only_sd_m_fts:
+        sel = [c for c in fts.columns if c.startswith(("m_", "sd_"))
+               and not any(d in c for d in _DROPPED)]
+        fts = Table({c: fts[c] for c in sel + NON_FEATURES})
+    for c in fts.columns:
+        col = fts[c]
+        if col.dtype.kind == "f":
+            fts[c] = np.where(np.isnan(col), 0.0, col)
+        elif col.dtype == object:
+            col = col.copy()
+            col[[v != v for v in col.tolist()]] = 0
+            fts[c] = col
+
+    split = fts["split"]
+    train, test = fts.take(split == "train"), fts.take(split == "test")
+    names = [c for c in train.columns if c not in NON_FEATURES]
+    x_train_full = _matrix(train, names)
+    y_train = train["class"].astype(int)
+    ms: dict = {}
+    t0 = tick()
+    mi = mutual_info(x_train_full, y_train, seed=seed, device=dev)
+    selected = top_features(names, mi, kb_num)
+    ms["MI"] = (tick() - t0) * 1e3
+    probas: dict = {}
+
+    x_tr, x_te = _matrix(train, selected), _matrix(test, selected)
+    y_te_seg = test["class"].astype(int)
+    rows = []
+    for clf, _, abbrv in _make_classifiers(seed, device=dev):
+        t0 = tick()
+        clf.fit(x_tr, y_train)
+        pred = clf.predict(x_te)
+        proba = clf.predict_proba(x_te)
+        ms[abbrv] = (tick() - t0) * 1e3
+        probas[abbrv] = proba
+        y_te = y_te_seg
+        if majority_vote_prediction:
+            _, (y_mean, p0, p1) = group_means(test["wav"], [y_te, proba[:, 0], proba[:, 1]])
+            y_te = y_mean.astype(int)
+            proba1 = p1
+            pred = np.stack([p0, p1], axis=1).argmax(axis=1).astype(int)
+        else:
+            proba1 = proba[:, 1]
+        rows.append({"Classifier": abbrv, **_scores(y_te, pred, proba1)})
+    if record is not None:
+        record.update(selected=selected, proba=probas, ms=ms)
+    return Table.from_rows(rows)

@@ -1,9 +1,11 @@
 """Native (C++) host kernels, loaded with ctypes (counterpart:
 ``pcgmix_tpu/native/__init__.py``).
 
-``src/pcgmix_native.cpp`` is compiled with g++ at first use into
-``build/native/`` beside the package (the directory the CUDA kernels build
-into), keyed by a hash of the source and flags.  Unlike the JAX package's
+``src/pcgmix_native.cpp`` and ``src/pcgmix_bench.cpp`` (the classifier
+bench's tree grower, SGD and SVC solver, used by
+``classical/estimators.py``) are compiled with g++ at first use into one
+library in ``build/native/`` beside the package (the directory the CUDA
+kernels build into), keyed by a hash of the sources and flags.  Unlike the JAX package's
 shim there is no silent fallback: a failed build raises.  The NumPy scan
 each entry point replaces stays here as its plain version
 (:func:`opt_disp_env_plain`, :func:`sample_entropy_plain`), which the tests
@@ -23,6 +25,7 @@ import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
 _SRC = Path(__file__).resolve().parent / "src" / "pcgmix_native.cpp"
+_BENCH_SRC = _SRC.with_name("pcgmix_bench.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC")
 _lock = threading.Lock()
@@ -36,15 +39,19 @@ def build_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(" ".join(FLAGS).encode() + _SRC.read_bytes())
+        sources = (_SRC, _BENCH_SRC)
+        digest = hashlib.sha256(" ".join(FLAGS).encode())
+        for src in sources:
+            digest.update(src.read_bytes())
         so = BUILD_DIR / f"libpcgmix_native_{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(["g++", *FLAGS, str(_SRC), "-o", str(tmp)],
+            proc = subprocess.run(["g++", *FLAGS, *map(str, sources), "-o", str(tmp)],
                                   capture_output=True, text=True, timeout=300)
             if proc.returncode:
-                raise RuntimeError(f"g++ failed ({proc.returncode}) building {_SRC}:\n"
+                raise RuntimeError(f"g++ failed ({proc.returncode}) building "
+                                   f"{', '.join(map(str, sources))}:\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
@@ -54,8 +61,29 @@ def build_library() -> ctypes.CDLL:
                                            ctypes.c_double]
         lib.pcg_opt_disp_env.restype = ctypes.c_int64
         lib.pcg_opt_disp_env.argtypes = [dp, ctypes.c_int64, dp, ctypes.c_int64]
+        _declare_bench(lib)
         _lib = lib
         return lib
+
+
+def _declare_bench(lib: ctypes.CDLL) -> None:
+    """Signatures of ``src/pcgmix_bench.cpp``'s entry points."""
+    i64, f64, u32, vp = ctypes.c_int64, ctypes.c_double, ctypes.c_uint32, ctypes.c_void_p
+    lib.pcg_tree_grow.restype = i64
+    lib.pcg_tree_grow.argtypes = [vp, i64, i64, vp, vp, i64, i64, i64, u32, i64, vp, vp, vp,
+                                  vp, vp]
+    lib.pcg_tree_apply.restype = None
+    lib.pcg_tree_apply.argtypes = [vp, i64, i64, vp, vp, vp, vp, vp]
+    lib.pcg_half_binomial_gradient.restype = None
+    lib.pcg_half_binomial_gradient.argtypes = [vp, vp, i64, vp]
+    lib.pcg_half_binomial_loss_gradient.restype = None
+    lib.pcg_half_binomial_loss_gradient.argtypes = [vp, vp, i64, vp, vp]
+    lib.pcg_sgd_log_loss.restype = i64
+    lib.pcg_sgd_log_loss.argtypes = [vp, vp, i64, i64, f64, i64, f64, i64, u32, vp, vp]
+    lib.pcg_svc_fit.restype = i64
+    lib.pcg_svc_fit.argtypes = [vp, vp, i64, i64, f64, f64, f64, u32, vp, vp, vp, vp]
+    lib.pcg_svc_predict.restype = None
+    lib.pcg_svc_predict.argtypes = [vp, vp, i64, i64, f64, f64, f64, f64, vp, vp, i64, vp, vp]
 
 
 def _as_double_ptr(x: np.ndarray):

@@ -13,16 +13,17 @@ port's own resume must equal its fresh run byte for byte, and the JAX
 CLI's resumed ``features.csv`` must equal the port's with the checkpoint
 rows as pandas' parser reads them, and its ``aggregated.csv`` the port's
 aggregation of that ``features.csv``; how far the two CLIs' resumed
-tables part is printed.  The JAX package's
-extraction runs once per module (about 0.25 s a segment); its CLI gets
-that result through a stand-in of ``extract_features`` that honours
-``start_counter`` and ``save_path`` as the function does, and its
-sklearn bench runs where its ``results.csv`` is read (the fresh run and
-the port's hand-off command) and is stubbed in the resumes."""
+tables part is printed.  The fresh run's ``results.csv`` (the port's own
+classifier bench) holds the JAX CLI's columns and classifiers, each
+metric within its estimator's bar (``tests/test_torch_classical_bench.py``).
+The JAX package's extraction runs once per module (about 0.25 s a
+segment); its CLI gets that result through a stand-in of
+``extract_features`` that honours ``start_counter`` and ``save_path`` as
+the function does, and its sklearn bench runs in the fresh run and is
+stubbed in the resumes."""
 
 import io
 import os
-import shlex
 
 import numpy as np
 import pandas as pd
@@ -355,21 +356,28 @@ def _args(dat, out):
 
 def test_cli_fresh_run_byte_equal_and_hands_off(dat, jax_cli, tmp_path, capsys):
     """A fresh run writes the JAX CLI's features.csv and aggregated.csv and
-    no results.csv; the command it prints is the JAX CLI with the same
-    arguments, which benches this features.csv."""
+    benches them itself, handing nothing off: its results.csv holds the
+    JAX CLI's columns and eight classifiers in order, each metric within its
+    estimator's bar, and the table is printed; no JAX command is."""
+    from tests.test_torch_classical_bench import BARS
+
     assert jax_cli(_args(dat, tmp_path / "jax")) == 0
-    argv = _args(dat, tmp_path / "port")
     capsys.readouterr()
-    assert cli.main(argv) == 0
+    assert cli.main(_args(dat, tmp_path / "port") + ["--device", "cpu"]) == 0
     for name in ("features.csv", "aggregated.csv"):
         assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
-    assert not (tmp_path / "port" / "results.csv").exists()
-    last = capsys.readouterr().err.strip().splitlines()[-1]
-    cmd = shlex.split(last.split(": ", 1)[1])
-    assert cmd[:3] == ["python", "-m", "pcgmix_tpu.classical"] and cmd[3:] == argv
-    assert jax_cli(cmd[3:]) == 0
-    assert "resume: loading existing" in capsys.readouterr().err
-    assert len(pd.read_csv(tmp_path / "port" / "results.csv")) >= 7
+    out, err = capsys.readouterr()
+    assert "pcgmix_tpu.classical" not in out + err
+    want = pd.read_csv(tmp_path / "jax" / "results.csv", float_precision="round_trip")
+    got = Table.read_csv(str(tmp_path / "port" / "results.csv"))
+    assert got.columns == list(want.columns)
+    assert got["Classifier"].tolist() == list(want["Classifier"]) == list(BARS)
+    for c in got.columns[1:]:
+        a, b = want[c].to_numpy(), got[c]
+        assert np.array_equal(np.isnan(a), np.isnan(b)), c
+        for name, x, y in zip(got["Classifier"].tolist(), a, b):
+            assert x != x or abs(x - y) <= BARS[name], (c, name, x, y)
+    assert all(name in out for name in BARS)
 
 
 def _ulps(a: Table, b: Table) -> tuple[int, int]:
@@ -399,14 +407,15 @@ def test_cli_resume_protocol(dat, jax_cli, jax_features, tmp_path, capsys):
     leaves segments 7–12 in the checkpoint; a third run from counter 13
     folds both in; the checkpoints are removed at the end."""
     fresh = tmp_path / "fresh"
-    assert cli.main(_args(dat, fresh)) == 0
+    assert cli.main(_args(dat, fresh) + ["--device", "cpu"]) == 0
     header, *lines = (fresh / "features.csv").read_text().splitlines(keepends=True)
     tables = {}
     for side in ("port", "jax"):
         out = tmp_path / side
         out.mkdir()
         (out / "features.partial.csv").write_text("".join([header] + lines[:8]))
-        main = cli.main if side == "port" else (lambda a: jax_cli(a, bench=False))
+        main = ((lambda a: cli.main(a + ["--device", "cpu"])) if side == "port"
+                else (lambda a: jax_cli(a, bench=False)))
         with pytest.raises(SystemExit, match="partial extraction \\(8 segments\\)"):
             main(_args(dat, out))
         # the first resume, cut short after it checkpointed segments 7-12
@@ -417,8 +426,7 @@ def test_cli_resume_protocol(dat, jax_cli, jax_features, tmp_path, capsys):
         (out / "features.partial.prev.csv").write_text("".join([header] + lines[:8]))
         (out / "features.partial.csv").write_text("".join([header] + lines[6:12]))
         assert main(_args(dat, out) + ["--start-counter", "13"]) == 0
-        assert sorted(os.listdir(out)) == ["aggregated.csv", "features.csv"] + (
-            ["results.csv"] if side == "jax" else [])
+        assert sorted(os.listdir(out)) == ["aggregated.csv", "features.csv", "results.csv"]
         tables[side] = {n: Table.read_csv(str(out / n))
                         for n in ("features.csv", "aggregated.csv")}
     for name in ("features.csv", "aggregated.csv"):
