@@ -58,6 +58,8 @@ Phases (any failure exits non-zero):
    read) and the whole output.  And at the live gang's pool: K1 with a zero
    base on four members' ``lc-nointrusion`` pools, 1024 × 4 × 2500 joined
    from the 256-row gang batch (``gang_plan``: idx1/idx2 offset by s·B).
+   And at the latent plots' batch: K2 on 2048 × 4 × 2500 (phase 3j's
+   PCGmix+ batch).
 3. The slice end to end: ``train_model`` with full-width ResNet9 and with
    full-width Potes, batch 64, 4 × 2500 inputs, 16 steps, once with
    PCGmix+ ``durmixmagwarp(0.2,4)`` and once with PCGmix ``durratiomixup``;
@@ -187,9 +189,10 @@ Phases (any failure exits non-zero):
    model in the loop in a gang (``mil_gang_phase``), frozen, under cuDNN's
    deterministic algorithms: gangs of 4 of ``lc-nointrusion`` and
    ``saliency-cutmix`` (the live mode) on ResNet9 and Potes, and of
-   ``(saloptenv)durratiomixup`` (one provider a member, on phase 3e's
-   base run) and ``(closestknn=8)durmixmagwarp(0.2,4)`` (phase 3e's
-   canonical embedder) on ResNet9, 8 gang steps each: every member within
+   ``(saloptenv)durratiomixup`` (one provider a member) and
+   ``(closestknn=8)durmixmagwarp(0.2,4)`` on ResNet9, their base run and
+   canonical embedder trained in the phase under the same algorithms
+   (``frozen_hook_models``), 8 gang steps each: every member within
    ``GANG_BAR`` of its own sequential run, every plan and ``lc_select``
    pick bit-equal, K1 (K2 for the closest PCGmix+) once a gang step and
    nothing else (the pool's one launch on 1024 rows; the picks are
@@ -261,6 +264,24 @@ Phases (any failure exits non-zero):
    each stage's ms printed.  Its crash story (a refused checkpoint, two
    resumes, the three calls started together) must give back the fresh
    run's three files byte for byte.
+3j. (Run beside phase 3i's three resume calls.)  The latent-space plots
+   and the loss mixture: the last plot run's full-width ResNet9 (phase 3's
+   config) embeds 2048 synthetic rows (``get_hidden_features``,
+   ``part="latent_space"``: 39,936 features) and one PCGmix+ batch of
+   them through the engine's apply (K2 once, nothing else); on 256 rows of
+   each cloud the card's ``dim_reduc_pca`` within 1e-10 of the CPU's and
+   its ``dim_reduc_tsne`` within 0.01 trustworthiness (5 neighbours) and
+   2 % KL divergence (under one P) of the CPU's; at full size
+   ``plot_latent_space`` with PCA and with t-SNE,
+   ``plot_latent_space_test`` and ``plot_latent_space_test_train`` (t-SNE,
+   256 test rows): each PNG 600 x 600; the wall time of each reduction
+   at full size, called on its own, and of each plot call printed;
+   ``plot_epoch_loss_gmm`` on the model's per-sample cross-entropy over
+   the 2048 rows (its JPEG 600 x 600) and on 1536 + 512 losses of two
+   known modes: |μ₁−μ₂| that of the mixture fitted to the same losses,
+   whose weights, mean and second moment are the data's within 1e-9, and
+   on the two modes its means and weights within 0.01 of theirs.  The
+   resume calls' wall is theirs alone, 3j's printed beside it.
 4. The data-parallel route: the same two runs inside a 1-rank NCCL process
    group, as ``torchrun`` would start them.  Each must launch K4 (PCGmix+)
    or K3 (PCGmix) once per augmented step and K1/K2 never.  Its loss must
@@ -1562,7 +1583,8 @@ def gang_phase(np, torch, card, mk, get_deps, runners):
             if any(n != (steps if k == kernel else 0) for k, n in counts.items()):
                 raise AssertionError(f"gang {model} {method}: {steps} steps, launches {counts}")
             if not gap <= GANG_BAR:
-                raise AssertionError(f"gang {model} {method}: members differ from their runs")
+                raise AssertionError(f"gang {model} {method}: members differ from their runs "
+                                     f"(max relative gap {gap:.3e}, bar {GANG_BAR:g})")
             if kernel:
                 launches[kernel, "gang"] = counts[kernel]
 
@@ -1612,7 +1634,8 @@ def gang_phase(np, torch, card, mk, get_deps, runners):
     if counts.get("piecewise_mix_pairs") != lock or not gap <= GANG_BAR:
         raise AssertionError("the ragged gang differs from its members' runs")
 
-    launches.update(mil_gang_phase(np, torch, card, mk, get_deps(), ds))
+    launches.update(mil_gang_phase(np, torch, card, mk, ds))
+    get_deps()
     for job in runners:
         job.join()
     stamp("phase 3g's frozen gangs beside the runner's calls")
@@ -1760,28 +1783,50 @@ def runner_calls(cmd, n, what):
     return outs
 
 
-def mil_gang_phase(np, torch, card, mk, deps, ds):
+def frozen_hook_models(TrainConfig, train_model, ds, root):
+    """The hook methods' frozen models, trained on ``ds`` into ``root``:
+    a ResNet9 base run (the checkpoint a (salopt…) provider loads) and the
+    canonical ResCNN embedder that a (closestknn…) method resolves from
+    ``root``.  Called under cuDNN's deterministic algorithms, so that the
+    hook gangs' plans, and with them the rounding their members' gaps come
+    from, are the same on every run, as the other frozen gangs' are.
+    Returns the base run's directory."""
+    from pcgmix_tpu_torch.exp.dirs import experiment_dir
+    from pcgmix_tpu_torch.latent import latent_pretrain_config
+
+    base = TrainConfig(model="resnet9", method="base", num_epochs=2, batch_size=B,
+                       num_channels=C, experiments_root=root, plot=False)
+    embedder = dataclasses.replace(
+        latent_pretrain_config(TrainConfig(num_channels=C, experiments_root=root)),
+        plot=False)
+    for cfg in (base, embedder):
+        train_model(cfg, ds)
+    return experiment_dir(base)
+
+
+def mil_gang_phase(np, torch, card, mk, ds):
     """Phase 3g's model-in-the-loop gangs: each of ``GANG_MIL`` as a gang
     of 4 with frozen weights under cuDNN's deterministic algorithms, every
     member within ``GANG_BAR`` of its own sequential run, every plan and
     pick bit-equal, and the kernel launched once a gang step, nothing else;
-    ``deps`` holds phase 3e's runs.  Returns {(kernel, geometry):
-    launches}."""
+    the hook methods take ``frozen_hook_models``.  Returns {(kernel,
+    geometry): launches}."""
     from pcgmix_tpu_torch.saliency import make_pretrained_saliency_fn
     from pcgmix_tpu_torch.train import TrainConfig, gang, train_model
 
     launches = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_hooks_")
     torch.backends.cudnn.deterministic = True
     try:
+        base_dir = frozen_hook_models(TrainConfig, train_model, ds, root)
         for model, method, kernel in GANG_MIL:
             over, hooks = {}, {}
-            if "closest" in method:  # the canonical embedder of phase 3e's root
-                over["experiments_root"] = deps["root"]
+            if "closest" in method:  # the canonical embedder of root
+                over["experiments_root"] = root
             cfgs = gang_members(TrainConfig, model, method, GANG_S, 2, lr_max=0.0, **over)
             if "salopt" in method:  # one provider a member, on phase 3e's base run
                 hooks["saliency_model_providers"] = [
-                    make_pretrained_saliency_fn(TrainConfig(model=model),
-                                                lambda m: deps["base_dir"])
+                    make_pretrained_saliency_fn(TrainConfig(model=model), lambda m: base_dir)
                     for _ in cfgs]
             gplans, gpicks = [], []
             torch.cuda.synchronize()
@@ -1812,12 +1857,15 @@ def mil_gang_phase(np, torch, card, mk, deps, ds):
             if any(n != (steps if k == kernel else 0) for k, n in counts.items()):
                 raise AssertionError(f"gang {model} {method}: {steps} steps, launches {counts}")
             if not (max(gaps) <= GANG_BAR and same):
-                raise AssertionError(f"gang {model} {method}: members differ from their runs")
+                raise AssertionError(f"gang {model} {method}: members differ from their runs "
+                                     f"(max relative gap {max(gaps):.3e}, bar {GANG_BAR:g}; "
+                                     f"plans and picks bit-equal: {same})")
             if model == "resnet9":
                 geometry = "gang-pool" if method == "lc-nointrusion" else f"gang {method}"
                 launches[kernel, geometry] = counts[kernel]
     finally:
         torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -2390,7 +2438,7 @@ def bench_phase(np, card, out):
         for row in zip(*(gpu[c].tolist() for c in gpu.columns))))
 
 
-def classical_cli_phase(np, card, fresh, dat, tmp):
+def classical_cli_phase(np, card, fresh, dat, tmp, beside=None):
     """The classical CLI on the built physionet-1d .dat: ``fresh`` is its
     fresh run on the card (started by the caller), which writes
     features.csv, aggregated.csv and results.csv and hands nothing off;
@@ -2399,7 +2447,9 @@ def classical_cli_phase(np, card, fresh, dat, tmp):
     checkpoint refused without --start-counter, a resume that re-extracts
     two of its rows, and (after a second crash) a third run that folds
     both checkpoints in; the two runs' features.csv, aggregated.csv and
-    results.csv byte-equal to the fresh run's, no checkpoint left."""
+    results.csv byte-equal to the fresh run's, no checkpoint left.
+    ``beside()``, if given, runs while the three calls do; a thread waits
+    for the calls, so their wall is theirs and not ``beside``'s."""
     out = os.path.join(tmp, "cli_fresh")
     files = ["aggregated.csv", "features.csv", "results.csv"]
     rc, err, wall = _cli_result(fresh)
@@ -2437,7 +2487,14 @@ def classical_cli_phase(np, card, fresh, dat, tmp):
     calls = [_classical_cli(["--dataset-file", dat, "--out-dir", dirs[w], *counter])
              for w, counter in (("refused", []), ("resumed", ["--start-counter", str(n - 7)]),
                                 ("third", ["--start-counter", str(n - 2)]))]
-    (rc_refused, err, _), *resumed = (_cli_result(p) for p in calls)
+    waiting = Background(lambda: [_cli_result(p) for p in calls])
+    beside_s = 0.0
+    if beside is not None:
+        t_beside = time.time()
+        beside()
+        beside_s = time.time() - t_beside
+    (rc_refused, err, _), *resumed = results = waiting.join()
+    calls_s = max(wall for _, _, wall in results)
     if rc_refused == 0 or "partial extraction" not in err:
         raise AssertionError(f"classical CLI resumed without --start-counter: {err[-2000:]}")
     for w, (rc, _, _) in zip(("resumed", "third"), resumed):
@@ -2453,8 +2510,10 @@ def classical_cli_phase(np, card, fresh, dat, tmp):
     print(f"classical CLI resume protocol: the checkpoint of {n - 6} segments refused without "
           f"--start-counter; resumed from counter {n - 7}; a third run from {n - 2} folding "
           f"both checkpoints in; the two runs' features.csv, aggregated.csv and results.csv "
-          f"byte-equal to the fresh run's; checkpoints removed; {time.time() - t0:.3f} s wall "
-          f"for the three calls, started together, on {card}")
+          f"byte-equal to the fresh run's; checkpoints removed; the three calls, started "
+          f"together, {calls_s:.3f} s wall from their start to the last one's end"
+          f"{f' (phase 3j beside them, its own wall {beside_s:.3f} s)' if beside else ''}; "
+          f"{time.time() - t0:.3f} s for the story, on {card}")
 
 
 PLOT_FILES = ("accuracy.jpg", "loss.jpg", "learning_rate.jpg", "times.jpg", "variability.jpg",
@@ -2468,7 +2527,8 @@ def plot_phase(np, torch, card, mk, ds, tmp, model="resnet9", device="cuda"):
     variability.pkl, without it none; the host ms of a plot epoch; steps/s
     over epochs 2-4 with and without, in the order on, off, off, on (the
     drawing follows the epoch's ``times`` entry, so the rates should not
-    move).  ``model``/``device`` rehearse it on the CPU."""
+    move).  ``model``/``device`` rehearse it on the CPU.  Returns the last
+    run's dir (its ``model.pth``: phase 3j's model)."""
     from pcgmix_tpu_torch.exp.raster import jpeg_header
     from pcgmix_tpu_torch.train import TrainConfig, loop, train_model
 
@@ -2517,6 +2577,215 @@ def plot_phase(np, torch, card, mk, ds, tmp, model="resnet9", device="cuda"):
           f"a plot epoch's drawing {np.mean(ms):.3f} ms host (min {min(ms):.3f}, max "
           f"{max(ms):.3f}, 8 epochs); steps/s over epochs 2-4 with plot {on[0]:.3f}, "
           f"{on[1]:.3f}, without {off[0]:.3f}, {off[1]:.3f} (on, off, off, on), on {card}")
+    return run_dir
+
+
+# phase 3j: the latent-space plots and the loss-mixture fit.  The card's
+# PCA against the CPU's and its t-SNE against the CPU's run on the first
+# LATENT_CHECK originals and augmented points: PCA coordinates within
+# 1e-10 (both float64, sums in another order); t-SNE, whose float32
+# trajectories part, by trustworthiness (5 neighbours) within 0.01 and the
+# KL divergence under the CPU's P within 2 %.
+LATENT_ROWS, LATENT_CHECK = 2048, 256
+LATENT_PCA_BAR, LATENT_TRUST_BAR, LATENT_KL_BAR = 1e-10, 0.01, 0.02
+
+
+def trustworthiness(np, x, emb, k=5):
+    """scikit-learn's ``trustworthiness(x, emb, n_neighbors=k)`` in numpy:
+    1 − 2 / (n k (2n − 3k − 1)) Σ max(0, r(i, j) − k) over each point's k
+    nearest in ``emb``, r its rank among the point's neighbours in ``x``."""
+    x, emb = np.asarray(x, np.float64), np.asarray(emb, np.float64)
+    n = len(x)
+    sq = (x * x).sum(1)
+    dx = sq[:, None] - 2 * (x @ x.T) + sq[None, :]
+    np.fill_diagonal(dx, np.inf)
+    de = ((emb[:, None, :] - emb[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(de, np.inf)
+    rank = np.zeros((n, n), dtype=np.int64)
+    rank[np.arange(n)[:, None], np.argsort(dx, axis=1)] = np.arange(1, n + 1)
+    r = rank[np.arange(n)[:, None], np.argsort(de, axis=1, kind="stable")[:, :k]] - k
+    return 1.0 - r[r > 0].sum() * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+# the loss mixture's checks: EM's M-step keeps the data's mean and second
+# moment (Σ w μ = mean, Σ w (σ² − reg_covar + μ²) = mean of squares, up to
+# sklearn's 10·eps on each weight); where the modes are known, the fit's
+# means and weights within MIXTURE_MODE_BAR of them
+MIXTURE_MOMENT_BAR, MIXTURE_MODE_BAR = 1e-9, 0.01
+
+
+def mixture_check(np, losses, m1, what, modes=None, weights=None):
+    """Holds ``plot_epoch_loss_gmm``'s |μ₁−μ₂| ``m1`` on ``losses`` to the
+    mixture fitted to the same normalized losses, and that fit to the
+    moments of the data (and to the known ``modes`` and ``weights``,
+    if given); returns a line of what was held."""
+    from pcgmix_tpu_torch.exp.mixture import REG_COVAR, fit_gaussian_mixture
+
+    x = np.asarray(losses, np.float64)
+    x = x / x.max()
+    gm = fit_gaussian_mixture(x.reshape(-1, 1))
+    means, w = gm.means.ravel(), gm.weights
+    var = gm.covariances.ravel() - REG_COVAR
+    gaps = (abs(float(abs(means[1] - means[0])) - m1), abs(w.sum() - 1),
+            abs(w @ means - x.mean()), abs(w @ (var + means ** 2) - (x * x).mean()))
+    line = (f"the fit's means {means[0]:.6f}, {means[1]:.6f}, weights {w[0]:.6f}, "
+            f"{w[1]:.6f}, {gm.n_iter} EM iterations; |m1 - the fit's| {gaps[0]:.1e}, its "
+            f"weights' sum, mean and second moment against the data's {max(gaps[1:]):.1e} "
+            f"(bar {MIXTURE_MOMENT_BAR:g})")
+    ok = gaps[0] == 0 and max(gaps[1:]) <= MIXTURE_MOMENT_BAR
+    if modes is not None:
+        order = np.argsort(means)
+        mode_gap = max(np.abs(means[order] - np.asarray(modes)).max(),
+                       np.abs(w[order] - np.asarray(weights)).max())
+        line += f"; the known modes' means and weights within {mode_gap:.1e} " \
+                f"(bar {MIXTURE_MODE_BAR:g})"
+        ok = ok and mode_gap <= MIXTURE_MODE_BAR
+    if not ok:
+        raise AssertionError(f"loss mixture on {what}: {line}")
+    return line
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR; raises where it is not a PNG."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def latent_phase(np, torch, card, mk, run_dir, split, test_split, out, model="resnet9",
+                 device="cuda"):
+    """The trained model of ``run_dir`` (phase 3's config) embeds ``split``
+    (``part="latent_space"``, with its logits) and one PCGmix+ batch of the
+    same rows through the engine's apply (K2 once, and nothing else); the
+    card's PCA and t-SNE against the CPU's on LATENT_CHECK points of each
+    cloud; then ``plot_latent_space`` with PCA and with t-SNE,
+    ``plot_latent_space_test`` and ``plot_latent_space_test_train`` (t-SNE,
+    with ``test_split``) at full size, each PNG 600 x 600, the wall time
+    of each reduction called on its own and of each plot call;
+    ``plot_epoch_loss_gmm`` on the model's per-sample losses over
+    ``split`` (cross-entropy, correct and incorrect apart) and on losses
+    of two known modes (``mixture_check``).  Returns the phase's
+    launches.  ``model``/``device``
+    rehearse it on the CPU."""
+    from pcgmix_tpu_torch import latent
+    from pcgmix_tpu_torch.augment import AugmentConfig, AugmentEngine
+    from pcgmix_tpu_torch.exp.plotters import plot_epoch_loss_gmm
+    from pcgmix_tpu_torch.exp.raster import jpeg_header
+    from pcgmix_tpu_torch.manifold import joint_probabilities, kl_divergence, nearest_neighbors
+    from pcgmix_tpu_torch.models import build_model
+    from pcgmix_tpu_torch.saliency import load_weights
+
+    t_phase = time.time()
+    method = "durmixmagwarp(0.2,4)"
+    net = build_model(model, 2, C, split.data.shape[-1])
+    net.load_state_dict(load_weights(os.path.join(run_dir, "model.pth")))
+    net.to(device).eval()
+    fts, trgts, confs, _ = latent.get_hidden_features(net, split, device=device)
+    test_fts, test_trgts, _, _ = latent.get_hidden_features(net, test_split, device=device)
+    n = len(fts)
+    engine = AugmentEngine(AugmentConfig(method, n, C, split.data.shape[-1]))
+    plan = engine.plan(7, split.frames, split.label)
+    x = torch.from_numpy(split.data).to(device)
+    onehot = torch.eye(2, device=device)[torch.as_tensor(split.label, device=device).long()]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    with torch.no_grad():
+        rows, targets = engine.apply(x, onehot, plan.arrays)
+        new_fts = np.concatenate([net(rows[i:i + 256], depth=0, part="latent_space").cpu().numpy()
+                                  for i in range(0, n, 256)])
+    launches = {k: v for k, v in mk.launch_counts().items() if v}
+    if launches != ({"pcgmix_plus_fused": 1} if device == "cuda" else {}):
+        raise AssertionError(f"latent plots: the PCGmix+ batch launched {launches}")
+    new_trgts = targets.argmax(1).cpu().numpy()
+    print(f"latent features {model}: {n} rows and their PCGmix+ batch ({launches}), "
+          f"{fts.shape[1]} features each, {len(test_fts)} test rows; {time.time() - t_phase:.3f} "
+          f"s wall on {card}")
+
+    # the card against the CPU on LATENT_CHECK points of each cloud
+    sub, sub_new = fts[:LATENT_CHECK], new_fts[:LATENT_CHECK]
+    pca = {d: latent.dim_reduc_pca(sub, sub_new, device=d) for d in (device, "cpu")}
+    pca_gap = max(float(np.abs(a - b).max()) for a, b in zip(pca[device][:2], pca["cpu"][:2]))
+    both = np.concatenate([sub, sub_new])
+    sqdist, neighbors = nearest_neighbors(torch.from_numpy(both), min(len(both) - 1, 46))
+    p = joint_probabilities(sqdist, neighbors, 15)
+    checks = {}
+    for d in (device, "cpu"):
+        t0 = time.time()
+        emb = np.concatenate(latent.dim_reduc_tsne(sub, sub_new, device=d)[:2])
+        checks[d] = (trustworthiness(np, both, emb), kl_divergence(p, emb), time.time() - t0)
+    (t_card, kl_card, s_card), (t_cpu, kl_cpu, s_cpu) = checks[device], checks["cpu"]
+    print(f"latent PCA at {2 * LATENT_CHECK} points: card against CPU max |diff| {pca_gap:.3e} "
+          f"(coordinates up to {np.abs(pca['cpu'][0]).max():.3e}; bar {LATENT_PCA_BAR:g}), "
+          f"explained variance {pca[device][2]:.6f} / {pca['cpu'][2]:.6f}; t-SNE "
+          f"trustworthiness {t_card:.4f} / {t_cpu:.4f} (bar {LATENT_TRUST_BAR}), KL "
+          f"{kl_card:.4f} / {kl_cpu:.4f} under the CPU's P (bar {100 * LATENT_KL_BAR:g} %), "
+          f"{s_card:.3f} / {s_cpu:.3f} s (card / CPU), on {card}")
+    if not (pca_gap <= LATENT_PCA_BAR and abs(pca[device][2] - pca["cpu"][2]) <= LATENT_PCA_BAR
+            and abs(t_card - t_cpu) <= LATENT_TRUST_BAR
+            and abs(kl_card - kl_cpu) <= LATENT_KL_BAR * kl_cpu):
+        raise AssertionError("latent plots: the card's reductions disagree with the CPU's")
+
+    # the reductions at full size, then the four plots, each call timed
+    train = {"fts": fts, "target": trgts, "fts_new": new_fts, "trgts_new": new_trgts}
+    test = {"fts": test_fts, "target": test_trgts}
+    timed = []
+    for name, reduce in (("PCA", latent.dim_reduc_pca), ("t-SNE", latent.dim_reduc_tsne)):
+        t0 = time.time()
+        reduce(fts, new_fts, device=device)
+        timed.append(f"{name} {2 * n} points {time.time() - t0:.3f} s")
+    paths, drawn = [], []
+    for what, draw in (
+            ("pca", lambda: [latent.plot_latent_space(train, "train", 4, 2, method, out, "pca",
+                                                      device=device)]),
+            ("tsne", lambda: [latent.plot_latent_space(train, "train", 4, 2, method, out,
+                                                       "tsne", device=device)]),
+            ("test (t-SNE)", lambda: [latent.plot_latent_space_test(
+                test, "test", 4, 2, method, out, device=device)]),
+            ("test_train (t-SNE)", lambda: list(latent.plot_latent_space_test_train(
+                test, train, "final", 4, 2, method, out, device=device)))):
+        t0 = time.time()
+        paths += draw()
+        drawn.append(f"{what} {time.time() - t0:.3f} s")
+    for path in paths:
+        if png_size(path) != (600, 600):
+            raise AssertionError(f"latent plots: {path} is {png_size(path)}")
+    print(f"latent reductions at full size: {'; '.join(timed)}; on {card}")
+    print(f"latent plots at full size: {', '.join(os.path.basename(p) for p in paths)} "
+          f"(PNG 600x600); each call (its reduction and its drawing): {'; '.join(drawn)}; "
+          f"on {card}")
+
+    # the loss mixture on the model's per-sample losses over the split
+    logits = confs.astype(np.float64)
+    labels = np.asarray(trgts)
+    top = logits.max(1)
+    losses = top + np.log(np.exp(logits - top[:, None]).sum(1)) - logits[np.arange(n), labels]
+    right = logits.argmax(1) == labels
+    t0 = time.time()
+    m1 = plot_epoch_loss_gmm(losses[right], losses[~right], 4, out)
+    gmm_ms = (time.time() - t0) * 1e3
+    with open(os.path.join(out, "losses", "epoch_loss_dst_4.jpg"), "rb") as f:
+        frame = jpeg_header(f.read())
+    if (frame["width"], frame["height"]) != (600, 600):
+        raise AssertionError(f"loss mixture: the JPEG is {frame}")
+    fit = mixture_check(np, np.append(losses[right], losses[~right]), m1, "the epoch's losses")
+    print(f"loss mixture on {n} per-sample losses ({int(right.sum())} correct): |mu1 - mu2| "
+          f"{m1:.6f}, {fit}, epoch_loss_dst_4.jpg 600x600, {gmm_ms:.3f} ms host, on {card}")
+    # and on losses with both modes populated, whose means are known
+    rng = np.random.default_rng(23)
+    low, high = np.abs(rng.normal(0.15, 0.03, 1536)), rng.normal(0.7, 0.05, 512)
+    m1 = plot_epoch_loss_gmm(low, high, 5, out)
+    peak = max(low.max(), high.max())
+    fit = mixture_check(np, np.append(low, high), m1, "two populated modes",
+                        modes=(low.mean() / peak, high.mean() / peak), weights=(0.75, 0.25))
+    print(f"loss mixture on {len(low)} + {len(high)} losses of two modes: |mu1 - mu2| "
+          f"{m1:.6f}, {fit}, on {card}")
+    print(f"latent phase: {time.time() - t_phase:.3f} s wall on {card}")
+    return launches
 
 
 def make_drive(np, torch, mk, card, ds):
@@ -2730,6 +2999,16 @@ def main() -> int:
                 "library_ms": None}
 
     pcgmix, pcgmix_plus = plan("durratiomixup"), plan("durmixmagwarp(0.2,4)")
+    # the latent plots' geometry (phase 3j): one PCGmix+ batch of
+    # LATENT_ROWS rows, 2048 x 4 x 2500
+    latent_ds = synthetic_physionet_dict(num_wavs_train=280, num_wavs_test=32,
+                                         segments_per_wav=8, sig_len=T, seed=13)
+    latent_split = physionet_split(latent_ds, "train").take(np.arange(LATENT_ROWS))
+    latent_test = physionet_split(latent_ds, "test")
+    x_latent = torch.from_numpy(latent_split.data).to(dev)
+    plus_latent = AugmentEngine.device_arrays(AugmentEngine(AugmentConfig(
+        "durmixmagwarp(0.2,4)", LATENT_ROWS, C, T)).plan(
+            7, latent_split.frames, latent_split.label).arrays, dev)
     # the classical_space path's geometry: the four bands and the wide band,
     # 64 × 5 × 2500, under the plans of a 5-channel engine
     split5 = physionet_split(ds, "train", classical_space=True)
@@ -2808,6 +3087,8 @@ def main() -> int:
         ("piecewise_mix_prepaired", k3, "main", x32, pcgmix, 1e-6, 0, 2, False, k27, False),
         ("pcgmix_plus_fused_prepaired", k4, "main", x32, pcgmix_plus, 1e-5, 0, 2, True, k27,
          False),
+        ("pcgmix_plus_fused", k2, "latent-plots", x_latent, plus_latent, 1e-5, 4, 1, True,
+         None, False),
         ("piecewise_mix_pairs", k1, "classical", x5, pcgmix5, 1e-6, 4, 1, False, None, False),
         ("pcgmix_plus_fused", k2, "classical", x5, pcgmix_plus5, 1e-5, 4, 1, True, None,
          False),
@@ -3040,8 +3321,17 @@ def main() -> int:
                                            train_rates["durmixmagwarp(0.2,4)"], dats,
                                            tmp).items():
                 launches_concat[name, "classical"] = n
-            plot_phase(np, torch, card, mk, ds, tmp)
-            classical_cli_phase(np, card, fresh, dats["physionet-1d"], tmp)
+            plot_run = plot_phase(np, torch, card, mk, ds, tmp)
+
+            # ---- 3j. the latent-space plots and the loss mixture, from the
+            # last plot run's model, beside the CLI's three resume calls
+            def latent_plots():
+                n = latent_phase(np, torch, card, mk, plot_run, latent_split, latent_test,
+                                 os.path.join(tmp, "latent_plots"))["pcgmix_plus_fused"]
+                launches_concat["pcgmix_plus_fused", "latent-plots"] = n
+                stamp("phase 3j (beside phase 3i's resume calls)")
+
+            classical_cli_phase(np, card, fresh, dats["physionet-1d"], tmp, beside=latent_plots)
             runner.join()
         finally:
             if fresh.poll() is None:

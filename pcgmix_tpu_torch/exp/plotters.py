@@ -1,15 +1,16 @@
 """Run-directory plots (counterpart: ``pcgmix_tpu/exp/plotters.py``;
 reference plotters.py): the accuracy, loss, learning-rate and times
 curves, the variability growth, the per-recording prediction bars, the
-per-epoch loss histograms and the M₁ trajectory, under the JAX package's
-file names and subfolders.
+per-epoch loss histograms, their Gaussian-mixture fits and the M₁
+trajectory, under the JAX package's file names and subfolders.
 
 Each plot has a ``*_figure`` function that returns its description
 (``exp.raster.Figure``: series with their colors and styles, reference
 lines, labels, legend strings, title, limits and scale), which
 ``exp.raster`` draws and writes as a JPEG at matplotlib's pixel size
-(figsize × 100 dpi).  ``plot_epoch_loss_gmm`` fits sklearn's
-``GaussianMixture`` and stays with the JAX package.
+(figsize × 100 dpi).  ``plot_epoch_loss_gmm`` fits its two-component
+Gaussian mixture with ``exp.mixture`` (scikit-learn's ``GaussianMixture``
+as the JAX package fits it).
 """
 
 from __future__ import annotations
@@ -163,6 +164,38 @@ def plot_epoch_loss(loss_correct, loss_incorrect, epoch, run_dir) -> str:
                 os.path.join(d, f"epoch_loss_{epoch}.jpg"))
 
 
+def epoch_loss_gmm_figure(loss_correct, loss_incorrect, epoch) -> tuple[Figure, float]:
+    """The normalized per-sample losses' density histogram with a
+    two-component Gaussian mixture fitted to them, a dashed line at each
+    mean (plotters.py:45-86), and the means' distance |μ₁−μ₂|."""
+    from pcgmix_tpu_torch.exp.mixture import fit_gaussian_mixture
+
+    all_losses = np.append(loss_correct, loss_incorrect).astype(np.float64)
+    peak = np.max(all_losses) if len(all_losses) else 1.0
+    normed = (all_losses / peak).reshape(-1, 1)
+    gm = fit_gaussian_mixture(normed)
+    means = gm.means.ravel()
+    m1 = float(abs(means[1] - means[0]))
+    xs = np.linspace(0, 1, 100)
+    return _figure(6, 6, Axes(series=[
+        Series("hist", xs, np.histogram(normed.ravel(), xs, density=True)[0], "grey",
+               alpha=0.5),
+        Series("line", xs, np.exp(gm.score_samples(xs.reshape(-1, 1))), "k",
+               label="gaussian mixture"),
+        *[Series("axvline", x=m, color="k", style="--", alpha=0.8) for m in means],
+    ], title=f"epoch {epoch};   |mu1 - mu2| = {abs(means[1] - means[0]):.2f}",
+        xlabel="normalized loss", ylabel="probability density", legend=True, grid=True)), m1
+
+
+def plot_epoch_loss_gmm(loss_correct, loss_incorrect, epoch, run_dir) -> float:
+    """Writes ``losses/epoch_loss_dst_{epoch}.jpg``; returns |μ₁−μ₂|, the
+    epoch's M₁."""
+    fig, m1 = epoch_loss_gmm_figure(loss_correct, loss_incorrect, epoch)
+    d = utils.check_folder(os.path.join(run_dir, "losses"))
+    save(fig, os.path.join(d, f"epoch_loss_dst_{epoch}.jpg"))
+    return m1
+
+
 def m1_figure(gmm_m1s) -> Figure:
     """M₁ (GMM mean-separation) trajectory over epochs with the maximum
     marked (plotters.py:189-207)."""
@@ -178,6 +211,6 @@ def m1_figure(gmm_m1s) -> Figure:
 
 
 def plot_m1(gmm_m1s, run_dir) -> str:
-    """→ ``m1.jpg``; ``gmm_m1s``: one |μ₁−μ₂| a epoch, from the JAX
-    package's ``plot_epoch_loss_gmm``."""
+    """→ ``m1.jpg``; ``gmm_m1s``: one |μ₁−μ₂| an epoch, as
+    ``plot_epoch_loss_gmm`` returns them."""
     return save(m1_figure(gmm_m1s), os.path.join(run_dir, "m1.jpg"))

@@ -34,7 +34,8 @@ COLORS = {
     "darkorange": (255, 140, 0), "royalblue": (65, 105, 225),
     "forestgreen": (34, 139, 34), "purple": (128, 0, 128), "red": (255, 0, 0),
     "green": (0, 128, 0), "crimson": (220, 20, 60), "rebeccapurple": (102, 51, 153),
-    "grey": (128, 128, 128), "gray": (128, 128, 128),
+    "grey": (128, 128, 128), "gray": (128, 128, 128), "blue": (0, 0, 255),
+    "darkred": (139, 0, 0), "darkblue": (0, 0, 139),
 }
 GRID = (176, 176, 176)  # matplotlib's grid.color "#b0b0b0"
 DPI = 100
@@ -56,10 +57,16 @@ def rgb(color) -> tuple[int, int, int]:
 class Series:
     """One artist.  ``kind``: "line" (x, y), "axhline" (y), "axvline" (x),
     "bar" (x, heights as y, ``colors`` one a bar), "hist" (bin edges as x,
-    counts as y), "scatter" (x, y) or "image" (``image``: a 2-D array of
+    counts as y), "scatter" (x, y), "annotate" (``text`` at the data point
+    x, y, its box's bottom left there) or "image" (``image``: a 2-D array of
     values drawn through ``cmap`` between ``vrange`` over ``extent`` =
     (left, right, bottom, top) in data coordinates, as matplotlib's
-    ``get_extent``; ``origin`` "upper" puts its first row at the top)."""
+    ``get_extent``; ``origin`` "upper" puts its first row at the top).
+
+    A scatter's ``marker`` is matplotlib's "o" (circle), "P" (plus) or
+    "x", ``size`` its area in points² (``s``), ``hollow`` its
+    ``facecolors="none"`` (the edge alone, in ``color``); without a
+    marker, a filled disk of 6 pixels."""
 
     kind: str
     x: np.ndarray = None
@@ -75,6 +82,10 @@ class Series:
     cmap: Optional[str] = None
     vrange: Optional[tuple] = None
     origin: str = "upper"
+    marker: Optional[str] = None
+    size: float = 36.0  # points², matplotlib's default ``s``
+    hollow: bool = False
+    text: Optional[str] = None
 
 
 @dataclass
@@ -214,6 +225,23 @@ class Canvas:
             self._blend(np.round(y + oy[disk]).astype(np.int64),
                         np.round(x + ox[disk]).astype(np.int64), color, 1.0)
 
+    def glyphs(self, xs, ys, color, marker: str, size: float, hollow: bool = False,
+               alpha: float = 1.0, clip=None) -> None:
+        """One ``marker`` glyph (``marker_cells``) centred on each point
+        (pixels, snapped to the pixel it falls in).  Where k glyphs of the
+        call cover a pixel, it is composited k times at ``alpha``."""
+        xs, ys = np.asarray(xs, float), np.asarray(ys, float)
+        keep = np.isfinite(xs) & np.isfinite(ys)
+        if clip is not None:
+            keep &= (xs >= clip[0]) & (xs <= clip[2]) & (ys >= clip[1]) & (ys <= clip[3])
+        oy, ox = marker_cells(marker, size, hollow)
+        cy = (np.floor(ys[keep]).astype(np.int64)[:, None] + oy[None, :]).ravel()
+        cx = (np.floor(xs[keep]).astype(np.int64)[:, None] + ox[None, :]).ravel()
+        inside = (cx >= 0) & (cx < self.width) & (cy >= 0) & (cy < self.height)
+        flat, count = np.unique(cy[inside] * self.width + cx[inside], return_counts=True)
+        self._blend(flat // self.width, flat % self.width, color,
+                    1 - (1 - np.float32(alpha)) ** count.astype(np.float32))
+
     def image(self, rgb_image: np.ndarray, x0, y0, x1, y1, alpha: float = 1.0,
               clip=None) -> None:
         """An (H, W, 3) image resampled (nearest) onto the box, its first row
@@ -273,6 +301,49 @@ class Canvas:
         with open(path, "wb") as f:
             f.write(data)
         return path
+
+
+# matplotlib's marker outlines, in units of the marker's size (points)
+_PLUS = np.array([(-1, -3), (1, -3), (1, -1), (3, -1), (3, 1), (1, 1), (1, 3), (-1, 3),
+                  (-1, 1), (-3, 1), (-3, -1), (-1, -1), (-1, -3)]) / 6
+_CROSS = np.array([[(-0.5, -0.5), (0.5, 0.5)], [(-0.5, 0.5), (0.5, -0.5)]])
+
+
+def _segment_distance(px, py, segments) -> np.ndarray:
+    """The distance of each point to the nearest of the segments
+    (k, 2, 2)."""
+    a, b = segments[:, 0], segments[:, 1]
+    d = b - a
+    t = np.clip(((px[:, None] - a[:, 0]) * d[:, 0] + (py[:, None] - a[:, 1]) * d[:, 1])
+                / (d ** 2).sum(1), 0, 1)
+    return np.hypot(px[:, None] - a[:, 0] - t * d[:, 0],
+                    py[:, None] - a[:, 1] - t * d[:, 1]).min(1)
+
+
+def marker_cells(marker: str, size: float, hollow: bool = False) -> tuple:
+    """(dy, dx) of the pixels a scatter ``marker`` of area ``size`` points²
+    covers around its centre: the edge a stroke of matplotlib's scatter
+    width wide (1 point; 1.5 for the unfilled "x") and, unless ``hollow``,
+    the inside."""
+    scale = math.sqrt(size) * DPI / 72  # the marker's size in pixels
+    half = (1.5 if marker == "x" else 1.0) * DPI / 72 / 2
+    reach = math.ceil(scale / 2 + half) + 1
+    dy, dx = (g.ravel() for g in np.mgrid[-reach:reach + 1, -reach:reach + 1])
+    px, py = dx / scale, dy / scale  # pixel centres in marker units
+    if marker == "o":
+        radius = np.hypot(px, py)
+        edge = np.abs(radius - 0.5) <= half / scale
+        inside = radius <= 0.5
+    elif marker == "P":
+        edge = _segment_distance(px, py, np.stack([_PLUS[:-1], _PLUS[1:]], 1)) <= half / scale
+        inside = ((np.abs(px) <= 1 / 6) & (np.abs(py) <= 0.5)) | (
+            (np.abs(px) <= 0.5) & (np.abs(py) <= 1 / 6))
+    elif marker == "x":
+        edge, inside = _segment_distance(px, py, _CROSS) <= half / scale, False
+    else:
+        raise ValueError(f"marker {marker!r}: o, P or x")
+    cover = edge if hollow else edge | inside
+    return dy[cover], dx[cover]
 
 
 # --------------------------------------------------------------------------- #
@@ -484,9 +555,14 @@ def draw_axes(canvas: Canvas, ax: Axes, fig_w: int, fig_h: int) -> None:
                 if h > 0:
                     canvas.fill_rect(px(a), py(h), px(b), py(0.0), color, s.alpha, clip=box)
         elif s.kind == "scatter":
-            sx, sy = px(s.x), py(s.y)
-            canvas.markers(np.atleast_1d(sx), np.atleast_1d(sy), color, clip=box)
-            points.append(np.stack([np.atleast_1d(sx), np.atleast_1d(sy)], 1))
+            sx, sy = np.atleast_1d(px(s.x)), np.atleast_1d(py(s.y))
+            if s.marker is None:
+                canvas.markers(sx, sy, color, clip=box)
+            else:
+                canvas.glyphs(sx, sy, color, s.marker, s.size, s.hollow, s.alpha, clip=box)
+            points.append(np.stack([sx, sy], 1))
+        elif s.kind == "annotate":
+            canvas.text(float(px(s.x)), float(py(s.y)), s.text, color, va="bottom")
 
     # the frame, ticks and tick labels
     black = (0, 0, 0)
@@ -542,8 +618,10 @@ def draw_axes(canvas: Canvas, ax: Axes, fig_w: int, fig_h: int) -> None:
             color = rgb(s.color if s.colors is None else s.colors[0])
             if s.kind in ("bar", "hist"):
                 canvas.fill_rect(lx0 + 6, mid - 4, lx0 + 30, mid + 5, color, s.alpha)
-            elif s.kind == "scatter":
+            elif s.kind == "scatter" and s.marker is None:
                 canvas.markers([lx0 + 18], [mid], color)
+            elif s.kind == "scatter":
+                canvas.glyphs([lx0 + 18], [mid], color, s.marker, s.size, s.hollow, s.alpha)
             else:
                 canvas.polyline([lx0 + 6, lx0 + 30], [mid, mid], color, s.width * DPI / 72,
                                 s.style)
