@@ -745,13 +745,15 @@ def grid_kernel(method):
 
 
 def parse_done(line):
-    """(run dir, wall s, steps, launches, host ms per step) of a runner
-    ``done:`` line."""
+    """(run dir, wall s, steps, launches, host ms per step, counts per step)
+    of a runner ``done:`` line."""
     run_dir, rest = line[len("done: "):].split(" in ", 1)
     wall, rest = rest.split(" s, ", 1)
     steps, rest = rest.split(" steps, launches ", 1)
-    launches, host = rest.split(", host ms per step ", 1)
-    return run_dir, float(wall), int(steps), json.loads(launches), json.loads(host)
+    launches, rest = rest.split(", host ms per step ", 1)
+    host, counters = rest.split(", counts per step ", 1)
+    return (run_dir, float(wall), int(steps), json.loads(launches), json.loads(host),
+            json.loads(counters))
 
 
 def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
@@ -810,7 +812,7 @@ def grid_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=T,
             line = [d for d in done if d[0] == run_dir]
             if len(line) != 1:
                 raise AssertionError(f"grid {method}: no single done line")
-            _, wall, steps, launches, _ = line[0]
+            _, wall, steps, launches, _, _ = line[0]
             kernel = grid_kernel(method)
             on_card = device.startswith("cuda")  # the CPU runs the plain versions
             if launches != ({kernel: steps} if kernel and on_card else {}):
@@ -880,7 +882,7 @@ def dependency_phase(np, card, device="cuda", model="resnet9", batch=B, sig_len=
             raise AssertionError(f"runs {kinds}, expected {want}")
         on_card = device.startswith("cuda")
         runs = {}
-        for run_dir, wall, steps, launches, host in done:
+        for run_dir, wall, steps, launches, host, _ in done:
             method = os.path.basename(run_dir).split("_")[2]
             kernel = grid_kernel(method)
             if launches != ({kernel: steps} if kernel and on_card else {}):
@@ -2282,7 +2284,7 @@ def classical_runner_check(card, dats, tmp, model="resnet9", device="cuda"):
     done = [parse_done(ln) for ln in first if ln.startswith("done: ")]
     if len(done) != 1:
         raise AssertionError(f"classical_space runner: {first}")
-    run_dir, wall, n_steps, run_launches, host = done[0]
+    run_dir, wall, n_steps, run_launches, host, _ = done[0]
     n_csv = len(os.listdir(os.path.join(run_dir, "classical_space")))
     want = {"pcgmix_plus_fused": 2 * n_steps} if device == "cuda" else {}
     if run_launches != want or n_csv != n_steps:

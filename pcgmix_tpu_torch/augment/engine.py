@@ -100,7 +100,7 @@ from pcgmix_tpu_torch.models.registry import max_latent_depth
 from pcgmix_tpu_torch.ops.masks import box_mask, freq_mask, time_mask, zero_after
 from pcgmix_tpu_torch.ops.piecewise import segment_blend_pieces
 from pcgmix_tpu_torch.ops.spline import magnitude_warp, time_warp
-from pcgmix_tpu_torch.timing import timed
+from pcgmix_tpu_torch.timing import timed, to_device
 
 MASKED_BLEND_BASES = ("durmixfreqmask", "durmixtimemask", "durmixcutout")  # 2-D
 KEEPDUR_BASES = ("durratiomixup", "durmixmagwarp", "durmixrespscale") + MASKED_BLEND_BASES
@@ -162,6 +162,15 @@ def _sanitize_padded_pieces(pieces: dict) -> None:
     pieces["src_start"] = np.where(bad, 0, np.asarray(pieces["src_start"]))
 
 
+def _on_device(value, device, dtype=None) -> torch.Tensor:
+    """``value`` as a tensor on ``device``: a tensor (a plan array uploaded
+    or staged already) converted there, a host number or array uploaded
+    (:func:`~pcgmix_tpu_torch.timing.to_device`)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    return to_device(torch.as_tensor(value, dtype=dtype), device)
+
+
 def _blend_targets(target_ohe, mix_idx, lam_t):
     """target·λ + target[mix]·(1−λ), λ a scalar or one per row."""
     return _lerp_targets(target_ohe, target_ohe.index_select(0, mix_idx.long()), lam_t)
@@ -169,7 +178,7 @@ def _blend_targets(target_ohe, mix_idx, lam_t):
 
 def _lerp_targets(target_ohe, partner_ohe, lam_t):
     """target·λ + partner·(1−λ), λ a scalar or one per row."""
-    lam_t = torch.as_tensor(lam_t, dtype=target_ohe.dtype, device=target_ohe.device)
+    lam_t = _on_device(lam_t, target_ohe.device, target_ohe.dtype)
     if lam_t.dim() == 0:
         lam_t = lam_t[None]
     if lam_t.dim() == 1:
@@ -190,7 +199,7 @@ def _blend(data, mix_idx, lam):
 
 def _lerp_rows(d1, d2, lam):
     """d1·λ + d2·(1−λ), λ a scalar or one per row."""
-    lam = _per_row(torch.as_tensor(lam, dtype=d1.dtype, device=d1.device), d1)
+    lam = _per_row(_on_device(lam, d1.device, d1.dtype), d1)
     return d1 * lam + d2 * (1.0 - lam)
 
 
@@ -355,6 +364,13 @@ class AugmentEngine:
         ``saliency_bins_fn()`` give the model-in-the-loop methods their
         latents, pretrained saliency maps and live saliency bins; each is
         called only by the methods that need it."""
+        with timed("plan"):
+            return self._plan(step, frames, labels, wavs, latent_fn=latent_fn,
+                              saliency_fn=saliency_fn, saliency_bins_fn=saliency_bins_fn,
+                              _force=_force)
+
+    def _plan(self, step, frames, labels, wavs=None, *, latent_fn=None, saliency_fn=None,
+              saliency_bins_fn=None, _force=False) -> Optional[Plan]:
         spec = self.spec
         if not spec.enabled:
             return None
@@ -831,7 +847,8 @@ class AugmentEngine:
         plan = self.plan(step, frames, labels, wavs, **hooks)
         if plan is not None:
             return plan.arrays, plan
-        return self.identity_arrays(step, frames, labels, wavs, **hooks), None
+        with timed("plan"):
+            return self.identity_arrays(step, frames, labels, wavs, **hooks), None
 
     def gated_arrays(self, arrays: dict, plan) -> dict:
         """A chunk's plan arrays (:meth:`plan_arrays_or_identity`) with, for a
@@ -920,7 +937,7 @@ class AugmentEngine:
             else:
                 v = np.asarray(v)
                 dtype = np.float32 if v.dtype.kind == "f" else np.int32
-                out[k] = torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
+                out[k] = to_device(torch.from_numpy(np.ascontiguousarray(v, dtype)), device)
         return out
 
     def _keepdur_apply(self, data, a):
@@ -946,7 +963,7 @@ class AugmentEngine:
         gang's, whose members gate apart) picks row by row."""
         if "gate" not in a:
             return mixed
-        on = torch.as_tensor(a["gate"], device=data.device) > 0
+        on = _on_device(a["gate"], data.device) > 0
         return (torch.where(_per_row(on, data), mixed[0], data),
                 torch.where(_per_row(on, target_ohe), mixed[1], target_ohe))
 

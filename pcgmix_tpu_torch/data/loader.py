@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from pcgmix_tpu_torch.data.datasets import ArrayDataset
+from pcgmix_tpu_torch.timing import timed
 
 
 def epoch_permutation(n: int, seed: int, step_count: int, parity: str = "torch"):
@@ -47,7 +48,8 @@ class EpochIterator:
     ):
         self.ds = ds
         self.batch_size = batch_size
-        self.order = epoch_permutation(len(ds), seed, step_count, parity)
+        with timed("epoch"):
+            self.order = epoch_permutation(len(ds), seed, step_count, parity)
 
     def __len__(self) -> int:
         return len(self.ds) // self.batch_size  # drop_last=True
@@ -55,14 +57,16 @@ class EpochIterator:
     def __iter__(self) -> Iterator[dict]:
         bs = self.batch_size
         for b in range(len(self)):
-            idx = self.order[b * bs : (b + 1) * bs]
-            yield {
-                "label": self.ds.label[idx],
-                "frames": self.ds.frames[idx],
-                "wav": self.ds.wav[idx],
-                "sig_qual": self.ds.sig_qual[idx],
-                "indices": idx,
-            }
+            with timed("batch"):
+                idx = self.order[b * bs : (b + 1) * bs]
+                batch = {
+                    "label": self.ds.label[idx],
+                    "frames": self.ds.frames[idx],
+                    "wav": self.ds.wav[idx],
+                    "sig_qual": self.ds.sig_qual[idx],
+                    "indices": idx,
+                }
+            yield batch
 
 
 def eval_batches(ds: ArrayDataset, batch_size: int = 1000) -> Iterator[dict]:

@@ -18,8 +18,10 @@ the spectrogram seed grids: ``--dataset "PhysioNet(spec128)"``.  A UMC
 
 It prints ``run: <dir>`` before each run it trains, ``skip (done): <dir>``
 for each finished one, and after each run ``done: <dir>`` with its wall
-time, steps, kernel launches and the host ms per step of the
-model-in-the-loop phases (:mod:`pcgmix_tpu_torch.timing`).
+time, steps, kernel launches, the host ms per step of each span
+(:mod:`pcgmix_tpu_torch.timing`: the training step's and the
+model-in-the-loop phases') and the counters per step: the host-to-device
+copies and their bytes, pageable and pinned.
 
 (salopt…) and (closestknn/closestbins) methods depend on another run, as
 in the JAX runner: a pretrained checkpoint of the same configuration with
@@ -77,7 +79,7 @@ from pcgmix_tpu_torch.exp.dirs import (
 )
 from pcgmix_tpu_torch.exp.robust import SEED_DATA_GRIDS, hyperparameters_robust
 from pcgmix_tpu_torch.ops import launch_counts, reset_launch_counts
-from pcgmix_tpu_torch.timing import host_times, reset_host_times
+from pcgmix_tpu_torch.timing import counts, host_times, reset_host_times
 from pcgmix_tpu_torch.train.loop import (
     TrainConfig,
     resolve_device,
@@ -172,9 +174,10 @@ def run_grid(
             steps = perf["steps"][-1]
             launches = {k: v for k, v in launch_counts().items() if v}
             host = {k: ms / steps for k, (ms, _) in host_times().items()}
+            counters = {k: n / steps for k, n in counts().items()}
             print(f"done: {experiment_dir(cfg)} in {wall:.3f} s, {steps} steps, "
                   f"launches {json.dumps(launches)}, host ms per step "
-                  f"{json.dumps(host)}", flush=True)
+                  f"{json.dumps(host)}, counts per step {json.dumps(counters)}", flush=True)
 
     def salopt_provider_for(cfg):
         """The saliency provider of one (salopt…) config: each checkpoint

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pcgmix_tpu_torch.parallel.dist import current_batch_rows
+from pcgmix_tpu_torch.timing import to_device
 
 _draws = None  # ("record", list) or ("feed", iterator) within a context
 
@@ -71,7 +72,7 @@ def host_uniform(generator: torch.Generator, shape: tuple,
     if _draws is not None:
         _draws[1].append((generator, tuple(shape)))
     u = torch.rand(shape, generator=generator, pin_memory=device.type == "cuda")
-    return u.to(device, non_blocking=True)
+    return to_device(u, device, pinned=True)
 
 
 @contextlib.contextmanager

@@ -115,7 +115,7 @@ from pcgmix_tpu_torch.train.metrics import (
     segment_accuracy,
 )
 from pcgmix_tpu_torch.saliency import training_saliency_bins
-from pcgmix_tpu_torch.timing import timed
+from pcgmix_tpu_torch.timing import timed, to_device
 from pcgmix_tpu_torch.train.steps import (
     MultiStep,
     TrainStep,
@@ -391,7 +391,7 @@ def _lc_step(step: TrainStep, engine: AugmentEngine, plan, batch: dict, epoch: i
                   len(v) == len(losses) else v for k, v in plan.arrays.items()}
         data, target = step.mix_rows(idx, engine.device_arrays(picked, idx.device))
         return step.train_on(data, target, rows, epoch)
-    sel = torch.from_numpy(sel).to(cands.device)
+    sel = to_device(torch.from_numpy(sel), cands.device)
     return step.train_on(cands.index_select(0, sel), cand_t.index_select(0, sel), rows, epoch)
 
 

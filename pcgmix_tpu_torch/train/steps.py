@@ -73,6 +73,7 @@ from pcgmix_tpu_torch.augment.engine import SHARED_ARRAYS, gaussian_noise_draw
 from pcgmix_tpu_torch.models.layers import feed_draws, record_draws
 from pcgmix_tpu_torch.ops.build import capturing, count_replay
 from pcgmix_tpu_torch.parallel import DataParallel, batch_rows
+from pcgmix_tpu_torch.timing import timed, to_device
 from pcgmix_tpu_torch.train.losses import selc_share_rows, selc_update
 
 
@@ -160,7 +161,8 @@ class TrainStep:
 
     def upload(self, indices) -> torch.Tensor:
         """Host row indices as an int64 tensor on the corpus' device."""
-        return torch.from_numpy(np.asarray(indices).astype("int64")).to(self.train_data.device)
+        return to_device(torch.from_numpy(np.asarray(indices).astype("int64")),
+                         self.train_data.device)
 
     def _gather(self, rows: torch.Tensor):
         """(data, one-hot target) of corpus rows ``rows`` (a device tensor)."""
@@ -182,12 +184,14 @@ class TrainStep:
         if not sharded:
             data, target = self._gather(idx)
             if plan is not None:
-                data, target = self.engine.apply(data, target, plan)
+                with timed("apply"):
+                    data, target = self.engine.apply(data, target, plan)
             return idx, data, target
         rows = idx[self.dp.block(len(idx))]
         if plan is None:
             return (rows, *self._gather(rows))
-        return (rows, *self.mix_rows(idx, plan))
+        with timed("apply"):
+            return (rows, *self.mix_rows(idx, plan))
 
     def mix_rows(self, idx: torch.Tensor, plan: dict):
         """(data, one-hot target) of this rank's block of a plan's output
@@ -234,7 +238,8 @@ class TrainStep:
         else:
             latent = self.model(data, depth=depth, part="first")
         if idx is None:
-            latent, target = self.engine.apply(latent, target, plan_arrays)
+            with timed("apply"):
+                latent, target = self.engine.apply(latent, target, plan_arrays)
         else:
             n = len(idx)
             block = self._block_plan(plan_arrays, n, latent)
@@ -250,7 +255,8 @@ class TrainStep:
                 return cache[0].index_select(0, pos), cache[1].index_select(0, pos)
 
             mixed = latent, target
-            latent, target = self._mix_block(fetch, lambda: mixed, block)
+            with timed("apply"):
+                latent, target = self._mix_block(fetch, lambda: mixed, block)
         return self.model(latent, depth=depth, part="second"), target
 
     def batch(self, indices):
@@ -263,19 +269,23 @@ class TrainStep:
         parallelism, on rows that divide over the ranks, ``data`` and
         ``target`` are this rank's block of them (:meth:`mix_rows`) and
         ``indices`` all of theirs."""
-        rows = torch.from_numpy(np.asarray(indices, np.int64)).to(data.device)
-        n = len(rows)
-        sharded = self.dp is not None and self.dp.divides(n)
-        if sharded:
-            rows = rows[self.dp.block(n)]
-        return self._update(rows, data, target, None, epoch, None, n, sharded)
+        with timed("train_step"):
+            with timed("upload"):
+                rows = to_device(torch.from_numpy(np.asarray(indices, np.int64)), data.device)
+            n = len(rows)
+            sharded = self.dp is not None and self.dp.divides(n)
+            if sharded:
+                rows = rows[self.dp.block(n)]
+            return self._update(rows, data, target, None, epoch, None, n, sharded)
 
     def __call__(self, indices, plan_arrays: Optional[dict], epoch: int,
                  latent_depth: Optional[int] = None) -> dict:
-        idx = self.upload(indices)
-        plan = (None if plan_arrays is None
-                else self.engine.device_arrays(plan_arrays, idx.device))
-        return self.run(idx, plan, epoch, latent_depth)
+        with timed("train_step"):
+            with timed("upload"):
+                idx = self.upload(indices)
+                plan = (None if plan_arrays is None
+                        else self.engine.device_arrays(plan_arrays, idx.device))
+            return self.run(idx, plan, epoch, latent_depth)
 
     def run(self, idx: torch.Tensor, plan: Optional[dict], epoch: int,
             latent_depth: Optional[int] = None,
@@ -301,36 +311,40 @@ class TrainStep:
         data = self.model_input(data)
         self.model.train()
         rows_held = self.dp.block(n) if sharded else slice(0, n)
-        with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):
-            if latent:
-                out, target = self._split_forward(data, target, latent_plan, latent_depth,
-                                                  idx if sharded else None)
+        with timed("forward"):
+            with batch_rows(n, rows_held, replicated=self.dp is not None and not sharded):
+                if latent:
+                    out, target = self._split_forward(data, target, latent_plan,
+                                                      latent_depth, idx if sharded else None)
+                else:
+                    out = self.model(data)
+            loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)
+        with timed("backward"):
+            self.opt.zero_grad(set_to_none=True)
+            loss.backward()
+            if latent and self.engine.spec.manifold:
+                # the JAX stop_gradient gives the first part zero gradients,
+                # and Adam still moves those parameters by weight decay and
+                # momentum; torch's Adam would skip a parameter whose grad
+                # is None
+                for p in self.model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+        with timed("update"):
+            if self.dp is not None:
+                # replicated: the gradients are equal already, and averaging
+                # them keeps the replicas equal where a kernel is not
+                # deterministic
+                self.dp.average_gradients(self.model.parameters())
+            if self.grad_clip:
+                nn.utils.clip_grad_value_(self.model.parameters(), self.grad_clip)
+            if scalars is not None:
+                self.fed.apply(scalars)
             else:
-                out = self.model(data)
-        loss = selc_update(self.soft_labels, out, target, rows, epoch, self.selc_es)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if latent and self.engine.spec.manifold:
-            # the JAX stop_gradient gives the first part zero gradients, and
-            # Adam still moves those parameters by weight decay and momentum;
-            # torch's Adam would skip a parameter whose grad is None
-            for p in self.model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        if self.dp is not None:
-            # replicated: the gradients are equal already, and averaging
-            # them keeps the replicas equal where a kernel is not
-            # deterministic
-            self.dp.average_gradients(self.model.parameters())
-        if self.grad_clip:
-            nn.utils.clip_grad_value_(self.model.parameters(), self.grad_clip)
-        if scalars is not None:
-            self.fed.apply(scalars)
-        else:
-            self.last_lr = self.opt.param_groups[0]["lr"]
-            self.opt.step()
-            if self.sched is not None:
-                self.sched.step()
+                self.last_lr = self.opt.param_groups[0]["lr"]
+                self.opt.step()
+                if self.sched is not None:
+                    self.sched.step()
         loss, preds, target = loss.detach(), out.detach().argmax(dim=1), target.argmax(dim=1)
         if sharded:
             if epoch > self.selc_es:
@@ -547,28 +561,30 @@ class MultiStep:
         return t.view(getattr(torch, np.dtype(dtype).name)).view(self.k, *shape)
 
     def _stage(self, chunk: list, lrs: list) -> None:
-        fields = self._fields(chunk, lrs)
-        layout = {name: (a.dtype, a.shape[1:]) for name, a in fields.items()}
-        if layout != self._layout:
-            self._allocate(layout)
-        i = self._flip
-        if self._events[i] is not None:
-            self._events[i].synchronize()  # its last upload has left the buffer
-        host = self._host[i]
-        for name, a in fields.items():
-            self._view(host, name)[:len(a)] = torch.from_numpy(a)
-        if self.graph:
-            self._dev.copy_(host, non_blocking=True)
-            self._events[i] = torch.cuda.Event()
-            self._events[i].record()
-            self._flip = 1 - i
-        seeds = [a["noise_seed"] for _, a in chunk if "noise_seed" in a]
-        if seeds:
-            shape = (len(chunk[0][0]), *self.step.train_data.shape[1:])
-            if self.noise is None:
-                self.noise = torch.zeros((self.k, *shape), device=self.device)
-            for j, seed in enumerate(seeds):
-                self.noise[j].copy_(gaussian_noise_draw(seed, shape, self.device))
+        with timed("stage"):
+            fields = self._fields(chunk, lrs)
+            layout = {name: (a.dtype, a.shape[1:]) for name, a in fields.items()}
+            if layout != self._layout:
+                self._allocate(layout)
+            i = self._flip
+            if self._events[i] is not None:
+                self._events[i].synchronize()  # its last upload has left the buffer
+            host = self._host[i]
+            for name, a in fields.items():
+                self._view(host, name)[:len(a)] = torch.from_numpy(a)
+            # on the CPU the device buffer is the host's: counted, copied onto itself
+            to_device(host, self.device, pinned=True, out=self._dev)
+            if self.graph:
+                self._events[i] = torch.cuda.Event()
+                self._events[i].record()
+                self._flip = 1 - i
+            seeds = [a["noise_seed"] for _, a in chunk if "noise_seed" in a]
+            if seeds:
+                shape = (len(chunk[0][0]), *self.step.train_data.shape[1:])
+                if self.noise is None:
+                    self.noise = torch.zeros((self.k, *shape), device=self.device)
+                for j, seed in enumerate(seeds):
+                    self.noise[j].copy_(gaussian_noise_draw(seed, shape, self.device))
 
     # -- execution --------------------------------------------------------
     def _run_step(self, j: int, epoch: int) -> None:
@@ -590,12 +606,13 @@ class MultiStep:
 
     def _eager(self, r: int, epoch: int, lrs: list) -> None:
         for j in range(r):
-            if self._draws is None:  # the run's first step: log its host draws
-                with record_draws() as log:
+            with timed("train_step"):
+                if self._draws is None:  # the run's first step: log its host draws
+                    with record_draws() as log:
+                        self._run_step(j, epoch)
+                    self._draws = log
+                else:
                     self._run_step(j, epoch)
-                self._draws = log
-            else:
-                self._run_step(j, epoch)
             if not self.graph:
                 lrs.append(self.step.last_lr)
 
@@ -684,7 +701,8 @@ class MultiStep:
             self._stage(chunk, lrs)
         if graphed:
             graph, launches = self._graphs[side]
-            graph.replay()
+            with timed("replay"):
+                graph.replay()
             count_replay(launches)
         else:
             self._eager(r, epoch, lrs)

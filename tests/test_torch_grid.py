@@ -7,6 +7,7 @@ wait for later slices refused."""
 
 import copy
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -103,7 +104,8 @@ def test_the_results_cli_reads_the_grid(grid, capsys):
 def test_runner_flags_reach_the_runs(grid, tmp_path, monkeypatch, capsys):
     """--checkpoint-every 1 writes each run's checkpoints/, and with
     --steps-per-dispatch 2 and --no-device-cache the runs train in chunks
-    of two steps, uploading their corpus anew."""
+    of two steps, uploading their corpus anew; the done line counts the
+    chunks' staged (pinned) copies per step."""
     from pcgmix_tpu_torch.train import loop
 
     seen = []
@@ -119,7 +121,9 @@ def test_runner_flags_reach_the_runs(grid, tmp_path, monkeypatch, capsys):
     assert (cfg.checkpoint_every, cfg.steps_per_dispatch, cfg.device_cache) == (1, 2, False)
     ckpts = sorted(os.listdir(os.path.join(experiment_dir(cfg), "checkpoints")))
     assert [f for f in ckpts if f.startswith("ckpt_")] and len(ckpts) == 4
-    capsys.readouterr()
+    done = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("done: ")]
+    counters = json.loads(done[0].split(", counts per step ", 1)[1])
+    assert counters["h2d_copies.pinned"] > 0 and counters["h2d_bytes.pinned"] > 0
 
 
 @pytest.mark.parametrize("option", [

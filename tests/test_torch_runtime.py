@@ -96,7 +96,11 @@ def test_profile_trace_and_variability_are_written(dataset, tmp_path):
     perf = train_model(cfg, dataset)
     traces = os.listdir(prof)
     assert traces == ["trace_epoch2.json"]
-    assert "aten::" in (prof / traces[0]).read_text()
+    text = (prof / traces[0]).read_text()
+    assert "aten::" in text
+    for span in ("epoch", "batch", "plan", "train_step", "upload", "copy", "apply", "forward",
+                 "backward", "update"):
+        assert f'"pcgmix.{span}"' in text, span
     with open(os.path.join(experiment_dir(cfg), "variability.pkl"), "rb") as f:
         curves = pickle.load(f)
     assert sorted(curves) == ["base", "pairs", "steps", "unique"]  # plotters.py:113-117
