@@ -262,6 +262,12 @@ def _mask_2d(data, a):
     return data
 
 
+def staged_dtype(a: np.ndarray):
+    """The dtype a plan array goes to the device in: float32 for a floating
+    array, int32 for any other."""
+    return np.float32 if a.dtype.kind == "f" else np.int32
+
+
 def gaussian_noise_draw(seed: int, shape, device, dtype=torch.float32) -> torch.Tensor:
     """The N(0, 1) noise of a ``gaussiannoise`` step: from a generator on
     ``device`` seeded with the plan's ``noise_seed``."""
@@ -936,8 +942,8 @@ class AugmentEngine:
                 out[k] = int(v)
             else:
                 v = np.asarray(v)
-                dtype = np.float32 if v.dtype.kind == "f" else np.int32
-                out[k] = to_device(torch.from_numpy(np.ascontiguousarray(v, dtype)), device)
+                out[k] = to_device(torch.from_numpy(np.ascontiguousarray(v, staged_dtype(v))),
+                                   device)
         return out
 
     def _keepdur_apply(self, data, a):

@@ -7,8 +7,10 @@ kernels' launch counts are read and reset.  The spans sit where a training
 step's work happens: ``epoch`` (the loader's reshuffle), ``batch``,
 ``plan``, ``train_step`` with its children ``upload``, ``apply``,
 ``forward``, ``backward`` and ``update``, ``stage`` and ``replay`` (a chunk
-of steps staged and replayed as a CUDA graph), and ``copy`` around every
-host-to-device transfer of the step's path (:func:`to_device`).  The
+of steps staged and replayed as a CUDA graph), ``slot_wait`` (the host
+waiting for a staging slot's last upload, ``train/steps.py::Staging``), and
+``copy`` around every host-to-device transfer of the step's path
+(:func:`to_device`).  The
 model-in-the-loop phases (a saliency pass, the (salopt…) search, a latent
 embedding and its TSP pairing, the candidate forward and ``lc_select``)
 and the mel build have spans of their own.
@@ -34,7 +36,8 @@ and, under a profiler, to the innermost open span.
 bytes as ``h2d_bytes.<kind>``: ``pageable`` for a blocking copy, which waits
 for the device's stream to drain, ``pinned`` for a non-blocking copy from
 pinned memory.  The count goes by the call, so on the CPU, where a
-transfer is no copy, the count is the card's.
+transfer is no copy, the count is the card's.  ``h2d_slot_waits`` counts
+the stagings that found their slot's last upload unfinished.
 
 Spans run on the host alone: they do not sync the device or allocate
 tensors, and a CUDA graph's capture passes through them.

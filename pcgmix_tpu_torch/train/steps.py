@@ -69,11 +69,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcgmix_tpu_torch.augment.engine import SHARED_ARRAYS, gaussian_noise_draw
+from pcgmix_tpu_torch.augment.engine import SHARED_ARRAYS, gaussian_noise_draw, staged_dtype
 from pcgmix_tpu_torch.models.layers import feed_draws, record_draws
 from pcgmix_tpu_torch.ops.build import capturing, count_replay
 from pcgmix_tpu_torch.parallel import DataParallel, batch_rows
-from pcgmix_tpu_torch.timing import timed, to_device
+from pcgmix_tpu_torch.timing import count, timed, to_device
 from pcgmix_tpu_torch.train.losses import selc_share_rows, selc_update
 
 
@@ -116,6 +116,85 @@ def eval_mode(module: nn.Module):
             m.training = training
 
 
+class Staging:
+    """Host arrays uploaded to ``device`` in one non-blocking copy.
+
+    Every field of a layout (field → (numpy dtype, shape)) sits 16-byte
+    aligned in one host buffer, pinned on a card, of a ring of two;
+    :meth:`stage` writes the fields into the next slot and copies it into
+    one device buffer, whose views (:attr:`views`) the steps read.  One
+    device buffer is enough: the next copy is queued behind the kernels
+    that read the last.  Before the host writes a slot it waits, in a
+    ``slot_wait`` span, for the event recorded after that slot's last copy,
+    and counts ``h2d_slot_waits`` 1 where that copy had not finished (0
+    where it had): how often the host ran ahead far enough to meet the
+    device.  The buffers grow to a layout that needs more bytes and never
+    shrink.  On the CPU there is one slot, and the host buffer is the
+    device buffer."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pinned = self.device.type == "cuda"
+        self.slots = 2 if self.pinned else 1
+        self.layout: Optional[dict] = None
+        self.views: dict = {}  # field → its view of the device buffer
+        self.host: list = []  # the ring's host buffers
+        self.dev: Optional[torch.Tensor] = None
+        self._events: list = []
+        self._flip = 0
+        self._nbytes = 0
+        self._offsets: dict = {}
+        self._host_views: list = []
+
+    def lay_out(self, layout: dict) -> None:
+        """Place ``layout``'s fields; the buffers grow where it needs more
+        bytes than they hold."""
+        offsets, total = {}, 0
+        for name, (dtype, shape) in layout.items():
+            offsets[name] = total
+            total += -(-int(np.prod(shape)) * np.dtype(dtype).itemsize // 16) * 16
+        if not self.host or total > self.host[0].numel():
+            self.host = [torch.empty(total, dtype=torch.uint8, pin_memory=self.pinned)
+                         for _ in range(self.slots)]
+            self._events = [None] * self.slots
+            self.dev = (torch.empty(total, dtype=torch.uint8, device=self.device)
+                        if self.pinned else self.host[0])
+        self.layout, self._offsets, self._nbytes = layout, offsets, total
+        self._host_views = [{name: self._view(h, name) for name in layout} for h in self.host]
+        self.views = {name: self._view(self.dev, name) for name in layout}
+
+    def _view(self, buf: torch.Tensor, name: str) -> torch.Tensor:
+        """Field ``name`` of a buffer, in its dtype and shape."""
+        dtype, shape = self.layout[name]
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        t = buf[self._offsets[name]:self._offsets[name] + n]
+        return t.view(getattr(torch, np.dtype(dtype).name)).view(*shape)
+
+    def stage(self, fields: dict) -> dict:
+        """Write ``fields`` (field → host array: the field whole, or its
+        leading rows) into the next slot and upload it; returns
+        :attr:`views`."""
+        i = self._flip
+        event = self._events[i]
+        if event is not None:
+            with timed("slot_wait"):  # until the slot's last copy has left it
+                busy = not event.query()
+                count("h2d_slot_waits", int(busy))
+                if busy:
+                    event.synchronize()
+        host = self._host_views[i]
+        for name, a in fields.items():
+            host[name][:len(a)].copy_(torch.from_numpy(a))
+        n = self._nbytes
+        # on the CPU the device buffer is the host's: counted, copied onto itself
+        to_device(self.host[i][:n], self.device, pinned=True, out=self.dev[:n])
+        if self.pinned:
+            self._events[i] = torch.cuda.Event()
+            self._events[i].record()
+            self._flip = (i + 1) % self.slots
+        return self.views
+
+
 class TrainStep:
     """A train step over a corpus held on the device.
 
@@ -151,6 +230,7 @@ class TrainStep:
         self.model_channels = model_channels
         self.fed: Optional[ScalarFedUpdate] = None
         self.last_lr: Optional[float] = None  # the learning rate of the last eager update
+        self._staging: Optional[Staging] = None  # :meth:`__call__`'s uploads
 
     def model_input(self, data: torch.Tensor) -> torch.Tensor:
         """The channels of ``data`` the model takes: the first
@@ -278,13 +358,43 @@ class TrainStep:
                 rows = rows[self.dp.block(n)]
             return self._update(rows, data, target, None, epoch, None, n, sharded)
 
+    def stage(self, indices, plan_arrays: Optional[dict]):
+        """(row indices, plan) of a step on the corpus' device, from host
+        indices and a host plan: the indices (int64) and every plan array
+        (:func:`staged_dtype`) staged in one slot of :class:`Staging` and
+        uploaded with one non-blocking copy; λ stays a Python float, the
+        noise seed an int, and a tensor passes as it is, as
+        :meth:`AugmentEngine.device_arrays` leaves them.  The views are
+        valid until the next call's upload, which the device runs after
+        this step's kernels."""
+        fields = {"idx": np.ascontiguousarray(indices, np.int64)}
+        kept = {}  # the plan's keys in order; None: staged
+        for k, v in (plan_arrays or {}).items():
+            if isinstance(v, torch.Tensor):
+                kept[k] = v
+            elif k == "lam" and np.ndim(v) == 0:
+                kept[k] = float(v)
+            elif k == "noise_seed":
+                kept[k] = int(v)
+            else:
+                v = np.asarray(v)
+                fields["plan:" + k] = np.ascontiguousarray(v, staged_dtype(v))
+                kept[k] = None
+        if self._staging is None:
+            self._staging = Staging(self.train_data.device)
+        layout = {name: (a.dtype, a.shape) for name, a in fields.items()}
+        if layout != self._staging.layout:
+            self._staging.lay_out(layout)
+        views = self._staging.stage(fields)
+        plan = None if plan_arrays is None else {
+            k: views["plan:" + k] if v is None else v for k, v in kept.items()}
+        return views["idx"], plan
+
     def __call__(self, indices, plan_arrays: Optional[dict], epoch: int,
                  latent_depth: Optional[int] = None) -> dict:
         with timed("train_step"):
             with timed("upload"):
-                idx = self.upload(indices)
-                plan = (None if plan_arrays is None
-                        else self.engine.device_arrays(plan_arrays, idx.device))
+                idx, plan = self.stage(indices, plan_arrays)
             return self.run(idx, plan, epoch, latent_depth)
 
     def run(self, idx: torch.Tensor, plan: Optional[dict], epoch: int,
@@ -495,12 +605,9 @@ class MultiStep:
         self.graph = self.device.type == "cuda"
         if self.graph and step.fed is None:  # a gang's step brings its own
             step.fed = ScalarFedUpdate(step.opt)
-        self._layout: Optional[dict] = None  # field → (np dtype, per-step shape)
+        self._staging = Staging(self.device)  # the chunk's fields, (K, …) each
         self._draws: Optional[list] = None  # the host draws of one step
         self._graphs: dict = {}  # SELC side → (graph, launches it recorded)
-        self._host: list = []
-        self._events: list = []
-        self._flip = 0
         self._stream = torch.cuda.Stream(self.device) if self.graph else None
         self.out: Optional[dict] = None  # the K steps' output slots
         self.noise: Optional[torch.Tensor] = None  # gaussiannoise's draws (K, B, …)
@@ -512,7 +619,7 @@ class MultiStep:
         for name, v in chunk[0][1].items():
             if name == "noise_seed":
                 continue
-            dtype = np.float32 if np.asarray(v).dtype.kind == "f" else np.int32
+            dtype = staged_dtype(np.asarray(v))
             try:
                 fields["plan:" + name] = np.stack([np.asarray(a[name], dtype)
                                                    for _, a in chunk])
@@ -534,50 +641,16 @@ class MultiStep:
                 fields[f"draw:{j}"] = np.stack([d[j] for d in drawn])
         return fields
 
-    def _allocate(self, layout: dict) -> None:
-        """Host and device buffers for ``layout``, every field 16-byte
-        aligned, and the device views of each field."""
-        if self._graphs:
-            raise ValueError("the staged plan arrays changed layout after a CUDA graph "
-                             "was captured; run with steps_per_dispatch=1")
-        offsets, total = {}, 0
-        for name, (dtype, shape) in layout.items():
-            offsets[name] = total
-            total += -(-self.k * int(np.prod(shape)) * np.dtype(dtype).itemsize // 16) * 16
-        pin = self.graph
-        self._host = [torch.empty(total, dtype=torch.uint8, pin_memory=pin)
-                      for _ in range(2 if self.graph else 1)]
-        self._events = [None] * len(self._host)
-        self._dev = (torch.empty(total, dtype=torch.uint8, device=self.device)
-                     if self.graph else self._host[0])
-        self._layout, self._offsets = layout, offsets
-        self.views = {name: self._view(self._dev, name) for name in layout}
-
-    def _view(self, buf: torch.Tensor, name: str) -> torch.Tensor:
-        """Field ``name`` of a staging buffer as a (K, …) tensor."""
-        dtype, shape = self._layout[name]
-        n = self.k * int(np.prod(shape)) * np.dtype(dtype).itemsize
-        t = buf[self._offsets[name]:self._offsets[name] + n]
-        return t.view(getattr(torch, np.dtype(dtype).name)).view(self.k, *shape)
-
     def _stage(self, chunk: list, lrs: list) -> None:
         with timed("stage"):
             fields = self._fields(chunk, lrs)
-            layout = {name: (a.dtype, a.shape[1:]) for name, a in fields.items()}
-            if layout != self._layout:
-                self._allocate(layout)
-            i = self._flip
-            if self._events[i] is not None:
-                self._events[i].synchronize()  # its last upload has left the buffer
-            host = self._host[i]
-            for name, a in fields.items():
-                self._view(host, name)[:len(a)] = torch.from_numpy(a)
-            # on the CPU the device buffer is the host's: counted, copied onto itself
-            to_device(host, self.device, pinned=True, out=self._dev)
-            if self.graph:
-                self._events[i] = torch.cuda.Event()
-                self._events[i].record()
-                self._flip = 1 - i
+            layout = {name: (a.dtype, (self.k, *a.shape[1:])) for name, a in fields.items()}
+            if layout != self._staging.layout:
+                if self._graphs:
+                    raise ValueError("the staged plan arrays changed layout after a CUDA "
+                                     "graph was captured; run with steps_per_dispatch=1")
+                self._staging.lay_out(layout)
+            self.views = self._staging.stage(fields)
             seeds = [a["noise_seed"] for _, a in chunk if "noise_seed" in a]
             if seeds:
                 shape = (len(chunk[0][0]), *self.step.train_data.shape[1:])

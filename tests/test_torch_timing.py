@@ -146,8 +146,8 @@ def _step(method, n=128, batch=64, device="cpu"):
     return step, engine, ds
 
 
-@pytest.mark.parametrize("method, copies", [("durmixmagwarp(0.2,4)", 8), ("durratiomixup", 7)])
-def test_an_eager_step_counts_its_transfers(method, copies):
+@pytest.mark.parametrize("method, fields", [("durmixmagwarp(0.2,4)", 8), ("durratiomixup", 7)])
+def test_an_eager_step_counts_its_transfers(method, fields):
     step, engine, ds = _step(method)
     with profile(activities=[ProfilerActivity.CPU]):
         batches = iter(EpochIterator(ds, 64, 1, 0))
@@ -155,22 +155,26 @@ def test_an_eager_step_counts_its_transfers(method, copies):
             b = next(batches)
             plan = engine.plan(s, b["frames"], b["label"], b["wav"])
             step(b["indices"], plan.arrays, 1)
-    # the row indices and each plan array but λ (a float), every one pageable
-    assert timing.counts()["h2d_copies.pageable"] == 2 * copies
-    assert "h2d_copies.pinned" not in timing.counts()
+    # the row indices and each plan array but λ (a float) staged in one
+    # buffer: one pinned copy a step, no pageable one
+    assert len(step._staging.layout) == fields
+    assert timing.counts()["h2d_copies.pinned"] == 2
+    assert "h2d_copies.pageable" not in timing.counts()
     recs = timing.spans()
     by_id = {r.id: r for r in recs}
     assert [r.name for r in recs if r.parent == -1] == ["epoch", "batch", "plan",
                                                         "train_step"] + ["batch", "plan",
                                                                          "train_step"]
-    copies_seen = [r for r in recs if r.counts.get("h2d_copies.pageable")]
-    assert len(copies_seen) == 2 * copies
+    copies_seen = [r for r in recs if r.counts.get("h2d_copies.pinned")]
+    assert len(copies_seen) == 2
     for r in copies_seen:
-        assert r.name == "copy" and r.counts["h2d_copies.pageable"] == 1
+        assert r.name == "copy" and r.counts["h2d_copies.pinned"] == 1
         assert by_id[r.parent].name == "upload"
         assert by_id[by_id[r.parent].parent].name == "train_step"
     kids = {r.name for r in recs if r.parent != -1 and by_id[r.parent].name == "train_step"}
     assert kids == {"upload", "apply", "forward", "backward", "update"}
+    assert "copy" in {r.name for r in recs if r.parent != -1
+                      and by_id[r.parent].name == "upload"}
 
 
 def test_multi_step_counts_its_staged_copies_as_pinned():
