@@ -1,8 +1,11 @@
 """Operations and bytes: the yardstick's arithmetic.
 
-Everything here is computed from a configuration's layer table
-(``configs/<name>.json``) or from a mix kernel's shapes and plan, never
-from the program, so a later change to the program cannot move it.
+Everything here is computed from a configuration (``configs/<name>.json``)
+or from a mix kernel's shapes and plan, never from the program, so a later
+change to the program cannot move it.  A model's operations are its
+family's count (``reference/models/<family>.py::forward_macs``); the
+convolution passes, which only the convolution cells read, come from the
+configuration's layer table.
 
 Convolutions count 2 operations a multiply-add.  A training step runs each
 convolution forward, for its weight gradient and, where its input needs
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import math
 
+from benchmark.reference import load
+
 FLOAT_BYTES = 4
 PIECE_ARRAYS = 5  # dst, src, len, sel, alpha
 INDEX_BYTES = 4  # int32 partner index an output row
@@ -37,10 +42,9 @@ def conv_macs(layer: dict) -> int:
 
 
 def forward_macs(config: dict) -> int:
-    """Multiply-adds of the model's forward for one sample: every
-    convolution and the linear head."""
-    lin = config["linear"]
-    return sum(conv_macs(l) for l in config["layers"]) + lin["in"] * lin["out"]
+    """Multiply-adds of the model's forward for one sample, as the
+    configuration's model family counts them."""
+    return load("models", config["family"]).forward_macs(config)
 
 
 def model_flops_per_sample(config: dict) -> int:

@@ -4,8 +4,9 @@ and returns a callable that mends what it patched.  The fault tests plant
 them at a small size on the CPU, and ``calibrate.py`` on the card at a
 cell's own size, where they give the upper readings of the limits.
 
-- ``frozen``: the optimizer's step does nothing, so a step returns its
-  state unchanged.
+- ``frozen``: the optimizer's update does nothing, the eager step's
+  (``opt.step``) and the one a CUDA graph replays
+  (``ScalarFedUpdate.apply``), so a step returns its state unchanged.
 - ``half_batch``: the loss is the mean over the first half of the batch,
   the other half left out.
 - ``altered_mix``: the mix kernel's output for the batch's first row is the
@@ -18,8 +19,15 @@ from __future__ import annotations
 
 
 def frozen(st):
+    from pcgmix_tpu_torch.train import steps
+
     st.opt.step = lambda *args, **kwargs: None
-    return lambda: None
+    original = steps.ScalarFedUpdate.apply  # the update a CUDA graph replays
+    steps.ScalarFedUpdate.apply = lambda self, s: None
+
+    def mend():
+        steps.ScalarFedUpdate.apply = original
+    return mend
 
 
 def half_batch(st):

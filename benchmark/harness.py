@@ -7,8 +7,12 @@ configuration (``configs/<config>.json``) and a traffic mix
 the program and owns its dispatch (``routes/<route>.py``) and the
 kernel launches a step has to make (``launches``), and the cell's limits
 are ``limits/<cell>.json``.  Per-layer metrics are read by
-``metrics/<metric>.py``.  Every one of these is found by name, so a later
-cell, route or metric is a file of its own.
+``metrics/<metric>.py``.  A configuration's ``family`` names its model
+family, ``reference/models/<family>.py``, which gives the reference's
+``forward``, the first weights' ``param_specs`` and the operations'
+``forward_macs`` (see :mod:`benchmark.reference`): a new model is a
+configuration file and a family file.  Every one of these is found by
+name, so a later cell, route, model or metric is a file of its own.
 
 Set-up builds the port's training state as ``train_model`` builds it
 (``strict_fp32``, ``build_splits``, ``build_model`` + ``seeded_init``,

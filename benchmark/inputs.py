@@ -1,5 +1,6 @@
 """The benchmark's inputs, made from ``--seed``: the corpus (a dataset dict
-in the port's contract) and the model's first weights.
+in the port's contract) and the model's first weights, as the
+configuration's model family declares them (:func:`param_specs`).
 
 The corpus follows the PhysioNet dataset-dict contract: ``train`` and
 ``test`` splits, each ``{'data', 'label', 'frames', 'wav', 'sig_qual'}``.
@@ -23,6 +24,8 @@ import math
 
 import numpy as np
 import torch
+
+from benchmark.reference import load
 
 BANDS = ("25-45", "45-80", "80-200", "200-400")  # the model's four band channels
 BAND_HZ = (35.0, 62.0, 140.0, 300.0)  # a tone inside each band
@@ -136,38 +139,43 @@ def train_rows(dataset: dict, config: dict) -> np.ndarray:
 
 
 def param_specs(config: dict) -> list:
-    """(name, shape, fan_in) of every parameter in the model's order;
-    fan_in None: a BatchNorm scale (1) or shift (0)."""
-    specs = []
-    for l in config["layers"]:
-        k = list(l["kernel"])
-        fan_in = l["in"] * math.prod(k)
-        specs += [(f"{l['conv']}.weight", (l["out"], l["in"], *k), fan_in),
-                  (f"{l['conv']}.bias", (l["out"],), fan_in),
-                  (f"{l['bn']}.weight", (l["out"],), None),
-                  (f"{l['bn']}.bias", (l["out"],), None)]
-    lin = config["linear"]
-    specs += [(f"{lin['name']}.weight", (lin["out"], lin["in"]), lin["in"]),
-              (f"{lin['name']}.bias", (lin["out"],), lin["in"])]
-    return specs
+    """(name, shape, init) of every parameter in the model's order, as the
+    configuration's model family gives them; ``init`` is ``("uniform",
+    fan_in)`` for U(±1/√fan_in) (PyTorch's default), ``("normal", std)`` or
+    ``("fill", value)`` (``reference/models/<family>.py::param_specs``)."""
+    return load("models", config["family"]).param_specs(config)
 
 
 def make_weights(config: dict, seed: int, device) -> dict:
-    """First weights, {name: float32 tensor on ``device``}: convolution and
-    linear weights and biases U(±1/√fan_in) (PyTorch's default init), drawn
-    in one call; BatchNorm scale 1 and shift 0."""
+    """First weights, {name: float32 tensor on ``device``}, by
+    :func:`param_specs`: the uniform parameters drawn in one call, in the
+    specs' order, from the weights' stream; the normal ones in one call
+    from a stream of their own; the fills as written."""
     specs = param_specs(config)
-    drawn = sum(math.prod(s) for _, s, fan in specs if fan is not None)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(stream_seed(seed, STREAMS["weights"]))
-    u = torch.rand(drawn, generator=gen, device=device)
-    out, at = {}, 0
-    for name, shape, fan_in in specs:
-        if fan_in is None:
-            fill = 1.0 if name.endswith(".weight") else 0.0
-            out[name] = torch.full(shape, fill, device=device)
+    for name, _, (kind, _) in specs:
+        if kind not in ("uniform", "normal", "fill"):
+            raise ValueError(f"{name}: no init {kind!r}")
+
+    def draw(kind, fn, part):
+        n = sum(math.prod(s) for _, s, (k, _) in specs if k == kind)
+        if not n:
+            return None
+        gen = torch.Generator(device=device)
+        gen.manual_seed(stream_seed(seed, STREAMS["weights"], part))
+        return fn(n, generator=gen, device=device)
+
+    drawn = {"uniform": draw("uniform", torch.rand, 0), "normal": draw("normal", torch.randn, 1)}
+    at = {"uniform": 0, "normal": 0}
+    out = {}
+    for name, shape, (kind, arg) in specs:
+        if kind == "fill":
+            out[name] = torch.full(shape, float(arg), device=device)
             continue
-        n = math.prod(shape)
-        out[name] = ((2.0 * u[at:at + n] - 1.0) / math.sqrt(fan_in)).view(shape)
-        at += n
+        n, i = math.prod(shape), at[kind]
+        x = drawn[kind][i:i + n]
+        at[kind] = i + n
+        if kind == "uniform":
+            out[name] = ((2.0 * x - 1.0) / math.sqrt(arg)).view(shape)
+        else:
+            out[name] = (x * arg).view(shape)
     return out

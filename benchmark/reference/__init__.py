@@ -11,11 +11,21 @@ updates again from the benchmark's corpus and first weights.
   cross-entropy, gradient-value clipping, Adam with L2 weight decay,
   OneCycle, the batch order, and :func:`.common.follow`, which runs the
   first training steps.
-- ``models/<model>.py``: a model's forward from a parameter dict.
+- ``models/<family>.py``: a model family, named by a configuration's
+  ``family``.  It gives ``forward(params, x, ops, config)``, the forward
+  from a parameter dict; ``param_specs(config)``, (name, shape, init) of
+  every parameter in the model's order, ``init`` being ``("uniform",
+  fan_in)``, ``("normal", std)`` or ``("fill", value)``, from which
+  ``benchmark/inputs.py::make_weights`` draws the first weights; and
+  ``forward_macs(config)``, the forward's multiply-adds for one sample,
+  which ``benchmark/counts.py`` turns into ``step_mfu``'s operations.
 - ``plans/<method>.py``: a method's host plan and its mix.
 
 Module files are found by name (:func:`load`), so a configuration or a
-method that a later change adds brings a file of its own.
+method that a later change adds brings a file of its own: a model whose
+parameters are not the convolution and BatchNorm pairs of a layer table
+is a configuration file (``configs/<name>.json``) and a family file here,
+with no edit elsewhere.
 """
 
 from __future__ import annotations

@@ -22,7 +22,12 @@ def test_faults_are_mended():
     from pcgmix_tpu_torch.augment import engine
     from pcgmix_tpu_torch.train import steps
 
-    before = (steps.selc_update, engine.pcgmix_plus_fused, engine.piecewise_mix_batch)
+    def patched():
+        return (steps.selc_update, engine.pcgmix_plus_fused, engine.piecewise_mix_batch,
+                steps.ScalarFedUpdate.apply)
+
+    before = patched()
     harness.measure(tiny_cell(CELLS[0]), 3, 0.0, False, torch.device("cpu"),
-                    faults=(faults.half_batch, faults.altered_mix), limits=TINY_LIMITS)
-    assert (steps.selc_update, engine.pcgmix_plus_fused, engine.piecewise_mix_batch) == before
+                    faults=(faults.half_batch, faults.altered_mix, faults.frozen),
+                    limits=TINY_LIMITS)
+    assert patched() == before
